@@ -5,22 +5,30 @@
 
 Run from the root of a checkout.  It
 
-1. builds the four CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+1. builds the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    per source, in parallel), prints the build seconds and the card's name
    and power limit, and turns TF32 off for matmuls and convolutions;
-2. holds every kernel against its plain PyTorch version on the card, at
-   the CNN's shapes for widths p = 1, 2, 3 (all three composition modes,
-   strides 1 and 2, compose with a client axis C = 4), forward and
-   gradient through each autograd Function, and times kernel, plain
-   version and, where one PyTorch call computes the same function, that
-   call (the port never calls it);
-3. drives the port's main path — ``run_scheme``-style runs of 3 rounds on
+2. holds every kernel against its plain PyTorch version on the card: the
+   four composition kernels at the CNN's shapes for widths p = 1, 2, 3
+   (all three composition modes, strides 1 and 2, compose with a client
+   axis C = 4), forward and gradient through each autograd Function; the
+   two attention kernels in f32 and bf16 at the transformer path's
+   shapes, the reference's sweep shapes and in model layout through
+   ``kernels.ops``.  It times kernel, plain version and, where one
+   PyTorch call computes the same function, that call (the port never
+   calls it), at the main path's widest shapes and, for the attention
+   kernels, at one realistic shape each;
+3. drives the port's main paths, with the launch counts set to 0 just
+   before each and read just after, each checked against the same run on
+   the CPU (the plain versions, which the CPU tests hold to the JAX
+   package) — ``run_scheme``-style runs of 3 rounds on
    ``build_image_setup(num_clients=10)``, 4 clients per round, host merge:
    (a) heroes/materialize, (b) heroes/rank_space, (c) heroes/auto with the
-   calibration pinned, (d) fedavg — with the launch counts set to 0 just
-   before each run and read just after, and checks each run against the
-   same run on the CPU (the plain versions, which the CPU tests hold to
-   the JAX package);
+   calibration pinned, (d) fedavg; (e) the composed transformer on
+   ``build_text_setup(num_clients=8)``: heroes/rank_space and fedavg for
+   3 rounds, then greedy-decode serving of the heroes weights at widths
+   1, 2, 3; (f) ``kernels.ops.flash_attention`` / ``decode_attention`` at
+   a GQA shape;
 4. traces one round of (c) with ``torch.profiler`` (device busy share,
    top kernels);
 5. prints the ``kernels`` JSON line, the card line, and last
@@ -41,14 +49,25 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FFMA FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FFMA FLOP/s and
+# dense bf16 tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 DENSE_TOL = 2e-5  # compose / rank_apply / compose_apply, f32 FFMA sums
 CONV_TOL = 2e-4   # conv_rank: k*k*I-term sums, as in the CPU tests
 GRAD_TOL = 1e-4   # gradients: the backward is plain PyTorch on both sides
 CONV_GRAD_TOL = 5e-4  # conv gradients sum over every output pixel
+# attention kernels: tests/test_kernels.py's tolerances per type
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the attention kernels' realistic timing shapes:
+# decode: configs/shapes.py decode_32k (batch 128, 32k cache) on
+# gemma_2b's attention (8 query heads on 1 KV head, head_dim 256);
+# flash: train_4k (4096 tokens, batch cut from 256 to 2) on stablelm_3b's
+# attention (32 heads, 32 KV heads, head_dim 80), causal
+DECODE_AT_SCALE = dict(B=128, H=8, KV=1, S=32768, D=256)
+FLASH_AT_SCALE = dict(B=2, H=32, S=4096, D=80)
 
 DEVICE = "cuda"
 
@@ -61,6 +80,10 @@ KERNEL_META = {
                    "src/repro/kernels/compose.py:247"),
     "compose_apply": ("src/repro_torch/csrc/compose_apply.cu",
                       "src/repro/kernels/compose.py:429"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:95"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:98"),
 }
 
 
@@ -128,11 +151,13 @@ def call_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: int, flops: int) -> tuple[float, str]:
+def bound(nbytes: int, flops: int,
+          peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     """Least time for the work on an H100 at full power: the larger of
-    bytes over the memory rate and f32 FLOPs over the FFMA peak, in ms."""
+    bytes over the memory rate and FLOPs over the peak for their type
+    (f32 FFMA by default, ``PEAK_BF16_FLOPS`` for bf16 work), in ms."""
     t_bytes = nbytes / PEAK_BYTES_S
-    t_ops = flops / PEAK_F32_FLOPS
+    t_ops = flops / peak_flops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -222,6 +247,31 @@ def check_kernels(torch, rt):
                 _compose_apply_math(xg, v, u3), DENSE_TOL,
                 f"compose_apply {mode} p={p} xg{tuple(xg.shape)}"))
 
+    # the composed transformer's layers (d_base 16, ff 32, rank 8, vocab
+    # 64) over B*T = 256 rows: square projections and MLP, the grow_in
+    # head; its compose shapes too
+    for p in (1, 2, 3):
+        for layer, (mode, I, O) in {"wq/wk/wv/wo": ("square", 16, 16),
+                                    "up": ("square", 16, 32),
+                                    "down": ("square", 32, 16),
+                                    "head": ("grow_in", 16, 64)}.items():
+            m = p * p if mode == "square" else p
+            xg, v, u = rn(256, p, I, scale=1.0), rn(I, 8), rn(m, 8, O)
+            u2 = _u2_layout(u, p, mode).contiguous()
+            u3 = u2.reshape(p, 8, -1).contiguous()
+            what = f"transformer {layer} {mode} p={p} xg{tuple(xg.shape)}"
+            maxerr["rank_apply"] = max(maxerr["rank_apply"], err(
+                torch, rank_apply_kernel(xg, v, u2), _fwd_math(xg, v, u2),
+                DENSE_TOL, f"rank_apply {what}"))
+            maxerr["compose_apply"] = max(maxerr["compose_apply"], err(
+                torch, compose_apply_kernel(xg, v, u3),
+                _compose_apply_math(xg, v, u3), DENSE_TOL,
+                f"compose_apply {what}"))
+            vb = v[None]
+            maxerr["compose"] = max(maxerr["compose"], err(
+                torch, compose_kernel(vb, u), ref.compose_ref(vb, u),
+                DENSE_TOL, f"compose {what}"))
+
     # conv_rank: all modes x p x stride at the 8x8 input, and conv3's 4x4
     conv_cases = []
     for mode in modes:
@@ -288,7 +338,10 @@ def check_kernels(torch, rt):
         fn=lambda: conv_rank_kernel(xc, vc, u2c, p=3, mode="square",
                                     stride=2),
         plain=lambda: _fused_math(xc, vc, u2c, 3, "square", 2),
+        # no single PyTorch call takes (x, basis, coeff): the two-call
+        # reference is compose (einsum) + F.conv2d on the composed weight
         library=None,
+        two_call=lambda: ref.conv_rank_ref(xc, vc, uc, 3, "square", 2),
         nbytes=f32 * (xc.numel() + vc.numel() + u2c.numel() + 16 * 16 * 24),
         flops=2 * 16 * 16 * (3 * 9 * 8 * 8 + 24 * 24))
     # dense primitives: fc grow_in p=3, xg (16,3,8), v (8,8), u2 (24,10)
@@ -316,6 +369,8 @@ def check_kernels(torch, rt):
                               if t["library"] else None),
                "call_ms": call_ms(torch, t["fn"]),
                "plain_call_ms": call_ms(torch, t["plain"])}
+        if t.get("two_call"):
+            rec["two_call_ms"] = device_ms(torch, t["two_call"])
         rec["bound_ms"], rec["bound_by"] = bound(t["nbytes"], t["flops"])
         rec["shape"] = t["shape"]
         rec["max_abs_err"] = maxerr[name]
@@ -324,7 +379,262 @@ def check_kernels(torch, rt):
               f"{rec['plain_ms']:.5f} library_ms {rec['library_ms']} "
               f"bound_ms {rec['bound_ms']:.6f} ({rec['bound_by']}) "
               f"call_ms {rec['call_ms']:.5f} plain_call_ms "
-              f"{rec['plain_call_ms']:.5f} [{t['shape']}]")
+              f"{rec['plain_call_ms']:.5f}"
+              + (f" two_call_ms {rec['two_call_ms']:.5f}"
+                 if "two_call_ms" in rec else "") + f" [{t['shape']}]")
+    return records
+
+
+def _flat_decode(q, k, v, lengths):
+    """Model layout -> the decode kernel's rows (q (B,1,KV,G,D), caches
+    (B,S,KV,D), lengths (B,)), for the plain version."""
+    B, _, KV, G, D = q.shape
+    S = k.shape[1]
+    return (q[:, 0].reshape(B * KV * G, D).contiguous(),
+            k.permute(0, 2, 1, 3).reshape(B * KV, S, D).contiguous(),
+            v.permute(0, 2, 1, 3).reshape(B * KV, S, D).contiguous(),
+            lengths.repeat_interleave(KV * G), G)
+
+
+def _flat_flash(q, k, v):
+    """Model layout -> the flash kernel's rows (q (B,S,KV,G,D), k/v
+    (B,S,KV,D)), for the plain version."""
+    B, S, KV, G, D = q.shape
+    return (q.permute(0, 2, 3, 1, 4).reshape(B * KV * G, S, D).contiguous(),
+            k.permute(0, 2, 1, 3).reshape(B * KV, S, D).contiguous(),
+            v.permute(0, 2, 1, 3).reshape(B * KV, S, D).contiguous(), G)
+
+
+def _causal_pairs(sq: int, sk: int, window: int = 0) -> int:
+    """Unmasked (query, key) pairs of one causal head: the work the
+    kernel's data needs."""
+    off = sk - sq
+    n = 0
+    for i in range(sq):
+        hi = min(sk, i + off + 1)
+        lo = max(0, i + off - window + 1) if window > 0 else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def check_attention(torch):
+    """Phase 2 for the two attention kernels, f32 and bf16.  Returns
+    their timing records."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.decode_attention import (_decode_math,
+                                                      decode_attention)
+    from repro_torch.kernels.flash_attention import (_flash_math,
+                                                     flash_attention)
+
+    gen = torch.Generator().manual_seed(1)
+    dev = torch.device(DEVICE)
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen).to(dev,
+                                                              torch.int32)
+
+    maxerr = {"decode_attention": 0.0, "flash_attention": 0.0}
+
+    def keep(name, e):
+        maxerr[name] = max(maxerr[name], e)
+
+    print("phase 2: attention kernels vs plain versions (f32 and bf16)")
+    for dtype in (torch.float32, torch.bfloat16):
+        tn = str(dtype).split(".")[1]
+        tol = ATTN_TOL[tn]
+        # the transformer path's decode: batch 4, 2p heads of head_dim 8,
+        # a 40-slot cache (prompt 8 + 32 steps), lengths 1..40
+        for p in (1, 2, 3):
+            BH = 4 * 2 * p
+            q, k, v = (rn(BH, 8, dtype=dtype), rn(BH, 40, 8, dtype=dtype),
+                       rn(BH, 40, 8, dtype=dtype))
+            lens = ri(1, 41, (BH,))
+            keep("decode_attention", err(
+                torch, decode_attention(q, k, v, lens),
+                _decode_math(q, k, v, lens), tol,
+                f"decode_attention {tn} transformer p={p} q({BH},8) "
+                "cache 40"))
+        # the reference's sweep, in model layout through kernels.ops
+        for b, S, kv, g, d in ((2, 64, 2, 2, 32), (1, 500, 1, 8, 64),
+                               (4, 33, 4, 1, 16)):
+            q, k, v = (rn(b, 1, kv, g, d, dtype=dtype),
+                       rn(b, S, kv, d, dtype=dtype),
+                       rn(b, S, kv, d, dtype=dtype))
+            lens = ri(1, S + 1, (b,))
+            got = ops.decode_attention(q, k, v, lens)
+            want = _decode_math(*_flat_decode(q, k, v, lens))
+            keep("decode_attention", err(
+                torch, got, want.reshape(got.shape), tol,
+                f"ops.decode_attention {tn} b={b} S={S} kv={kv} g={g} "
+                f"d={d}"))
+            if dtype == torch.float32:
+                qf, kf, vf, lf, _ = _flat_decode(q, k, v, lens)
+                err(torch, got, ref.decode_attention_ref(
+                    qf, kf.repeat_interleave(g, 0),
+                    vf.repeat_interleave(g, 0), lf).reshape(got.shape),
+                    tol, f"ops.decode_attention {tn} b={b} S={S} vs oracle")
+        # head_dim 256 (the kernel's widest) and lengths down to 0
+        q, k, v = (rn(8, 256, dtype=dtype), rn(2, 1000, 256, dtype=dtype),
+                   rn(2, 1000, 256, dtype=dtype))
+        lens = ri(0, 1001, (8,))
+        keep("decode_attention", err(
+            torch, decode_attention(q, k, v, lens, q_per_kv=4),
+            _decode_math(q, k, v, lens, 4), tol,
+            f"decode_attention {tn} q(8,256) kv(2,1000,256) G=4 ragged"))
+
+        for b, S, kv, g, d, w in ((1, 64, 1, 1, 32, 0), (2, 100, 2, 3, 32, 0),
+                                  (1, 128, 4, 1, 64, 32),
+                                  (2, 33, 1, 4, 16, 8)):
+            q, k, v = (rn(b, S, kv, g, d, dtype=dtype),
+                       rn(b, S, kv, d, dtype=dtype),
+                       rn(b, S, kv, d, dtype=dtype))
+            got = ops.flash_attention(q, k, v, window=w)
+            qf, kf, vf, G = _flat_flash(q, k, v)
+            want = _flash_math(qf, kf, vf, True, w, G)
+            want = want.reshape(b, kv, g, S, d).permute(0, 3, 1, 2, 4)
+            keep("flash_attention", err(
+                torch, got, want, tol,
+                f"ops.flash_attention {tn} b={b} S={S} kv={kv} g={g} d={d} "
+                f"window={w}"))
+            if dtype == torch.float32:
+                o = ref.attention_ref(qf, kf.repeat_interleave(G, 0),
+                                      vf.repeat_interleave(G, 0), window=w)
+                err(torch, got,
+                    o.reshape(b, kv, g, S, d).permute(0, 3, 1, 2, 4), tol,
+                    f"ops.flash_attention {tn} b={b} S={S} vs oracle")
+        # Sq < Sk, head_dim 256 (dynamic shared memory past 48 KB),
+        # non-causal with and without a window
+        for BKV, G, Sq, Sk, D, causal, w in ((2, 1, 70, 130, 256, True, 0),
+                                             (2, 2, 64, 64, 80, False, 0),
+                                             (1, 1, 50, 50, 80, False, 16)):
+            q, k, v = (rn(BKV * G, Sq, D, dtype=dtype),
+                       rn(BKV, Sk, D, dtype=dtype),
+                       rn(BKV, Sk, D, dtype=dtype))
+            keep("flash_attention", err(
+                torch, flash_attention(q, k, v, causal=causal, window=w,
+                                       q_per_kv=G),
+                _flash_math(q, k, v, causal, w, G), tol,
+                f"flash_attention {tn} q({BKV * G},{Sq},{D}) "
+                f"kv({BKV},{Sk},{D}) causal={causal} window={w}"))
+
+    # no backward, as in the reference: asking for one raises
+    for name, fn in (("decode_attention", lambda a: decode_attention(
+            a, rn(4, 40, 8), rn(4, 40, 8), ri(1, 41, (4,)))),
+                     ("flash_attention", lambda a: flash_attention(
+            a[:, None].expand(4, 40, 8).contiguous(), rn(4, 40, 8),
+            rn(4, 40, 8)))):
+        try:
+            fn(rn(4, 8).requires_grad_())
+        except RuntimeError as e:
+            check("no backward" in str(e), f"{name}: wrong error {e}")
+        else:
+            raise SmokeFailure(f"{name} accepted an input that needs grad")
+    print("  both refuse inputs that require grad")
+
+    print("phase 2: attention timing (main-path shapes and one realistic "
+          "shape each)")
+    records = {}
+
+    def timed(name, label, shape, fn, plain, library, nbytes, flops, peak,
+              big):
+        if big:  # ms-scale calls: events around eager calls
+            t = lambda f: call_ms(torch, f, iters=3, warmup=1)  # noqa: E731
+        else:
+            t = lambda f: device_ms(torch, f)  # noqa: E731
+        rec = {"ms": t(fn), "plain_ms": t(plain),
+               "library_ms": t(library) if library else None,
+               "call_ms": call_ms(torch, fn, iters=3 if big else 200,
+                                  warmup=1 if big else 20),
+               "plain_call_ms": call_ms(torch, plain, iters=3 if big else 200,
+                                        warmup=1 if big else 20)}
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, peak)
+        rec["shape"] = shape
+        print(f"  {name} [{label}] kernel_ms {rec['ms']:.5f} plain_ms "
+              f"{rec['plain_ms']:.5f} library_ms {rec['library_ms']} "
+              f"bound_ms {rec['bound_ms']:.6f} ({rec['bound_by']}) call_ms "
+              f"{rec['call_ms']:.5f} [{shape}]")
+        return rec
+
+    # decode, main path (e)'s widest call: width 3, batch 4 -> 24 rows,
+    # head_dim 8, the last step (all 40 cache slots valid), f32
+    B, H, S, D = 4, 6, 40, 8
+    q, k, v = rn(B * H, D), rn(B * H, S, D), rn(B * H, S, D)
+    lens = torch.full((B * H,), S, dtype=torch.int32, device=dev)
+    path = timed(
+        "decode_attention", "path (e)", "q (24,8) kv (24,40,8) f32, "
+        "lengths 40", lambda: decode_attention(q, k, v, lens),
+        lambda: _decode_math(q, k, v, lens),
+        lambda: F.scaled_dot_product_attention(
+            q.view(B, H, 1, D), k.view(B, H, S, D), v.view(B, H, S, D)),
+        4 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lens.numel(),
+        4 * D * int(lens.sum()), PEAK_F32_FLOPS, big=False)
+    # decode, realistic (DECODE_AT_SCALE), bf16, every length full
+    B, H, KV, S, D = (DECODE_AT_SCALE[x] for x in ("B", "H", "KV", "S", "D"))
+    bf = torch.bfloat16
+    q = rn(B * H, D, dtype=bf)
+    k = torch.randn((B * KV, S, D), device=dev, dtype=bf)
+    v = torch.randn((B * KV, S, D), device=dev, dtype=bf)
+    lens = torch.full((B * H,), S, dtype=torch.int32, device=dev)
+    e = err(torch, decode_attention(q, k, v, lens, q_per_kv=H // KV),
+            _decode_math(q, k, v, lens, H // KV), ATTN_TOL["bfloat16"],
+            "decode_attention bf16 decode_32k gemma_2b")
+    keep("decode_attention", e)
+    real = timed(
+        "decode_attention", "decode_32k x gemma_2b",
+        f"q ({B * H},{D}) kv ({B * KV},{S},{D}) bf16 G={H // KV}, lengths "
+        f"{S}",
+        lambda: decode_attention(q, k, v, lens, q_per_kv=H // KV),
+        lambda: _decode_math(q, k, v, lens, H // KV),
+        lambda: F.scaled_dot_product_attention(
+            q.view(B, H, 1, D), k.view(B, KV, S, D), v.view(B, KV, S, D),
+            enable_gqa=True),
+        2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lens.numel(),
+        4 * D * int(lens.sum()), PEAK_BF16_FLOPS, big=True)
+    records["decode_attention"] = dict(path, at_scale=real)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # flash, main path (f)'s call: batch 2, 256 tokens, 2 KV heads x 4
+    # query heads, head_dim 64, causal, f32
+    B, S, KV, G, D = 2, 256, 2, 4, 64
+    q, k, v = rn(B * KV * G, S, D), rn(B * KV, S, D), rn(B * KV, S, D)
+    pairs = B * KV * G * _causal_pairs(S, S)
+    path = timed(
+        "flash_attention", "path (f)", "q (16,256,64) kv (4,256,64) f32 "
+        "G=4 causal", lambda: flash_attention(q, k, v, q_per_kv=G),
+        lambda: _flash_math(q, k, v, True, 0, G),
+        lambda: F.scaled_dot_product_attention(
+            q.view(B, KV * G, S, D), k.view(B, KV, S, D),
+            v.view(B, KV, S, D), is_causal=True, enable_gqa=True),
+        4 * (2 * q.numel() + k.numel() + v.numel()), 4 * D * pairs,
+        PEAK_F32_FLOPS, big=False)
+    # flash, realistic (FLASH_AT_SCALE), causal, bf16
+    B, H, S, D = (FLASH_AT_SCALE[x] for x in ("B", "H", "S", "D"))
+    q, k, v = (rn(B * H, S, D, dtype=bf), rn(B * H, S, D, dtype=bf),
+               rn(B * H, S, D, dtype=bf))
+    e = err(torch, flash_attention(q, k, v), _flash_math(q, k, v),
+            ATTN_TOL["bfloat16"], "flash_attention bf16 train_4k stablelm_3b")
+    keep("flash_attention", e)
+    pairs = B * H * _causal_pairs(S, S)
+    real = timed(
+        "flash_attention", "train_4k x stablelm_3b",
+        f"q/k/v ({B * H},{S},{D}) bf16 causal",
+        lambda: flash_attention(q, k, v),
+        lambda: _flash_math(q, k, v),
+        lambda: F.scaled_dot_product_attention(
+            q.view(B, H, S, D), k.view(B, H, S, D), v.view(B, H, S, D),
+            is_causal=True),
+        2 * 4 * q.numel(), 4 * D * pairs, PEAK_BF16_FLOPS, big=True)
+    records["flash_attention"] = dict(path, at_scale=real)
+    del q, k, v
+    torch.cuda.empty_cache()
+    for name in records:
+        records[name]["max_abs_err"] = maxerr[name]
     return records
 
 
@@ -341,17 +651,33 @@ PATHS = {
           {"compose", "conv_rank", "compose_apply"}),
     "d": ("fedavg", dict(forward_impl="materialize"), set()),
 }
+# path (e): the composed transformer trains, then serves
+TEXT_RUNS = {
+    "heroes": dict(forward_impl="rank_space"),
+    "fedavg": dict(forward_impl="materialize"),
+}
+TEXT_EXPECT = {"decode_attention", "compose", "rank_apply"}
 ROUNDS = 3
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 8, 32
 
 
-def run_path(torch, label, device):
+def run_path(torch, setup, scheme, knobs, device):
+    """``ROUNDS`` rounds of ``scheme`` on the image (CNN, 10 clients) or
+    text (transformer, 8 clients) setup; returns (runner, seconds per
+    round, summary)."""
     from repro_torch.fl import (FLConfig, build_image_setup, build_runner,
-                                summarize)
+                                build_text_setup, summarize)
 
-    scheme, knobs, _ = PATHS[label]
-    model, px, py, tb = build_image_setup(num_clients=10, device=device)
-    cfg = FLConfig(num_clients=10, clients_per_round=4, agg_backend="host",
-                   eval_every=1, **knobs)
+    if setup == "image":
+        model, px, py, tb = build_image_setup(num_clients=10, device=device)
+        cfg = FLConfig(num_clients=10, clients_per_round=4,
+                       agg_backend="host", eval_every=1, **knobs)
+    else:
+        model, px, py, tb = build_text_setup(
+            num_clients=8, max_width=3, seed=0, model_name="transformer",
+            device=device)
+        cfg = FLConfig(num_clients=8, clients_per_round=4, batch_size=8,
+                       agg_backend="host", eval_every=1, **knobs)
     runner = build_runner(scheme, model, px, py, tb, cfg=cfg, device=device)
     secs = []
     for _ in range(ROUNDS):
@@ -363,61 +689,177 @@ def run_path(torch, label, device):
     return runner, secs, summarize(runner.history)
 
 
-def main_path(torch, rt):
+def train_path(torch, label, setup, scheme, knobs, expect):
+    """Drive one training run on the card with the launch counts set to 0
+    just before it, check it, and hold it against the same run on the
+    CPU.  Returns (runner, launch counts)."""
     from repro_torch.convert import to_numpy
     from repro_torch.core.estimator import tree_leaves
-    from repro_torch.kernels import KERNELS, LAUNCHES, reset_launches
+    from repro_torch.kernels import LAUNCHES, reset_launches
 
     import numpy as np
 
-    print(f"phase 3: main path, {ROUNDS} rounds each, 10 clients, 4 per "
-          "round, host merge")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    runner, secs, summ = run_path(torch, setup, scheme, knobs, DEVICE)
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    hist = runner.history
+    accs = [h.accuracy for h in hist]
+    loss = runner.bound_state.loss0
+    print(f"  ({label}) {scheme} {knobs}: seconds per round "
+          f"{[round(s, 4) for s in secs]} mean {sum(secs) / ROUNDS:.4f}; "
+          f"peak memory above the run's start {peak} B")
+    print(f"      summarize {json.dumps(summ)}")
+    print(f"      accuracy per round {accs}; loss0 {loss}; "
+          f"launches {counts}")
+    check(all(a is not None and math.isfinite(a) for a in accs),
+          f"({label}) non-finite accuracy")
+    check(math.isfinite(loss), f"({label}) non-finite loss")
+    check(all(bool(torch.isfinite(t).all())
+              for t in tree_leaves(runner.params)),
+          f"({label}) non-finite params")
+    for k in expect:
+        check(counts[k] > 0, f"({label}) never launched {k}")
+
+    # the same run on the CPU: plain versions, same data and weights
+    cpu, _, _ = run_path(torch, setup, scheme, knobs, "cpu")
+    n_test = int(cpu.test_batch["labels"].shape[0])
+    for a, b in zip(hist, cpu.history):
+        check((a.traffic_bytes, a.makespan, a.mean_tau) ==
+              (b.traffic_bytes, b.makespan, b.mean_tau),
+              f"({label}) round {a.round} schedule differs from CPU")
+        check(abs(a.accuracy - b.accuracy) <= 2.0 / n_test,
+              f"({label}) round {a.round} accuracy differs from CPU")
+    gp, cp = to_numpy(runner.params), to_numpy(cpu.params)
+    diff = max(float(np.abs(x - y).max())
+               for x, y in zip(tree_leaves(gp), tree_leaves(cp)))
+    print(f"      vs the CPU run: schedule equal, accuracy "
+          f"{[h.accuracy for h in cpu.history]}, max param diff "
+          f"{diff:.3e}")
+    check(diff <= 1e-3, f"({label}) params differ from the CPU run")
+    return runner, counts
+
+
+def serve_path(torch, model, params):
+    """Path (e)'s serving half: compose the heroes weights once per width
+    and greedy-decode ``SERVE_STEPS`` tokens for ``SERVE_BATCH`` prompts
+    through the decode-attention kernel; the same weights on the CPU must
+    decode the same tokens, and the full-sequence training forward on the
+    card must predict the generated continuation."""
+    from repro_torch.fl import greedy_decode, serving_weights
+
+    import numpy as np
+
+    prompt = (np.arange(SERVE_BATCH * SERVE_PROMPT, dtype=np.int32)
+              .reshape(SERVE_BATCH, SERVE_PROMPT) % model.num_classes)
+    for width in (1, 2, 3):
+        w = serving_weights(model, params, width)
+        greedy_decode(model, w, width, prompt, SERVE_STEPS)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, logits = greedy_decode(model, w, width, prompt, SERVE_STEPS)
+        dt = time.perf_counter() - t0
+        n = toks.size
+        wc = {k: t.cpu() for k, t in w.items()}
+        toks_c, logits_c = greedy_decode(model, wc, width, prompt,
+                                         SERVE_STEPS)
+        rel = float(np.abs(logits - logits_c).max()
+                    / max(1.0, float(np.abs(logits_c).max())))
+        seq = torch.as_tensor(np.concatenate([prompt, toks], axis=1),
+                              device=DEVICE)
+        with torch.no_grad():
+            full = model.forward(w, width, {"tokens": seq})
+        pred = full.argmax(-1)[:, SERVE_PROMPT - 1:-1].cpu().numpy()
+        print(f"      serve width {width}: batch {SERVE_BATCH}, prompt "
+              f"{SERVE_PROMPT}, {SERVE_STEPS} steps: {dt:.4f} s, "
+              f"tokens/s {n / dt:.1f}; vs CPU decode: tokens equal "
+              f"{bool(np.array_equal(toks, toks_c))}, logits max rel diff "
+              f"{rel:.3e}; full forward predicts the continuation "
+              f"{bool(np.array_equal(pred, toks))}")
+        check(toks.shape == (SERVE_BATCH, SERVE_STEPS),
+              f"(e) width {width}: tokens of shape {toks.shape}")
+        check(bool(np.isfinite(logits).all()),
+              f"(e) width {width}: non-finite logits")
+        check(np.array_equal(toks, toks_c),
+              f"(e) width {width}: tokens differ from the CPU decode")
+        check(rel <= 1e-4, f"(e) width {width}: logits differ from the CPU "
+                           "decode")
+        check(np.array_equal(pred, toks),
+              f"(e) width {width}: the full forward disagrees with decode")
+
+
+def ops_path(torch):
+    """Path (f): ``kernels.ops.flash_attention`` and ``decode_attention``
+    in model layout at a GQA shape (batch 2, 256 tokens, 2 KV heads x 4
+    query heads, head_dim 64), f32 and bf16, each held against the same
+    call on the CPU (the plain versions)."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator().manual_seed(2)
+    B, S, KV, G, D = 2, 256, 2, 4, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        tn = str(dtype).split(".")[1]
+        q = torch.randn((B, S, KV, G, D), generator=gen).to(dtype)
+        k = torch.randn((B, S, KV, D), generator=gen).to(dtype)
+        v = torch.randn((B, S, KV, D), generator=gen).to(dtype)
+        lens = torch.tensor([S, S // 2 + 3], dtype=torch.int32)
+        qd, kd, vd, ld = (t.to(DEVICE) for t in (q, k, v, lens))
+        out = ops.flash_attention(qd, kd, vd)
+        dec = ops.decode_attention(qd[:, -1:], kd, vd, ld)
+        check(tuple(out.shape) == (B, S, KV, G, D) and out.dtype == dtype,
+              f"(f) flash_attention {tn}: {tuple(out.shape)} {out.dtype}")
+        check(tuple(dec.shape) == (B, 1, KV, G, D) and dec.dtype == dtype,
+              f"(f) decode_attention {tn}: {tuple(dec.shape)} {dec.dtype}")
+        err(torch, out.cpu(), ops.flash_attention(q, k, v), ATTN_TOL[tn],
+            f"(f) ops.flash_attention {tn} vs the CPU")
+        err(torch, dec.cpu(), ops.decode_attention(q[:, -1:], k, v, lens),
+            ATTN_TOL[tn], f"(f) ops.decode_attention {tn} vs the CPU")
+
+
+def main_path(torch, rt):
+    from repro_torch.kernels import KERNELS, LAUNCHES, reset_launches
+
+    print(f"phase 3: main paths, {ROUNDS} rounds each, 4 clients per round, "
+          "host merge")
     launches = {k: 0 for k in KERNELS}
     by_path = {}
     for label, (scheme, knobs, expect) in PATHS.items():
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        runner, secs, summ = run_path(torch, label, DEVICE)
-        counts = dict(LAUNCHES)
-        peak = torch.cuda.max_memory_allocated() - base
-        by_path[label] = counts
+        _, by_path[label] = train_path(torch, label, "image", scheme, knobs,
+                                       expect)
+
+    # (e) the composed transformer: heroes and fedavg train, then the
+    # heroes weights serve
+    e_counts = {k: 0 for k in KERNELS}
+    runners = {}
+    for scheme, knobs in TEXT_RUNS.items():
+        runners[scheme], counts = train_path(torch, f"e {scheme}", "text",
+                                             scheme, knobs, set())
+        for k, n in counts.items():
+            e_counts[k] += n
+    heroes = runners["heroes"]
+    reset_launches()
+    serve_path(torch, heroes.model, heroes.params)
+    serve_counts = dict(LAUNCHES)
+    print(f"      serve launches {serve_counts}")
+    for k, n in serve_counts.items():
+        e_counts[k] += n
+    for k in TEXT_EXPECT:
+        check(e_counts[k] > 0, f"(e) never launched {k}")
+    by_path["e"] = e_counts
+
+    # (f) the kernels.ops entry point
+    reset_launches()
+    ops_path(torch)
+    by_path["f"] = dict(LAUNCHES)
+    print(f"  (f) kernels.ops attention: launches {by_path['f']}")
+    check(by_path["f"]["flash_attention"] > 0,
+          "(f) never launched flash_attention")
+
+    for counts in by_path.values():
         for k, n in counts.items():
             launches[k] += n
-        hist = runner.history
-        accs = [h.accuracy for h in hist]
-        loss = runner.bound_state.loss0
-        print(f"  ({label}) {scheme} {knobs}: seconds per round "
-              f"{[round(s, 4) for s in secs]} mean {sum(secs) / ROUNDS:.4f}; "
-              f"peak memory above the run's start {peak} B")
-        print(f"      summarize {json.dumps(summ)}")
-        print(f"      accuracy per round {accs}; loss0 {loss}; "
-              f"launches {counts}")
-        check(all(a is not None and math.isfinite(a) for a in accs),
-              f"({label}) non-finite accuracy")
-        check(math.isfinite(loss), f"({label}) non-finite loss")
-        check(all(bool(torch.isfinite(t).all())
-                  for t in tree_leaves(runner.params)),
-              f"({label}) non-finite params")
-        for k in expect:
-            check(counts[k] > 0, f"({label}) never launched {k}")
-
-        # the same run on the CPU: plain versions, same data and weights
-        cpu, _, _ = run_path(torch, label, "cpu")
-        n_test = int(cpu.test_batch["labels"].shape[0])
-        for a, b in zip(hist, cpu.history):
-            check((a.traffic_bytes, a.makespan, a.mean_tau) ==
-                  (b.traffic_bytes, b.makespan, b.mean_tau),
-                  f"({label}) round {a.round} schedule differs from CPU")
-            check(abs(a.accuracy - b.accuracy) <= 2.0 / n_test,
-                  f"({label}) round {a.round} accuracy differs from CPU")
-        gp, cp = to_numpy(runner.params), to_numpy(cpu.params)
-        diff = max(float(np.abs(x - y).max())
-                   for x, y in zip(tree_leaves(gp), tree_leaves(cp)))
-        print(f"      vs the CPU run: schedule equal, accuracy "
-              f"{[h.accuracy for h in cpu.history]}, max param diff "
-              f"{diff:.3e}")
-        check(diff <= 1e-3, f"({label}) params differ from the CPU run")
     for k in KERNELS:
         check(launches[k] > 0, f"kernel {k} never launched on the main path")
     return launches, by_path
@@ -487,6 +929,7 @@ def main() -> int:
           f"(per source {json.dumps({k: round(v, 2) for k, v in secs.items()})})")
 
     records = check_kernels(torch, rt)
+    records.update(check_attention(torch))
     launches, by_path = main_path(torch, rt)
     trace_round(torch)
 
@@ -504,6 +947,9 @@ def main() -> int:
             "shape": rec["shape"],
             "launches_by_path": {k: v[name] for k, v in by_path.items()},
         })
+        for extra in ("two_call_ms", "at_scale"):
+            if extra in rec:
+                kernels[-1][extra] = rec[extra]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Carry parameter trees between the JAX package and this port.
 
 The JAX package keeps its parameters as pytrees of arrays: nested dicts of
-``{"basis", "coeff"}`` factors per layer, or dense ``(ksq, I, O)`` weights.
+``{"basis", "coeff"}`` factors per layer, or dense ``(ksq, I, O)`` weights
+(the CNN's and the composed transformer's alike, keyed by layer name).
 Both packages use the same layouts (HWIO-ordered ``(ksq, I, O)`` weights,
 ``(ksq, I, R)`` bases, ``(blocks, R, O)`` coefficients), so converting is a
 copy.  The caller turns the pytree into numpy first (``jax.device_get``),

@@ -1,7 +1,8 @@
 """Federated dataset subsystem: the dataset and partitioner registries
 and the client data pipeline (numpy host arrays, tensors on the device).
 
-Only the ``synthetic_image`` dataset is registered in this port so far.
+The ``synthetic_image`` and ``synthetic_text`` datasets are registered in
+this port so far.
 """
 
 from repro_torch.data.base import (  # noqa: F401
@@ -26,4 +27,8 @@ from repro_torch.data.streaming import (  # noqa: F401
     round_batch_indices,
     to_batch,
 )
-from repro_torch.data.synthetic import SyntheticImageTask  # noqa: F401
+from repro_torch.data.synthetic import (  # noqa: F401
+    SyntheticImageTask,
+    SyntheticTextTask,
+    lm_batches,
+)

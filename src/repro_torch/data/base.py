@@ -9,6 +9,7 @@ Metadata keys the rest of the system reads:
 
   modality          "image" | "text"
   num_classes       image tasks: label count (model output dim)
+  vocab             text tasks: token count (model output dim)
   partition_labels  optional (N,) labels the label-based partitioners
                     split on; defaults to ``y`` for image tasks
   source            "synthetic" for the generated stand-ins
@@ -23,8 +24,7 @@ import numpy as np
 import torch
 
 # datasets of the JAX package that later slices of the port bring in
-_LATER = {"synthetic_text": "ROADMAP queue A step 7 (rnn)",
-          "cifar10": "ROADMAP queue A step 7",
+_LATER = {"cifar10": "ROADMAP queue A step 7",
           "shakespeare": "ROADMAP queue A step 7 (rnn)"}
 
 
@@ -33,7 +33,9 @@ class FederatedDataset:
     """A task as named splits + metadata.
 
     ``splits[name] = (inputs, targets)``: for image tasks inputs are
-    ``(N, H, W, C)`` float32 and targets ``(N,)`` int labels.
+    ``(N, H, W, C)`` float32 and targets ``(N,)`` int labels; for text
+    tasks inputs are ``(N, T)`` int tokens and targets the ``(N, T)``
+    next tokens.
     """
 
     name: str
@@ -68,7 +70,13 @@ class FederatedDataset:
         labels = self.metadata.get("partition_labels")
         if labels is not None:
             return np.asarray(labels)
-        return self.y
+        if self.y.ndim == 1:
+            return self.y
+        # text: fall back to the speaker id, else the first input token
+        ids = self.metadata.get("natural_ids")
+        if ids is not None:
+            return np.asarray(ids)
+        return np.asarray(self.x[:, 0])
 
     def test_batch(self, device) -> Dict[str, torch.Tensor]:
         """The full test split as the batch dict the FL models consume,

@@ -1,9 +1,13 @@
-"""Synthetic in-memory image task (the offline stand-in).
+"""Synthetic in-memory tasks (the offline stand-ins).
 
 SyntheticImageTask — images from class-conditional Gaussians around fixed
 random prototypes: separable enough to show convergence curves, noisy
-enough to be non-trivial.  Generated with numpy from the seed, so the
-arrays are byte-identical to the JAX package's for the same seed.
+enough to be non-trivial.
+SyntheticTextTask — token sequences from a fixed sparse bigram table, for
+the char-LM / composed-transformer path.
+
+Both are generated with numpy from the seed, drawing in the reference's
+order, so the arrays are byte-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -45,6 +49,49 @@ class SyntheticImageTask:
         return x[perm], y[perm]
 
 
+@dataclasses.dataclass
+class SyntheticTextTask:
+    vocab: int = 64
+    seq_len: int = 32
+    num_train: int = 2000
+    num_test: int = 400
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        # fixed sparse bigram transition table -> predictable sequences
+        logits = rng.normal(0, 1, (self.vocab, self.vocab))
+        top = np.argsort(-logits, axis=1)[:, :4]
+        probs = np.zeros_like(logits)
+        for v in range(self.vocab):
+            probs[v, top[v]] = [0.55, 0.25, 0.15, 0.05]
+        self.table = probs
+
+        def gen(n):
+            seqs = np.zeros((n, self.seq_len + 1), np.int32)
+            state = rng.integers(0, self.vocab, n)
+            seqs[:, 0] = state
+            for t in range(1, self.seq_len + 1):
+                # one rng.choice per sequence per position: the
+                # reference's draw order, kept for byte-equal arrays
+                nxt = np.array([
+                    rng.choice(self.vocab, p=self.table[s]) for s in state
+                ])
+                seqs[:, t] = nxt
+                state = nxt
+            return seqs
+
+        self.train = gen(self.num_train)
+        self.test = gen(self.num_test)
+
+
+def lm_batches(seqs: np.ndarray, batch: int, rng: np.random.Generator):
+    """(tokens, labels) next-token batch from (N, L+1) sequences."""
+    idx = rng.integers(0, len(seqs), batch)
+    chunk = seqs[idx]
+    return chunk[:, :-1], chunk[:, 1:]
+
+
 @register_dataset("synthetic_image")
 def load_synthetic_image(seed: int = 0, noise: float = 1.2,
                          **task_kw) -> FederatedDataset:
@@ -57,4 +104,22 @@ def load_synthetic_image(seed: int = 0, noise: float = 1.2,
         metadata={"modality": "image", "num_classes": task.num_classes,
                   "hw": task.hw, "channels": task.channels,
                   "source": "synthetic", "seed": seed},
+    )
+
+
+@register_dataset("synthetic_text")
+def load_synthetic_text(seed: int = 0, **task_kw) -> FederatedDataset:
+    """SyntheticTextTask as a registry dataset.
+
+    No natural ids: the ``natural`` partitioner falls back to contiguous
+    shards, as in the reference.
+    """
+    task = SyntheticTextTask(seed=seed, **task_kw)
+    return FederatedDataset(
+        name="synthetic_text",
+        splits={"train": (task.train[:, :-1], task.train[:, 1:]),
+                "test": (task.test[:, :-1], task.test[:, 1:])},
+        metadata={"modality": "text", "vocab": task.vocab,
+                  "seq_len": task.seq_len, "source": "synthetic",
+                  "seed": seed},
     )

@@ -1,5 +1,6 @@
 """Federated-learning runtime: Heroes + the FedAvg baseline over a
-simulated heterogeneous edge network (paper Sec. III / VI)."""
+simulated heterogeneous edge network (paper Sec. III / VI), on the CNN
+and the composed transformer (training and greedy-decode serving)."""
 
 from repro_torch.fl.engine import (SCHEMES, EngineRunner, ServerState,
                                    build_engine, register_scheme)
@@ -8,7 +9,10 @@ from repro_torch.fl.models import (MODELS, ComposedLayer, FLModelDef,
                                    LayerHint, get_model, make_cnn,
                                    register_model)
 from repro_torch.fl.simulation import (build_image_setup, build_runner,
-                                       build_setup, run_scheme, summarize)
+                                       build_setup, build_text_setup,
+                                       run_scheme, summarize)
+from repro_torch.fl.transformer import (greedy_decode, make_transformer,
+                                        serving_weights)
 from repro_torch.fl.types import FLConfig, RoundLog
 
 __all__ = [
@@ -16,7 +20,8 @@ __all__ = [
     "register_scheme", "HeterogeneityModel",
     "MODELS", "ComposedLayer", "FLModelDef", "LayerHint", "get_model",
     "make_cnn", "register_model",
-    "build_image_setup", "build_runner", "build_setup", "run_scheme",
-    "summarize",
+    "build_image_setup", "build_runner", "build_setup", "build_text_setup",
+    "run_scheme", "summarize",
+    "make_transformer", "serving_weights", "greedy_decode",
     "FLConfig", "RoundLog",
 ]

@@ -28,8 +28,8 @@ under a ``forward_impl`` knob:
 Layers reach the card's kernels through those paths: ``compose`` (every
 materialised layer), ``conv_rank_apply`` (rank-space convs),
 ``rank_dense_apply`` (rank-space dense layers) and
-``compose_dense_apply`` (``fused_compose`` dense layers).  Only the CNN is
-ported so far.
+``compose_dense_apply`` (``fused_compose`` dense layers).  The CNN and
+the composed transformer (:mod:`repro_torch.fl.transformer`) are ported.
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.composition import (CompositionSpec, apply_factors,
                                           apply_flops, compose,
                                           compose_flops, conv_rank_overhead,
@@ -55,8 +56,7 @@ FORWARD_IMPLS = ("auto", "materialize", "rank_space")
 
 # models of the JAX package that later slices of the port bring in
 _LATER = {"resnet": "ROADMAP queue A step 7",
-          "rnn": "ROADMAP queue A step 7",
-          "transformer": "ROADMAP queue A step 10"}
+          "rnn": "ROADMAP queue A step 7"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +86,7 @@ class LayerHint:
         return self.apps_per_sample
 
 
-LAYER_KINDS = ("dense", "conv")
+LAYER_KINDS = ("dense", "conv", "embed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,8 +94,11 @@ class ComposedLayer:
     """One width-scalable layer: spec + application kind + auto-impl hint.
 
     Kinds:
-      dense  ``x @ W`` on the last axis (any leading shape);
-      conv   NHWC SAME conv, ``ksq`` taps, optional stride.
+      dense  ``x @ W`` on the last axis (any leading shape, so sequence
+             inputs ``(B, T, pI)`` work unchanged);
+      conv   NHWC SAME conv, ``ksq`` taps, optional stride;
+      embed  token gather; the rank path gathers R-length basis rows and
+             finishes with the coefficient contraction.
     """
 
     name: str
@@ -105,19 +108,21 @@ class ComposedLayer:
     hint: LayerHint = LayerHint()
 
     def __post_init__(self):
-        if self.kind == "embed":
-            raise NotImplementedError(
-                "embed layers are not ported yet (ROADMAP queue A step 7)")
         if self.kind not in LAYER_KINDS:
             raise ValueError(f"unknown layer kind {self.kind!r} "
                              f"(expected one of {LAYER_KINDS})")
         if self.kind != "conv" and self.spec.ksq != 1:
             raise ValueError(f"layer {self.name!r}: ksq={self.spec.ksq} "
                              f"requires kind='conv'")
+        if self.kind == "embed" and self.spec.mode != "grow_out":
+            raise ValueError(f"embed layer {self.name!r} must use "
+                             f"mode='grow_out' (vocab-anchored input)")
 
     def apply(self, entry, x: Tensor, width: int) -> Tensor:
         if self.kind == "conv":
             return _apply_conv(entry, x, width, self.spec, stride=self.stride)
+        if self.kind == "embed":
+            return _apply_embed(entry, x, width, self.spec)
         return _apply_dense(entry, x, width, self.spec)
 
 
@@ -149,7 +154,9 @@ class FLModelDef:
     def init_factorized(self, seed: int, device=None
                         ) -> Dict[str, Dict[str, Tensor]]:
         """Random factors from ``seed`` (a CPU torch generator, so a seed
-        gives the same factors on every device)."""
+        gives the same factors on every device), on ``device`` (the CUDA
+        card unless the caller asks for the CPU)."""
+        device = resolve_device(device)
         gen = torch.Generator().manual_seed(int(seed))
         out = {}
         for name, spec in self.specs.items():
@@ -284,6 +291,9 @@ class FLModelDef:
 
     # ---- dense parameterisation ------------------------------------------
     def init_dense(self, seed: int, device=None) -> Dict[str, Tensor]:
+        """Random width-P dense weights from ``seed``, on ``device`` (the
+        CUDA card unless the caller asks for the CPU)."""
+        device = resolve_device(device)
         gen = torch.Generator().manual_seed(int(seed))
         out = {}
         for name, spec in self.specs.items():
@@ -371,6 +381,18 @@ def _apply_dense(entry, x: Tensor, width: int, spec: CompositionSpec) -> Tensor:
         return apply_factors(x, entry["basis"], entry["coeff"], width, spec,
                              "dense")
     return x @ entry[0]
+
+
+def _apply_embed(entry, tokens: Tensor, width: int,
+                 spec: CompositionSpec) -> Tensor:
+    """Embedding lookup: gather the composed rows, or gather the R-dim
+    basis rows and finish with the coefficient contraction."""
+    idx = tokens.long()
+    if isinstance(entry, dict):
+        emb_r = entry["basis"][0][idx]  # (..., R)
+        y = torch.einsum("...r,bro->...bo", emb_r, entry["coeff"])
+        return y.reshape(y.shape[:-2] + (width * spec.base_out,))
+    return entry[0][idx]
 
 
 # ---------------------------------------------------------------------------

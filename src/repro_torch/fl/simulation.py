@@ -15,6 +15,7 @@ from repro_torch.data import load_dataset, make_shards, partition_dataset
 from repro_torch.fl.engine import build_engine
 from repro_torch.fl.heterogeneity import HeterogeneityModel
 from repro_torch.fl.models import FLModelDef, get_model
+from repro_torch.fl.transformer import make_transformer  # noqa: F401 — registers "transformer"
 from repro_torch.fl.types import FLConfig, RoundLog
 
 
@@ -62,6 +63,23 @@ def build_image_setup(model_name: str = "cnn", num_clients: int = 100,
     return build_setup(task, model_name, num_clients, max_width, seed,
                        partitioner=partitioner, partition_kw=partition_kw,
                        task_kw=task_kw, device=device)
+
+
+def build_text_setup(num_clients: int = 100, max_width: int = 3,
+                     seed: int = 0, *, task: str = "synthetic_text",
+                     model_name: Optional[str] = None,
+                     partitioner: str = "natural", partition_kw=None,
+                     task_kw=None, model_kw=None, device=None):
+    """Char-LM setup as a registry lookup.
+
+    The default ``natural`` partitioner falls back to contiguous shards
+    of the synthetic corpus.  ``model_name`` picks a registered text
+    model (``"transformer"`` for the composed-LLM path; the reference's
+    default ``"rnn"`` is not ported yet).
+    """
+    return build_setup(task, model_name, num_clients, max_width, seed,
+                       partitioner=partitioner, partition_kw=partition_kw,
+                       task_kw=task_kw, model_kw=model_kw, device=device)
 
 
 def build_runner(scheme: str, model: FLModelDef, parts_x, parts_y, test_batch,

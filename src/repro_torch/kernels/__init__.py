@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels for the composition hot path, and their build.
+"""Hand-written Hopper kernels of the port, and their build.
 
 Each kernel is CUDA C++ under ``repro_torch/csrc/`` with a plain C
 launcher.  It is compiled at first use with ``nvcc`` for ``sm_90a`` into
@@ -12,6 +12,10 @@ when this package is imported: the CPU tests import every module.
   compose_apply  fused compose+apply, the weight built in shared memory
   conv_rank      fused conv rank path: basis conv + coefficient contraction
                  (:mod:`repro_torch.kernels.conv_rank`)
+  decode_attention  one query per row over a ragged KV cache, online
+                 softmax (:mod:`repro_torch.kernels.decode_attention`)
+  flash_attention   blockwise streaming-softmax attention with causal and
+                 window masks (:mod:`repro_torch.kernels.flash_attention`)
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel for a tensor on a CUDA device; any other device
@@ -47,6 +51,8 @@ _SIGNATURES = {
     "rank_apply": ("rank_apply_f32", [_P] * 4 + [_I] * 6 + [_P]),
     "compose_apply": ("compose_apply_f32", [_P] * 4 + [_I] * 7 + [_P]),
     "conv_rank": ("conv_rank_f32", [_P] * 4 + [_I] * 14 + [_P]),
+    "decode_attention": ("decode_attention", [_P] * 5 + [_I] * 5 + [_P]),
+    "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 8 + [_P]),
 }
 KERNELS = tuple(_SIGNATURES)
 
@@ -158,17 +164,33 @@ def launch(name: str, tensors, *ints: int) -> None:
     LAUNCHES[name] += 1
 
 
-def check_operands(name: str, **tensors: torch.Tensor) -> None:
-    """Raise unless every operand is a contiguous f32 tensor on one CUDA
-    device — what the kernels take."""
+# element type codes of the kernels that take more than float32
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_operands(name: str, dtypes=(torch.float32,),
+                   **tensors: torch.Tensor) -> None:
+    """Raise unless every operand is a contiguous tensor on one CUDA
+    device, all of one type among ``dtypes`` — what the kernels take."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{name}: operands on several devices {devices}")
+    if len({t.dtype for t in tensors.values()}) != 1:
+        raise TypeError(f"{name}: operands must share one type")
     for arg, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{name}: {arg} is not on a CUDA device")
-        if t.dtype != torch.float32:
+        if t.dtype not in dtypes:
             raise TypeError(f"{name}: {arg} is {t.dtype}, the kernel takes "
-                            "float32")
+                            f"{', '.join(str(d) for d in dtypes)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous")
+
+
+def no_grad_guard(name: str, *tensors: torch.Tensor) -> None:
+    """For kernels with no backward (the attention kernels, like the
+    reference's ``pallas_call``): refuse to build a graph through them."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward; call it under "
+                           "torch.no_grad() or on tensors that do not "
+                           "require grad")

@@ -1,0 +1,88 @@
+"""Flash attention: blockwise streaming-softmax forward, on Hopper.
+
+``flash_attention`` launches the CUDA kernel (``csrc/flash_attention.cu``)
+for tensors on a CUDA device and takes the plain PyTorch version
+(:func:`_flash_math`) for tensors on the CPU.
+
+Layout (the kernel's): q ``(BH, Sq, D)``, k/v ``(BKV, Sk, D)`` with
+``BH = BKV * q_per_kv`` (GQA by index: query row ``b`` reads KV row
+``b // q_per_kv``; K/V are never repeated).  Queries align to the end of
+the keys (``q_offset = Sk - Sq``); masks are causal and sliding-window,
+computed from positions.  Model-layout callers go through
+:func:`repro_torch.kernels.ops.flash_attention`.
+
+Forward only, as the reference's ``pallas_call`` is: the wrapper raises
+when asked to record a gradient.  The differentiable training path is the
+plain chunked softmax of :func:`repro_torch.models.attention.
+flash_attention`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import (DTYPE_CODES, check_operands, launch,
+                                 no_grad_guard, use_kernel)
+from repro_torch.kernels.decode_attention import MAX_HEAD_DIM, NEG_INF
+
+Tensor = torch.Tensor
+
+
+def attention_mask(sq: int, sk: int, causal: bool, window: int,
+                   device=None) -> Tensor:
+    """(Sq, Sk) bool: True where query i may see key j (queries aligned
+    to the end of the keys)."""
+    qpos = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= (qpos - kpos) < window
+    return mask
+
+
+def _flash_math(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+                window: int = 0, q_per_kv: int = 1) -> Tensor:
+    """Plain version of the kernel, in f32: masked scores (-1e30),
+    max-shifted exponentials, weighted sum over their total."""
+    BH, Sq, D = q.shape
+    BKV, Sk, _ = k.shape
+    qf = q.float().reshape(BKV, q_per_kv, Sq, D)
+    s = torch.einsum("bgqd,bkd->bgqk", qf, k.float()) * (D ** -0.5)
+    s = torch.where(attention_mask(Sq, Sk, causal, window, q.device), s,
+                    NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.einsum("bgqk,bkd->bgqd", p, v.float())
+    out = out / p.sum(-1, keepdim=True).clamp(min=1e-30)
+    return out.reshape(BH, Sq, D).to(q.dtype)
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: int = 0, q_block: int = 128, kv_block: int = 128,
+                    q_per_kv: int = 1) -> Tensor:
+    """q (BH, Sq, D); k/v (BKV, Sk, D) -> (BH, Sq, D) in q's type.
+
+    f32 or bf16; head_dim up to 256.  ``q_block`` and ``kv_block`` are
+    accepted for signature parity with the reference; the kernel's tiling
+    is its own.
+    """
+    del q_block, kv_block
+    no_grad_guard("flash_attention", q, k, v)
+    BH, Sq, D = q.shape
+    BKV, Sk, D2 = k.shape
+    if D2 != D or tuple(v.shape) != (BKV, Sk, D) or BH != BKV * q_per_kv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} disagree "
+                         f"with q_per_kv={q_per_kv}")
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+    if not use_kernel(q):
+        return _flash_math(q, k, v, causal, window, q_per_kv)
+    check_operands("flash_attention", tuple(DTYPE_CODES), q=q, k=k, v=v)
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {D} > {MAX_HEAD_DIM}")
+    out = torch.empty_like(q)
+    launch("flash_attention", (q, k, v, out), BH, Sq, Sk, D, q_per_kv,
+           int(causal), window, DTYPE_CODES[q.dtype])
+    return out

@@ -1,0 +1,72 @@
+"""Public wrappers over the port's kernels, in the model layer's layouts.
+
+Each op takes the layouts :mod:`repro_torch.models` and
+:mod:`repro_torch.fl.models` use and reaches a hand-written kernel for
+tensors on a CUDA device, or its plain PyTorch version for tensors on the
+CPU (the platform gate :func:`repro_torch.kernels.use_kernel`).  Oracles
+live in :mod:`repro_torch.kernels.ref`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.compose import (compose, compose_dense_apply,
+                                         rank_dense_apply)
+from repro_torch.kernels.conv_rank import conv_rank_apply
+from repro_torch.kernels.decode_attention import (
+    decode_attention as decode_attention_kernel)
+from repro_torch.kernels.flash_attention import (
+    flash_attention as flash_attention_kernel)
+
+__all__ = [
+    "compose", "rank_dense_apply", "conv_rank_apply", "compose_dense_apply",
+    "flash_attention", "decode_attention", "ssd_chunk", "rmsnorm",
+]
+
+Tensor = torch.Tensor
+
+# compose / rank_dense_apply / conv_rank_apply / compose_dense_apply are
+# re-exported as they are: their signatures already speak the model
+# layer's layout (basis (ksq, I, R), gathered coefficient blocks
+# (m, R, O)) and they carry their own autograd Functions.
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: int = 0) -> Tensor:
+    """Model layout: q (B, S, KV, G, D), k/v (B, S, KV, D) ->
+    (B, S, KV, G, D)."""
+    B, S, KV, G, D = q.shape
+    qf = q.permute(0, 2, 3, 1, 4).reshape(B * KV * G, S, D).contiguous()
+    kf = k.permute(0, 2, 1, 3).reshape(B * KV, S, D).contiguous()
+    vf = v.permute(0, 2, 1, 3).reshape(B * KV, S, D).contiguous()
+    out = flash_attention_kernel(qf, kf, vf, causal=causal, window=window,
+                                 q_per_kv=G)
+    return out.reshape(B, KV, G, S, D).permute(0, 3, 1, 2, 4)
+
+
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                     lengths: Tensor) -> Tensor:
+    """Model layout: q (B, 1, KV, G, D), caches (B, S, KV, D), lengths
+    (B,) -> (B, 1, KV, G, D)."""
+    B, _, KV, G, D = q.shape
+    S = k_cache.shape[1]
+    qf = q[:, 0].reshape(B * KV * G, D).contiguous()
+    kf = k_cache.permute(0, 2, 1, 3).reshape(B * KV, S, D).contiguous()
+    vf = v_cache.permute(0, 2, 1, 3).reshape(B * KV, S, D).contiguous()
+    lens = torch.repeat_interleave(lengths.to(torch.int32), KV * G)
+    out = decode_attention_kernel(qf, kf, vf, lens, q_per_kv=G)
+    return out.reshape(B, 1, KV, G, D)
+
+
+def ssd_chunk(cb: Tensor, bb: Tensor, xw: Tensor, cum: Tensor,
+              h_in: Tensor) -> Tensor:
+    """Mamba2 SSD intra-chunk block: not ported yet."""
+    raise NotImplementedError(
+        "ssd_chunk is not ported yet (ROADMAP queue B item 7)")
+
+
+def rmsnorm(x: Tensor, scale: Tensor, *, eps: float = 1e-6) -> Tensor:
+    """Fused RMSNorm: not ported yet."""
+    raise NotImplementedError(
+        "rmsnorm is not ported yet (ROADMAP queue B item 8)")

@@ -2,7 +2,8 @@
 
 Deliberately naive — the simplest correct formulation of each op — for
 the parity tests and ``chip_smoke.py``.  Layouts follow the JAX package:
-NHWC activations and HWIO-ordered ``(ksq, I, O)`` weights.
+NHWC activations and HWIO-ordered ``(ksq, I, O)`` weights; attention in
+the kernels' ``(BH, S, D)`` rows with one KV row per query row.
 """
 
 from __future__ import annotations
@@ -53,3 +54,32 @@ def compose_apply_ref(x: torch.Tensor, basis: torch.Tensor,
     x (..., gI) x basis (1, I, R) x coeff (m, R, O) -> (..., D).
     """
     return x @ _composed_weight(basis, coeff, p, mode)[0]
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (BH, Sq, D), k/v (BH, Sk, D) -> (BH, Sq, D), f32 softmax."""
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q, k).float() * (D ** -0.5)
+    qpos = torch.arange(Sq, device=s.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=s.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=s.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask[None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p.to(v.dtype), v)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """q (BH, D), k/v (BH, S, D), lengths (BH,) -> (BH, D)."""
+    BH, S, D = k.shape
+    s = torch.einsum("bd,bkd->bk", q, k).float() * (D ** -0.5)
+    mask = torch.arange(S, device=s.device)[None, :] < lengths[:, None]
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bk,bkd->bd", p.to(v.dtype), v)

@@ -1,0 +1,266 @@
+"""The port's attention against the JAX package's, on the same inputs.
+
+* The decode- and flash-attention wrappers (on the CPU: the kernels'
+  plain versions) and the model-layout ``kernels.ops`` wrappers against
+  the reference's Pallas kernels in interpret mode and its oracles in
+  ``repro.kernels.ref``, over the reference's sweep shapes in f32 and
+  bf16, with ``tests/test_kernels.py``'s tolerances (8x its per-type
+  tolerance, relative and absolute).
+* ``models.attention.flash_attention`` (the differentiable training path)
+  against the reference's scan, with chunks small enough that several
+  blocks stream; RoPE against the reference's.
+* The two kernels refuse to record a gradient (the reference's
+  ``pallas_call`` has none); the ops not ported yet raise.
+
+Inputs are drawn with numpy from a seed and handed to both packages.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention_pallas
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.models import attention as jattn
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import attention as tattn
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(rng, shape, dtype):
+    """The same normal draws as a jax array and a torch tensor of
+    ``dtype`` (both round f32 to bf16 to nearest even)."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    return jnp.asarray(x).astype(JDT[dtype]), torch.from_numpy(x).to(
+        TDT[dtype])
+
+
+def _close(got, want, dtype):
+    tol = 8 * TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+FLASH_SWEEP = [
+    (1, 64, 1, 1, 32, 0),     # MHA degenerate
+    (2, 100, 2, 3, 32, 0),    # GQA, ragged seq
+    (1, 128, 4, 1, 64, 32),   # sliding window
+    (2, 33, 1, 4, 16, 8),     # MQA + tiny window + ragged
+]
+DECODE_SWEEP = [
+    (2, 64, 2, 2, 32),
+    (1, 500, 1, 8, 64),   # MQA long ragged cache
+    (4, 33, 4, 1, 16),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,kv,g,d,window", FLASH_SWEEP)
+def test_ops_flash_attention_matches_reference(dtype, b, s, kv, g, d,
+                                               window):
+    rng = np.random.default_rng(s * 7 + d)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (b, s, kv, g, d), dtype),
+                                    _pair(rng, (b, s, kv, d), dtype),
+                                    _pair(rng, (b, s, kv, d), dtype))
+    got = tops.flash_attention(tq, tk, tv, window=window)
+    assert got.shape == (b, s, kv, g, d) and got.dtype == TDT[dtype]
+    _close(got, jops.flash_attention(jq, jk, jv, window=window,
+                                     interpret=True), dtype)
+    # the oracle on repeated K/V, in f32
+    qf = jnp.transpose(jq, (0, 2, 3, 1, 4)).reshape(b * kv * g, s, d)
+    kf = jnp.repeat(jnp.transpose(jk, (0, 2, 1, 3)).reshape(b * kv, s, d),
+                    g, 0)
+    vf = jnp.repeat(jnp.transpose(jv, (0, 2, 1, 3)).reshape(b * kv, s, d),
+                    g, 0)
+    want = jref.attention_ref(qf.astype(jnp.float32), kf.astype(jnp.float32),
+                              vf.astype(jnp.float32), window=window)
+    _close(got, jnp.transpose(want.reshape(b, kv, g, s, d), (0, 3, 1, 2, 4)),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,kv,g,d", DECODE_SWEEP)
+def test_ops_decode_attention_matches_reference(dtype, b, s, kv, g, d):
+    rng = np.random.default_rng(s + d)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (b, 1, kv, g, d), dtype),
+                                    _pair(rng, (b, s, kv, d), dtype),
+                                    _pair(rng, (b, s, kv, d), dtype))
+    lens = rng.integers(1, s + 1, b).astype(np.int32)
+    got = tops.decode_attention(tq, tk, tv, torch.from_numpy(lens))
+    assert got.shape == (b, 1, kv, g, d) and got.dtype == TDT[dtype]
+    _close(got, jops.decode_attention(jq, jk, jv, jnp.asarray(lens),
+                                      interpret=True), dtype)
+    qf = jq[:, 0].reshape(b * kv * g, d)
+    kf = jnp.repeat(jnp.transpose(jk, (0, 2, 1, 3)).reshape(b * kv, s, d),
+                    g, 0)
+    vf = jnp.repeat(jnp.transpose(jv, (0, 2, 1, 3)).reshape(b * kv, s, d),
+                    g, 0)
+    want = jref.decode_attention_ref(
+        qf.astype(jnp.float32), kf.astype(jnp.float32),
+        vf.astype(jnp.float32), jnp.repeat(jnp.asarray(lens), kv * g))
+    _close(got, want.reshape(b, 1, kv, g, d), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bkv,g,sq,sk,d,causal,window", [
+    (2, 1, 70, 130, 32, True, 0),   # queries aligned to the end of keys
+    (1, 2, 64, 64, 80, False, 0),   # non-causal, GQA
+    (1, 1, 50, 50, 16, False, 16),  # non-causal sliding window
+    (1, 3, 9, 300, 8, True, 100),   # long window over a long key row
+])
+def test_flash_kernel_layout_matches_pallas(dtype, bkv, g, sq, sk, d, causal,
+                                            window):
+    rng = np.random.default_rng(sq * 31 + sk)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (bkv * g, sq, d), dtype),
+                                    _pair(rng, (bkv, sk, d), dtype),
+                                    _pair(rng, (bkv, sk, d), dtype))
+    got = flash_attention(tq, tk, tv, causal=causal, window=window,
+                          q_per_kv=g)
+    want = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                  q_per_kv=g, interpret=True)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bkv,g,s,d", [(3, 1, 40, 8), (2, 4, 600, 64),
+                                       (1, 2, 17, 256)])
+def test_decode_kernel_layout_matches_pallas(dtype, bkv, g, s, d):
+    """Raw kernel layout (BH, D) x (BKV, S, D), more than one 512-wide KV
+    block of the TPU kernel, head_dim up to the CUDA kernel's 256."""
+    rng = np.random.default_rng(s * 3 + d)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (bkv * g, d), dtype),
+                                    _pair(rng, (bkv, s, d), dtype),
+                                    _pair(rng, (bkv, s, d), dtype))
+    lens = rng.integers(1, s + 1, bkv * g).astype(np.int32)
+    got = decode_attention(tq, tk, tv, torch.from_numpy(lens), q_per_kv=g)
+    want = decode_attention_pallas(jq, jk, jv, jnp.asarray(lens), q_per_kv=g,
+                                   interpret=True)
+    _close(got, want, dtype)
+
+
+def test_port_oracles_match_reference_oracles():
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((3, 20, 16)).astype(np.float32)
+               for _ in range(3))
+    lens = np.array([1, 7, 20], np.int32)
+    for causal, window in ((True, 0), (True, 5), (False, 0)):
+        np.testing.assert_allclose(
+            tref.attention_ref(*map(torch.from_numpy, (q, k, v)), causal,
+                               window).numpy(),
+            np.asarray(jref.attention_ref(q, k, v, causal, window)),
+            atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(
+        tref.decode_attention_ref(*map(torch.from_numpy,
+                                       (q[:, 0], k, v, lens))).numpy(),
+        np.asarray(jref.decode_attention_ref(q[:, 0], k, v, lens)),
+        atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,sq,sk,kv,g,d,causal,window,qc,kc", [
+    (2, 32, 32, 2, 1, 8, True, 0, 8, 8),      # the transformer's shape
+    (1, 48, 48, 1, 3, 16, True, 12, 16, 8),   # GQA + window, many blocks
+    (2, 20, 36, 2, 2, 8, True, 0, 7, 5),      # Sq < Sk, ragged chunks
+    (1, 24, 24, 2, 1, 8, False, 0, 8, 16),    # non-causal
+])
+def test_models_flash_attention_matches_reference(b, sq, sk, kv, g, d, causal,
+                                                  window, qc, kc):
+    """Output and input gradients of the chunked streaming softmax."""
+    rng = np.random.default_rng(sq + sk + d)
+    q = rng.standard_normal((b, sq, kv, g, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, kv, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, kv, d)).astype(np.float32)
+    w = rng.standard_normal((b, sq, kv, g, d)).astype(np.float32)
+    kw = dict(causal=causal, window=window, q_chunk=qc, kv_chunk=kc)
+
+    def jloss(q, k, v):
+        return jnp.sum(jattn.flash_attention(q, k, v, **kw) * w)
+
+    jout = jattn.flash_attention(q, k, v, **kw)
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = tattn.flash_attention(tq, tk, tv, **kw)
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               atol=1e-5, rtol=1e-5)
+    for t, jg in zip((tq, tk, tv), jgrads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg),
+                                   atol=1e-5, rtol=1e-4)
+    # skipping fully masked blocks changes nothing
+    skipped = tattn.flash_attention(tq, tk, tv, skip_masked_blocks=True, **kw)
+    np.testing.assert_allclose(skipped.detach().numpy(),
+                               out.detach().numpy(), atol=1e-6, rtol=1e-6)
+
+
+def test_models_flash_attention_valid_len_matches_reference():
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((2, 16, 1, 2, 8)).astype(np.float32)
+    k = rng.standard_normal((2, 16, 1, 8)).astype(np.float32)
+    v = rng.standard_normal((2, 16, 1, 8)).astype(np.float32)
+    vl = np.array([16, 9], np.int32)
+    want = jattn.flash_attention(q, k, v, causal=False, q_chunk=4,
+                                 kv_chunk=4, valid_len=jnp.asarray(vl))
+    got = tattn.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                causal=False, q_chunk=4, kv_chunk=4,
+                                valid_len=torch.from_numpy(vl))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("head_dim,theta", [(8, 10000.0), (64, 500000.0)])
+def test_rope_matches_reference(head_dim, theta):
+    rng = np.random.default_rng(head_dim)
+    pos = np.arange(37, dtype=np.int32)[None, :]
+    jc, js = jattn.rope_angles(jnp.asarray(pos), head_dim, theta)
+    tc, ts = tattn.rope_angles(torch.from_numpy(pos), head_dim, theta)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-6)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-6)
+    x = rng.standard_normal((2, 37, 3, head_dim)).astype(np.float32)
+    np.testing.assert_allclose(
+        tattn.apply_rotary(torch.from_numpy(x), tc, ts).numpy(),
+        np.asarray(jattn.apply_rotary(jnp.asarray(x), jc, js)),
+        atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["decode", "flash"])
+def test_attention_kernels_refuse_gradients(which):
+    q = torch.randn(4, 8, 8, requires_grad=True)
+    k, v = torch.randn(4, 8, 8), torch.randn(4, 8, 8)
+    with pytest.raises(RuntimeError, match="no backward"):
+        if which == "decode":
+            decode_attention(q[:, 0], k, v, torch.full((4,), 8))
+        else:
+            flash_attention(q, k, v)
+    with torch.no_grad():  # the same call without a graph is fine
+        out = (decode_attention(q[:, 0], k, v, torch.full((4,), 8))
+               if which == "decode" else flash_attention(q, k, v))
+    assert out.grad_fn is None and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("op", ["ssd_chunk", "rmsnorm"])
+def test_unported_ops_raise(op):
+    x = torch.zeros(2, 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if op == "ssd_chunk":
+            tops.ssd_chunk(x, x, x, x, x)
+        else:
+            tops.rmsnorm(x, torch.ones(4))
+
+
+def test_ops_reexports_the_composition_primitives():
+    from repro_torch.kernels import compose, conv_rank
+
+    assert tops.compose is compose.compose
+    assert tops.rank_dense_apply is compose.rank_dense_apply
+    assert tops.compose_dense_apply is compose.compose_dense_apply
+    assert tops.conv_rank_apply is conv_rank.conv_rank_apply

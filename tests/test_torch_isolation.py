@@ -3,7 +3,8 @@
 * Importing every ``repro_torch`` module loads neither ``jax`` nor any
   ``repro`` module (checked in a fresh interpreter).
 * No source file of the port, and not ``chip_smoke.py``, imports them.
-* With no CUDA device, the entry points raise unless asked for the CPU.
+* With no CUDA device, the entry points (``init_factorized`` and
+  ``init_dense`` included) raise unless asked for the CPU.
 """
 
 import ast
@@ -78,3 +79,29 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
         run_scheme("heroes", model, px, py, tb, 1, cfg=cfg)
     hist = run_scheme("heroes", model, px, py, tb, 1, cfg=cfg, device="cpu")
     assert len(hist) == 1
+    for init in (model.init_factorized, model.init_dense):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init(0)
+        leaves = init(0, device="cpu").values()
+        assert all(t.device.type == "cpu" for leaf in leaves
+                   for t in (leaf.values() if isinstance(leaf, dict)
+                             else [leaf]))
+
+
+def test_text_entry_points_raise_without_cuda_unless_asked_for_cpu(
+        monkeypatch):
+    from repro_torch.fl import (build_text_setup, greedy_decode,
+                                serving_weights)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_text_setup(num_clients=4, model_name="transformer")
+    model, _, _, tb = build_text_setup(num_clients=4,
+                                       model_name="transformer",
+                                       device="cpu")
+    assert model.name == "transformer" and tb["tokens"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_factorized(0)
+    w = serving_weights(model, model.init_factorized(0, device="cpu"), 1)
+    toks, _ = greedy_decode(model, w, 1, [[1, 2]], 2)
+    assert toks.shape == (1, 2)

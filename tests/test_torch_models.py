@@ -138,9 +138,11 @@ def test_convert_round_trip_and_init_shapes():
 
 
 def test_unported_models_raise():
-    for name in ("resnet", "rnn", "transformer"):
+    for name in ("resnet", "rnn"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(name)
+    # ported since: the composed transformer resolves through the registry
+    assert get_model("transformer").modality == "text"
 
 
 def test_calibration_measures_on_the_cpu_and_honours_pins():
