@@ -5,7 +5,7 @@
 
 Run from the root of a checkout.  It
 
-1. builds the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+1. builds the eight CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    per source, in parallel), prints the build seconds and the card's name
    and power limit, and turns TF32 off for matmuls and convolutions;
 2. holds every kernel against its plain PyTorch version on the card: the
@@ -14,9 +14,11 @@ Run from the root of a checkout.  It
    axis C = 4), forward and gradient through each autograd Function; the
    two attention kernels in f32 and bf16 at the transformer path's
    shapes, the reference's sweep shapes and in model layout through
-   ``kernels.ops``.  It times kernel, plain version and, where one
-   PyTorch call computes the same function, that call (the port never
-   calls it), at the main path's widest shapes and, for the attention
+   ``kernels.ops``; rmsnorm and ssd_chunk in f32 and bf16 at zamba2's
+   path shapes, the reference's sweep shapes and with ``heads > 1``.  It
+   times kernel, plain version and, where one PyTorch call computes the
+   same function, that call (the port never calls it), at the main
+   path's widest shapes and, for the attention, rmsnorm and ssd_chunk
    kernels, at one realistic shape each;
 3. drives the port's main paths, with the launch counts set to 0 just
    before each and read just after, each checked against the same run on
@@ -28,7 +30,10 @@ Run from the root of a checkout.  It
    ``build_text_setup(num_clients=8)``: heroes/rank_space and fedavg for
    3 rounds, then greedy-decode serving of the heroes weights at widths
    1, 2, 3; (f) ``kernels.ops.flash_attention`` / ``decode_attention`` at
-   a GQA shape;
+   a GQA shape; (g) the model zoo's serving path on zamba2-2.7b at full
+   width and depth (bf16 compute): a 4 x 512 prefill held against
+   step-by-step ``serve_step``, then ``launch/serve.py``'s loop at its
+   defaults; and one superblock in f32 held against the CPU;
 4. traces one round of (c) with ``torch.profiler`` (device busy share,
    top kernels);
 5. prints the ``kernels`` JSON line, the card line, and last
@@ -68,6 +73,19 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # attention (32 heads, 32 KV heads, head_dim 80), causal
 DECODE_AT_SCALE = dict(B=128, H=8, KV=1, S=32768, D=256)
 FLASH_AT_SCALE = dict(B=2, H=32, S=4096, D=80)
+# rmsnorm / ssd_chunk, held element-wise as (atol, rtol): in f32,
+# tests/test_kernels.py's tolerances, times 4 and 16 as that file holds
+# them; in bf16 the kernel and its plain version round the same f32 sums
+# once, so they may differ by one bf16 ulp (2^-7 relative, under rtol
+# 1e-2) and, near zero, by the f32 sums' order (atol 1e-3).  A kernel
+# that left w unrounded, or dropped the carry-in, misses these.
+RMS_TOL = {"float32": (8e-5, 8e-5), "bfloat16": (1e-3, 1e-2)}
+SSD_TOL = {"float32": (3.2e-4, 3.2e-4), "bfloat16": (1e-3, 1e-2)}
+# their realistic timing shapes: prefill_32k (32768 tokens, batch cut
+# from 32 to 2) on zamba2-2.7b's Mamba2 layers (d_inner 5120; 80 heads
+# of P = 64, state N = 64, chunk 256 -> 128 chunks)
+RMS_AT_SCALE = dict(rows=2 * 32768, d=5120)
+SSD_AT_SCALE = dict(B=2, nc=128, H=80, Q=256, N=64, P=64)
 
 DEVICE = "cuda"
 
@@ -84,6 +102,10 @@ KERNEL_META = {
                          "src/repro/kernels/decode_attention.py:95"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:98"),
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:35"),
+    "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
+                  "src/repro/kernels/ssd_chunk.py:56"),
 }
 
 
@@ -162,6 +184,35 @@ def bound(nbytes: int, flops: int,
                                        else "operations")
 
 
+def time_kernel(torch, name, label, shape, fn, plain, library, nbytes,
+                flops, peak, big, two_call=None) -> dict:
+    """Timing record of one kernel call ``fn`` beside its plain version,
+    the one PyTorch call computing the same function (``library``, or
+    None) and, where none does, the reference's several calls
+    (``two_call``).  ``big`` (ms-scale) calls are timed with events
+    around 3 eager calls, small ones by CUDA-graph replay."""
+    if big:
+        t = lambda f: call_ms(torch, f, iters=3, warmup=1)  # noqa: E731
+    else:
+        t = lambda f: device_ms(torch, f)  # noqa: E731
+    iters, warmup = (3, 1) if big else (200, 20)
+    rec = {"ms": t(fn), "plain_ms": t(plain),
+           "library_ms": t(library) if library else None,
+           "call_ms": call_ms(torch, fn, iters=iters, warmup=warmup),
+           "plain_call_ms": call_ms(torch, plain, iters=iters,
+                                    warmup=warmup)}
+    if two_call:
+        rec["two_call_ms"] = t(two_call)
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, peak)
+    rec["shape"] = shape
+    print(f"  {name} [{label}] kernel_ms {rec['ms']:.5f} plain_ms "
+          f"{rec['plain_ms']:.5f} library_ms {rec['library_ms']} "
+          + (f"two_call_ms {rec['two_call_ms']:.5f} " if two_call else "")
+          + f"bound_ms {rec['bound_ms']:.6f} ({rec['bound_by']}) call_ms "
+          f"{rec['call_ms']:.5f} [{shape}]")
+    return rec
+
+
 # --------------------------------------------------------------------------
 # phase 2: each kernel against its plain version
 # --------------------------------------------------------------------------
@@ -175,6 +226,21 @@ def err(torch, got, want, tol: float, what: str) -> float:
     print(f"  {what}: max_abs_err {e:.3e} max_rel_err {e / scale:.3e} "
           f"tol {tol:.0e}")
     check(math.isfinite(e) and e <= tol * scale, f"{what} disagrees")
+    return e
+
+
+def close(torch, got, want, tol: tuple, what: str) -> float:
+    """Max abs error; fails where an element misses ``atol + rtol *
+    |want|`` (``tol = (atol, rtol)``), as ``np.testing.assert_allclose``
+    holds the reference's kernels."""
+    atol, rtol = tol
+    torch.cuda.synchronize()
+    d = (got.float() - want.float()).abs()
+    e = float(d.max())
+    excess = float((d - atol - rtol * want.float().abs()).max())
+    print(f"  {what}: max_abs_err {e:.3e} tol {atol:.0e} + {rtol:.0e}*|ref| "
+          f"(worst margin {-excess:.3e})")
+    check(math.isfinite(e) and excess <= 0, f"{what} disagrees")
     return e
 
 
@@ -540,33 +606,13 @@ def check_attention(torch):
           "shape each)")
     records = {}
 
-    def timed(name, label, shape, fn, plain, library, nbytes, flops, peak,
-              big):
-        if big:  # ms-scale calls: events around eager calls
-            t = lambda f: call_ms(torch, f, iters=3, warmup=1)  # noqa: E731
-        else:
-            t = lambda f: device_ms(torch, f)  # noqa: E731
-        rec = {"ms": t(fn), "plain_ms": t(plain),
-               "library_ms": t(library) if library else None,
-               "call_ms": call_ms(torch, fn, iters=3 if big else 200,
-                                  warmup=1 if big else 20),
-               "plain_call_ms": call_ms(torch, plain, iters=3 if big else 200,
-                                        warmup=1 if big else 20)}
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, peak)
-        rec["shape"] = shape
-        print(f"  {name} [{label}] kernel_ms {rec['ms']:.5f} plain_ms "
-              f"{rec['plain_ms']:.5f} library_ms {rec['library_ms']} "
-              f"bound_ms {rec['bound_ms']:.6f} ({rec['bound_by']}) call_ms "
-              f"{rec['call_ms']:.5f} [{shape}]")
-        return rec
-
     # decode, main path (e)'s widest call: width 3, batch 4 -> 24 rows,
     # head_dim 8, the last step (all 40 cache slots valid), f32
     B, H, S, D = 4, 6, 40, 8
     q, k, v = rn(B * H, D), rn(B * H, S, D), rn(B * H, S, D)
     lens = torch.full((B * H,), S, dtype=torch.int32, device=dev)
-    path = timed(
-        "decode_attention", "path (e)", "q (24,8) kv (24,40,8) f32, "
+    path = time_kernel(
+        torch, "decode_attention", "path (e)", "q (24,8) kv (24,40,8) f32, "
         "lengths 40", lambda: decode_attention(q, k, v, lens),
         lambda: _decode_math(q, k, v, lens),
         lambda: F.scaled_dot_product_attention(
@@ -584,8 +630,8 @@ def check_attention(torch):
             _decode_math(q, k, v, lens, H // KV), ATTN_TOL["bfloat16"],
             "decode_attention bf16 decode_32k gemma_2b")
     keep("decode_attention", e)
-    real = timed(
-        "decode_attention", "decode_32k x gemma_2b",
+    real = time_kernel(
+        torch, "decode_attention", "decode_32k x gemma_2b",
         f"q ({B * H},{D}) kv ({B * KV},{S},{D}) bf16 G={H // KV}, lengths "
         f"{S}",
         lambda: decode_attention(q, k, v, lens, q_per_kv=H // KV),
@@ -604,9 +650,10 @@ def check_attention(torch):
     B, S, KV, G, D = 2, 256, 2, 4, 64
     q, k, v = rn(B * KV * G, S, D), rn(B * KV, S, D), rn(B * KV, S, D)
     pairs = B * KV * G * _causal_pairs(S, S)
-    path = timed(
-        "flash_attention", "path (f)", "q (16,256,64) kv (4,256,64) f32 "
-        "G=4 causal", lambda: flash_attention(q, k, v, q_per_kv=G),
+    path = time_kernel(
+        torch, "flash_attention", "path (f)",
+        "q (16,256,64) kv (4,256,64) f32 G=4 causal",
+        lambda: flash_attention(q, k, v, q_per_kv=G),
         lambda: _flash_math(q, k, v, True, 0, G),
         lambda: F.scaled_dot_product_attention(
             q.view(B, KV * G, S, D), k.view(B, KV, S, D),
@@ -621,8 +668,8 @@ def check_attention(torch):
             ATTN_TOL["bfloat16"], "flash_attention bf16 train_4k stablelm_3b")
     keep("flash_attention", e)
     pairs = B * H * _causal_pairs(S, S)
-    real = timed(
-        "flash_attention", "train_4k x stablelm_3b",
+    real = time_kernel(
+        torch, "flash_attention", "train_4k x stablelm_3b",
         f"q/k/v ({B * H},{S},{D}) bf16 causal",
         lambda: flash_attention(q, k, v),
         lambda: _flash_math(q, k, v),
@@ -633,6 +680,154 @@ def check_attention(torch):
     records["flash_attention"] = dict(path, at_scale=real)
     del q, k, v
     torch.cuda.empty_cache()
+    for name in records:
+        records[name]["max_abs_err"] = maxerr[name]
+    return records
+
+
+def check_ssd_rmsnorm(torch):
+    """Phase 2 for the SSD-chunk and RMSNorm kernels, f32 and bf16, at
+    path (g)'s shapes, the reference's sweep shapes and with ``heads >
+    1``.  Returns their timing records."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rmsnorm import _rmsnorm_math, rmsnorm
+    from repro_torch.kernels.ssd_chunk import _ssd_math, ssd_chunk
+
+    gen = torch.Generator().manual_seed(3)
+    dev = torch.device(DEVICE)
+
+    def rn(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(dev, dtype)
+
+    def cum_of(R, Q, steep=1.0):
+        # a cumulative log-decay as the model makes it: -cumsum(dt * A)
+        la = F.softplus(torch.randn((R, Q), generator=gen)) * steep
+        return (-torch.cumsum(la, 1)).to(dev)
+
+    def ssd_args(G, heads, Q, N, P, dtype, steep=1.0):
+        R = G * heads
+        return (rn(G, Q, N, dtype=dtype), rn(G, Q, N, dtype=dtype),
+                rn(R, Q, P, dtype=dtype), cum_of(R, Q, steep),
+                rn(R, N, P, dtype=dtype))
+
+    maxerr = {"rmsnorm": 0.0, "ssd_chunk": 0.0}
+
+    def keep(name, e):
+        maxerr[name] = max(maxerr[name], e)
+
+    print("phase 2: rmsnorm and ssd_chunk vs plain versions (f32 and bf16)")
+    for dtype in (torch.float32, torch.bfloat16):
+        tn = str(dtype).split(".")[1]
+        # path (g)'s rows (prefill 4 x 512, decode batch 4) at d_model and
+        # d_inner, the reference's sweep, an unaligned width (scalar
+        # loads) and a wide one
+        for shape in ((2048, 2560), (2048, 5120), (4, 2560), (4, 5120),
+                      (4, 64), (2, 7, 96), (1, 130, 32), (3, 100),
+                      (8, 8192)):
+            x, sc = rn(*shape, dtype=dtype), rn(shape[-1], scale=0.1) + 1.0
+            keep("rmsnorm", close(torch, rmsnorm(x, sc),
+                                  _rmsnorm_math(x, sc, 1e-6), RMS_TOL[tn],
+                                  f"rmsnorm {tn} {shape}"))
+            if dtype == torch.float32:
+                close(torch, ops.rmsnorm(x, sc), ref.rmsnorm_ref(x, sc),
+                      RMS_TOL[tn], f"ops.rmsnorm {tn} {shape} vs oracle")
+        # path (g)'s prefill call (batch 4 x 512 tokens: 2 chunks of 256,
+        # 80 heads of P = 64 sharing B/C of N = 64), the smoke config's
+        # (chunk 32, N 8, P 16, 16 heads), the reference's sweep
+        # (replicated rows), a group of 5 heads over a ragged chunk, the
+        # widest state the kernel takes (N = 128), and a steep decay
+        # whose upper triangle overflows exp
+        cases = [("path (g) prefill", (8, 80, 256, 64, 64, 1.0)),
+                 ("smoke config", (6, 16, 32, 8, 16, 1.0)),
+                 ("G=3 heads=5 Q=100", (3, 5, 100, 64, 64, 1.0)),
+                 ("N=128", (2, 3, 96, 128, 64, 1.0)),
+                 ("steep decay", (2, 4, 64, 16, 32, 40.0))]
+        cases += [(f"sweep b={b} q={q} n={n} p={p}", (b, 1, q, n, p, 1.0))
+                  for b, q, n, p in ((4, 32, 8, 16), (2, 64, 16, 32),
+                                     (1, 16, 4, 8), (3, 24, 4, 12))]
+        for label, (G, heads, Q, N, P, steep) in cases:
+            a = ssd_args(G, heads, Q, N, P, dtype, steep)
+            got = ssd_chunk(*a, heads=heads)
+            check(bool(torch.isfinite(got).all()),
+                  f"ssd_chunk {tn} {label}: non-finite output")
+            keep("ssd_chunk", close(torch, got, _ssd_math(*a, heads),
+                                    SSD_TOL[tn], f"ssd_chunk {tn} {label}"))
+            if heads > 1 and dtype == torch.float32:
+                rep = [t.repeat_interleave(heads, 0) for t in a[:2]]
+                close(torch, ops.ssd_chunk(*rep, *a[2:]), got, SSD_TOL[tn],
+                      f"ops.ssd_chunk {tn} {label} replicated vs heads")
+                close(torch, got, ref.ssd_chunk_ref(*rep, *a[2:]),
+                      SSD_TOL[tn], f"ssd_chunk {tn} {label} vs oracle")
+    for name, fn in (("rmsnorm", lambda t: rmsnorm(t, rn(8))),
+                     ("ssd_chunk", lambda t: ssd_chunk(
+                         t, rn(1, 8, 8), rn(1, 8, 8), cum_of(1, 8),
+                         rn(1, 8, 8)))):
+        try:
+            fn(rn(1, 8, 8).requires_grad_() if name == "ssd_chunk"
+               else rn(4, 8).requires_grad_())
+        except RuntimeError as e:
+            check("no backward" in str(e), f"{name}: wrong error {e}")
+        else:
+            raise SmokeFailure(f"{name} accepted an input that needs grad")
+    print("  both refuse inputs that require grad")
+
+    print("phase 2: rmsnorm / ssd_chunk timing (path (g)'s widest shape and "
+          "prefill_32k x zamba2, batch cut from 32 to 2)")
+    bf = torch.bfloat16
+    records = {}
+
+    def rms_case(rows, d, label, big):
+        x, sc = rn(rows, d, dtype=bf), rn(d, scale=0.1) + 1.0
+        keep("rmsnorm", close(torch, rmsnorm(x, sc),
+                              _rmsnorm_math(x, sc, 1e-6),
+                              RMS_TOL["bfloat16"], f"rmsnorm bf16 {label}"))
+        scb = sc.to(bf)
+        return time_kernel(
+            torch, "rmsnorm", label, f"x ({rows},{d}) bf16, scale ({d},) f32",
+            lambda: rmsnorm(x, sc), lambda: _rmsnorm_math(x, sc, 1e-6),
+            lambda: F.rms_norm(x, (d,), scb, 1e-6),
+            2 * 2 * x.numel() + 4 * d, 4 * x.numel(), PEAK_BF16_FLOPS, big)
+
+    path = rms_case(2048, 5120, "path (g) prefill d_inner", big=False)
+    real = rms_case(RMS_AT_SCALE["rows"], RMS_AT_SCALE["d"],
+                    "prefill_32k x zamba2", big=True)
+    records["rmsnorm"] = dict(path, at_scale=real)
+    torch.cuda.empty_cache()
+
+    def ssd_case(G, heads, Q, N, P, label, big):
+        a = ssd_args(G, heads, Q, N, P, bf)
+        R = G * heads
+        got = ssd_chunk(*a, heads=heads)
+        keep("ssd_chunk", close(torch, got, _ssd_math(*a, heads),
+                                SSD_TOL["bfloat16"],
+                                f"ssd_chunk bf16 {label}"))
+        del got
+        # no single PyTorch call computes the block: the two-call
+        # reference is the einsum oracle on B/C replicated per head
+        rep = [t.repeat_interleave(heads, 0) for t in a[:2]]
+        pairs = Q * (Q + 1) // 2  # the causal half this data needs
+        flops = R * (2 * pairs * (N + P) + 2 * Q * N * P)
+        nbytes = (2 * (2 * G * Q * N + 2 * R * Q * P + R * N * P)
+                  + 4 * R * Q)
+        rec = time_kernel(
+            torch, "ssd_chunk", label,
+            f"cb/bb ({G},{Q},{N}) xw ({R},{Q},{P}) h_in ({R},{N},{P}) "
+            f"bf16, cum f32, heads {heads}",
+            lambda: ssd_chunk(*a, heads=heads),
+            lambda: _ssd_math(*a, heads), None, nbytes, flops,
+            PEAK_BF16_FLOPS, big,
+            two_call=lambda: ref.ssd_chunk_ref(*rep, *a[2:]))
+        del a, rep
+        torch.cuda.empty_cache()
+        return rec
+
+    path = ssd_case(8, 80, 256, 64, 64, "path (g) prefill", big=False)
+    s = SSD_AT_SCALE
+    real = ssd_case(s["B"] * s["nc"], s["H"], s["Q"], s["N"], s["P"],
+                    "prefill_32k x zamba2", big=True)
+    records["ssd_chunk"] = dict(path, at_scale=real)
     for name in records:
         records[name]["max_abs_err"] = maxerr[name]
     return records
@@ -818,6 +1013,203 @@ def ops_path(torch):
             ATTN_TOL[tn], f"(f) ops.decode_attention {tn} vs the CPU")
 
 
+# path (g): zamba2-2.7b at full width and full depth, bf16 compute, f32
+# params made on the card from the port's generator
+ZAMBA_ARCH = "zamba2-2.7b"
+PREFILL_BATCH, PREFILL_LEN = 4, 512  # 2 chunks of 256: a carried state
+# launch/serve.py's defaults: 8 requests, batch 4, 16 new tokens, max 64
+SERVE_KW = dict(requests=8, batch=4, max_new=16, max_len=64)
+STEP_CHECK = 8  # prefill positions held against step-by-step serve_step
+# bf16 through 63 blocks: the prefill (chunked SSD, flash attention) and
+# the recurrent decode round to bf16 at different places, each op ~4e-3
+# relative, accumulated over the depth
+STEP_TOL = 0.1
+# one superblock at full width in f32 (TF32 off) against the CPU: the
+# CPU tests' 1e-4, relative to max(1, max|logits|)
+CPU_BATCH, CPU_LEN, CPU_TOL = 2, 288, 1e-4  # 288 = 256 + a padded chunk
+ZOO_EXPECT = frozenset({"rmsnorm", "ssd_chunk", "flash_attention",
+                        "decode_attention"})
+
+
+def zoo_path(torch, cfg=None):
+    """Path (g): the zoo's serving path on zamba2-2.7b — a prefill of
+    ``PREFILL_BATCH`` x ``PREFILL_LEN`` tokens (timed warm), its first
+    positions held against step-by-step ``serve_step``, then
+    ``launch/serve.py``'s loop at its defaults, greedy.  Launch counts
+    are set to 0 just before and read just after.  ``cfg`` defaults to
+    the full config.  Returns (counts, stats)."""
+    from repro_torch import configs
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model, module
+
+    import numpy as np
+
+    cfg = cfg or configs.get_config(ZAMBA_ARCH)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    params = model.init(0, cfg, DEVICE)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = module.count_params(params)
+    # init stacks each layer's draws, so its peak is its own: the
+    # serving peak below is measured from the weights alone
+    init_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (PREFILL_BATCH,
+                                                       PREFILL_LEN)),
+                           device=DEVICE)
+    with torch.no_grad():
+        model.prefill(params, cfg, {"tokens": toks})  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab)
+              and logits.dtype == cfg.cdtype,
+              f"(g) prefill logits {tuple(logits.shape)} {logits.dtype}")
+        check(bool(torch.isfinite(logits).all()),
+              "(g) non-finite prefill logits")
+        cache = model.init_cache(cfg, PREFILL_BATCH, STEP_CHECK, DEVICE)
+        steps = []
+        for t in range(STEP_CHECK):
+            lg, cache = model.serve_step(params, cfg,
+                                         {"tokens": toks[:, t:t + 1]},
+                                         cache, t)
+            steps.append(lg)
+    dec = torch.cat(steps, dim=1).float()
+    pre = logits[:, :STEP_CHECK].float()
+    step_err = err(torch, dec, pre, STEP_TOL,
+                   f"(g) serve_step vs prefill, first {STEP_CHECK} positions, "
+                   "bf16")
+    agree = float((dec.argmax(-1) == pre.argmax(-1)).float().mean())
+    del cache, steps, dec, pre, logits
+    r = serve(cfg, params, device=DEVICE, **SERVE_KW)
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    trace = trace_zoo(torch, cfg, params, toks)
+    stats = {
+        "config": f"{ZAMBA_ARCH}, {cfg.num_layers} layers, d_model "
+                  f"{cfg.d_model}, {n_params} params ({cfg.param_dtype}), "
+                  f"compute {cfg.compute_dtype}",
+        "init_s": t_init,
+        "prefill_s": t_prefill,
+        "prefill_tokens_per_s": PREFILL_BATCH * PREFILL_LEN / t_prefill,
+        "serve_s": r["seconds"], "serve_tokens": r["tokens"],
+        "serve_steps": r["steps"],
+        "serve_tokens_per_s": r["tokens"] / r["seconds"],
+        "init_peak_bytes": init_peak, "peak_bytes": peak,
+        "step_vs_prefill_max_abs_err": step_err,
+        "step_vs_prefill_argmax_agree": agree, "launches": counts,
+        "trace": trace}
+    print(f"  (g) {stats['config']}: init {t_init:.3f} s; prefill "
+          f"{PREFILL_BATCH}x{PREFILL_LEN} {t_prefill:.4f} s "
+          f"({stats['prefill_tokens_per_s']:.1f} tokens/s); serve "
+          f"{r['done']}/{SERVE_KW['requests']} requests, {r['tokens']} "
+          f"tokens in {r['steps']} steps, {r['seconds']:.4f} s "
+          f"({stats['serve_tokens_per_s']:.2f} tokens/s); peak memory above "
+          f"the run's start: init {init_peak} B, prefill and serving "
+          f"{peak} B; serve_step argmax agrees with the "
+          f"prefill at {agree:.4f} of positions; launches {counts}; "
+          f"[{card_line()}]")
+    check(r["done"] == SERVE_KW["requests"], "(g) not every request served")
+    check(all(0 <= t < cfg.vocab for out in r["outputs"].values()
+              for t in out), "(g) served a token outside the vocabulary")
+    for k in ZOO_EXPECT:
+        check(counts[k] > 0, f"(g) never launched {k}")
+    del params
+    torch.cuda.empty_cache()
+    stats.update(zoo_vs_cpu(torch, cfg))
+    return counts, stats
+
+
+def trace_zoo(torch, cfg, params, toks, steps: int = 4) -> dict:
+    """One warm prefill and ``steps`` serve steps of path (g) under
+    ``torch.profiler``: wall time, device busy time (sum of kernel self
+    times), their ratio, and the kernels that took the most device time.
+    The launch counts of these calls are not part of the path's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model
+
+    out = {}
+    B = toks.shape[0]
+    for label in ("prefill", "decode"):
+        cache = (model.init_cache(cfg, B, steps, DEVICE)
+                 if label == "decode" else None)
+        torch.cuda.synchronize()
+        with torch.no_grad(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if label == "prefill":
+                model.prefill(params, cfg, {"tokens": toks})
+            else:
+                for t in range(steps):
+                    model.serve_step(params, cfg,
+                                     {"tokens": toks[:, t:t + 1]}, cache, t)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in device)
+        top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+        out[label] = {
+            "wall_s": wall, "busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / 1e6 / wall,
+            "device_kernels": sum(e.count for e in device),
+            "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count)
+                    for e in top]}
+        what = ("one prefill" if label == "prefill"
+                else f"{steps} serve steps")
+        print(f"      traced {what}: wall {wall:.4f} s, device busy "
+              f"{busy_us / 1e3:.3f} ms ({100 * busy_us / 1e6 / wall:.2f}% of "
+              f"the wall), {out[label]['device_kernels']} device kernels")
+        for name, ms, n in out[label]["top"]:
+            print(f"        {ms:9.3f} ms {n:6d}x {name}")
+    return out
+
+
+def zoo_vs_cpu(torch, cfg):
+    """One superblock of ``cfg`` at full width, f32 compute, TF32 off:
+    the card's forward against the same forward on the CPU from the same
+    weights, at ``CPU_BATCH`` x ``CPU_LEN`` tokens (a full chunk and a
+    padded one).  Greedy tokens (argmax at every position) must be equal."""
+    from repro_torch.models import model, module
+
+    import numpy as np
+
+    cfg = cfg.replace(num_layers=cfg.hybrid.attn_every,
+                      compute_dtype="float32")
+    params = model.init(1, cfg, DEVICE)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (CPU_BATCH, CPU_LEN)))
+    with torch.no_grad():
+        g, _ = model.forward(params, cfg, {"tokens": toks.to(DEVICE)})
+        g = g.cpu()
+        t0 = time.perf_counter()
+        c, _ = model.forward(module.tree_map(lambda t: t.cpu(), params), cfg,
+                             {"tokens": toks})
+        t_cpu = time.perf_counter() - t0
+    e = err(torch, g, c, CPU_TOL,
+            f"(g) depth {cfg.num_layers} f32 {CPU_BATCH}x{CPU_LEN}: card vs "
+            "CPU logits")
+    top2 = torch.topk(c, 2, dim=-1).values
+    margin = float((top2[..., 0] - top2[..., 1]).min())
+    same = bool(torch.equal(g.argmax(-1), c.argmax(-1)))
+    print(f"      greedy tokens equal {same} over {CPU_BATCH * CPU_LEN} "
+          f"positions (smallest top-2 margin on the CPU {margin:.3e}); CPU "
+          f"forward {t_cpu:.2f} s")
+    check(same, "(g) greedy tokens differ between the card and the CPU")
+    del params
+    torch.cuda.empty_cache()
+    return {"depth6_vs_cpu_max_abs_err": e, "depth6_greedy_equal": same,
+            "depth6_min_top2_margin": margin}
+
+
 def main_path(torch, rt):
     from repro_torch.kernels import KERNELS, LAUNCHES, reset_launches
 
@@ -857,12 +1249,16 @@ def main_path(torch, rt):
     check(by_path["f"]["flash_attention"] > 0,
           "(f) never launched flash_attention")
 
+    # (g) the zoo's hybrid serving path: zamba2-2.7b prefill + serve
+    print("  (g) zamba2-2.7b: prefill and launch/serve.py's loop")
+    by_path["g"], zoo_stats = zoo_path(torch)
+
     for counts in by_path.values():
         for k, n in counts.items():
             launches[k] += n
     for k in KERNELS:
         check(launches[k] > 0, f"kernel {k} never launched on the main path")
-    return launches, by_path
+    return launches, by_path, zoo_stats
 
 
 def trace_round(torch, label: str = "c") -> None:
@@ -930,7 +1326,9 @@ def main() -> int:
 
     records = check_kernels(torch, rt)
     records.update(check_attention(torch))
-    launches, by_path = main_path(torch, rt)
+    records.update(check_ssd_rmsnorm(torch))
+    launches, by_path, zoo_stats = main_path(torch, rt)
+    print(f"path (g) {json.dumps(zoo_stats)}")
     trace_round(torch)
 
     kernels = []

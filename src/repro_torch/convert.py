@@ -1,12 +1,23 @@
 """Carry parameter trees between the JAX package and this port.
 
-The JAX package keeps its parameters as pytrees of arrays: nested dicts of
-``{"basis", "coeff"}`` factors per layer, or dense ``(ksq, I, O)`` weights
-(the CNN's and the composed transformer's alike, keyed by layer name).
-Both packages use the same layouts (HWIO-ordered ``(ksq, I, O)`` weights,
-``(ksq, I, R)`` bases, ``(blocks, R, O)`` coefficients), so converting is a
-copy.  The caller turns the pytree into numpy first (``jax.device_get``),
-which keeps this module free of JAX.
+The JAX package keeps its parameters as pytrees of arrays, and both
+packages use the same layouts, so converting is a copy:
+
+* the FL models: nested dicts of ``{"basis", "coeff"}`` factors per layer,
+  or dense ``(ksq, I, O)`` weights (the CNN's and the composed
+  transformer's alike, keyed by layer name), with HWIO-ordered
+  ``(ksq, I, O)`` weights, ``(ksq, I, R)`` bases and ``(blocks, R, O)``
+  coefficients;
+* the model zoo (``repro.models.model.init``): ``{"embed", "unembed",
+  "final_norm", "stack"}``, where the hybrid stack holds ``"mamba"`` and
+  ``"mamba_norms"`` with every leaf stacked ``(nsuper, attn_every, ...)``
+  (``A_log``, ``D`` and ``dt_bias`` f32 whatever the param type) and one
+  ``"shared"`` attention+MLP block; linears are ``{"w": (d_in, d_out)}``
+  or ``{"basis": (I, R), "coeff": (m, R, O)}``.
+
+Every leaf comes over as float32, the ``param_dtype`` of every zoo config.
+The caller turns the pytree into numpy first (``jax.device_get``), which
+keeps this module free of JAX.
 """
 
 from __future__ import annotations

@@ -32,6 +32,8 @@ import time
 
 import torch
 
+from repro_torch import resolve_device
+
 __all__ = ["RankPathCalibration", "measure", "get_calibration",
            "from_config", "for_dispatch"]
 
@@ -141,8 +143,9 @@ def _measure_fused_compose_gain(device: torch.device) -> float:
 
 def measure(device=None) -> RankPathCalibration:
     """Run both micro-benchmarks on ``device`` (uncached — callers want
-    :func:`get_calibration`)."""
-    device = torch.device(device if device is not None else "cpu")
+    :func:`get_calibration`).  No device means the CUDA card, as for every
+    entry point (:func:`repro_torch.resolve_device`)."""
+    device = resolve_device(device)
     return RankPathCalibration(
         conv_rank_overhead=_measure_conv_overhead(device),
         fused_compose_gain=_measure_fused_compose_gain(device),
@@ -159,8 +162,7 @@ def _cached(device: str) -> RankPathCalibration:
 def get_calibration(device=None) -> RankPathCalibration:
     """The per-process calibration of ``device`` (measured once, then
     cached, so every step in the process takes the same impl choices)."""
-    return _cached(str(torch.device(device if device is not None
-                                    else "cpu")))
+    return _cached(str(resolve_device(device)))
 
 
 def from_config(cfg, device=None) -> RankPathCalibration:
@@ -168,7 +170,7 @@ def from_config(cfg, device=None) -> RankPathCalibration:
     it, 0 (the default) means *measure* on ``device``."""
     ovh = float(getattr(cfg, "conv_rank_overhead", 0.0) or 0.0)
     gain = float(getattr(cfg, "fused_compose_gain", 0.0) or 0.0)
-    platform = torch.device(device if device is not None else "cpu").type
+    platform = resolve_device(device).type
     if ovh > 0.0 and gain > 0.0:
         return RankPathCalibration(ovh, gain, platform, measured=False)
     base = get_calibration(device)

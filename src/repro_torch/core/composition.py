@@ -91,13 +91,15 @@ def init_factors(gen: torch.Generator, spec: CompositionSpec,
     fan-in-scaled variance (LeCun-style) at every width:
     var(v) = var(u) = sqrt(target_var / R).
 
-    Draws from ``gen`` (a CPU generator, so a seed gives the same factors
-    on every device), then moves to ``device``.
+    Draws from ``gen`` on its device (a CPU generator gives the same
+    factors whatever ``device``), then moves to ``device``.
     """
     fan_in = spec.ksq * spec.base_in
     factor_std = (1.0 / float(fan_in) / spec.rank) ** 0.25
-    basis = factor_std * torch.randn(spec.basis_shape(), generator=gen)
-    coeff = factor_std * torch.randn(spec.coefficient_shape(), generator=gen)
+    basis = factor_std * torch.randn(spec.basis_shape(), generator=gen,
+                                     device=gen.device)
+    coeff = factor_std * torch.randn(spec.coefficient_shape(), generator=gen,
+                                     device=gen.device)
     return basis.to(device), coeff.to(device)
 
 
@@ -296,7 +298,8 @@ def rank_space_wins(p: int, spec: CompositionSpec, *, applications: int,
 def conv_rank_overhead(calibration=None, device=None) -> float:
     """Effective cost multiplier of the conv rank path on this device: the
     ``calibration`` handed in (an ``FLConfig`` pin), else the
-    per-process measurement of :mod:`repro_torch.core.calibration`."""
+    per-process measurement of :mod:`repro_torch.core.calibration` on
+    ``device`` (the CUDA card when none is given; raises without one)."""
     if calibration is not None:
         return float(calibration.conv_rank_overhead)
     from repro_torch.core.calibration import get_calibration

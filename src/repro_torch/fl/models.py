@@ -48,6 +48,7 @@ from repro_torch.core.composition import (CompositionSpec, apply_factors,
                                           compose_flops, conv_rank_overhead,
                                           dense_apply_flops, gather_blocks,
                                           init_factors, rank_space_wins)
+from repro_torch.core.estimator import tree_leaves
 from repro_torch.kernels.conv_rank import _same_conv
 
 Tensor = torch.Tensor
@@ -245,9 +246,10 @@ class FLModelDef:
         data = batch.get(self.input_key) if isinstance(batch, dict) else None
         shape = tuple(data.shape) if data is not None else None
         batch_size = shape[0] if shape else 1
+        # the calibration is measured where the parameters live
         impls = self.layer_impls(
             width, batch_size, forward_impl, shape, calibration,
-            device=data.device if data is not None else None)
+            device=tree_leaves(reduced)[0].device)
         out = {}
         for name, spec in self.specs.items():
             if impls[name] == "rank_space":

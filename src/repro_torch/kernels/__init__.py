@@ -16,6 +16,10 @@ when this package is imported: the CPU tests import every module.
                  softmax (:mod:`repro_torch.kernels.decode_attention`)
   flash_attention   blockwise streaming-softmax attention with causal and
                  window masks (:mod:`repro_torch.kernels.flash_attention`)
+  rmsnorm        per-row RMS normalisation, f32 statistics
+                 (:mod:`repro_torch.kernels.rmsnorm`)
+  ssd_chunk      the Mamba2 SSD intra-chunk block plus its carry-in
+                 (:mod:`repro_torch.kernels.ssd_chunk`)
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel for a tensor on a CUDA device; any other device
@@ -44,7 +48,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C launcher name and argument types per source file
 _SIGNATURES = {
     "compose": ("compose_f32", [_P, _P, _P] + [_I] * 6 + [_P]),
@@ -53,6 +57,8 @@ _SIGNATURES = {
     "conv_rank": ("conv_rank_f32", [_P] * 4 + [_I] * 14 + [_P]),
     "decode_attention": ("decode_attention", [_P] * 5 + [_I] * 5 + [_P]),
     "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 8 + [_P]),
+    "rmsnorm": ("rmsnorm", [_P] * 3 + [_I] * 3 + [_F, _P]),
+    "ssd_chunk": ("ssd_chunk", [_P] * 6 + [_I] * 6 + [_P]),
 }
 KERNELS = tuple(_SIGNATURES)
 
@@ -150,14 +156,17 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launch(name: str, tensors, *ints: int) -> None:
+def launch(name: str, tensors, *scalars) -> None:
     """Call kernel ``name``'s C launcher on the current stream of the
-    tensors' device, raise on a launch error, and count the launch."""
+    tensors' device, raise on a launch error, and count the launch.
+    ``scalars`` are the sizes (ints) and, where the launcher takes one, a
+    float, in the launcher's order."""
     dev = tensors[0].device
     fn = getattr(library(name), _SIGNATURES[name][0])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[t.data_ptr() for t in tensors], *[int(i) for i in ints],
+        err = fn(*[t.data_ptr() for t in tensors],
+                 *[x if isinstance(x, float) else int(x) for x in scalars],
                  stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -188,8 +197,9 @@ def check_operands(name: str, dtypes=(torch.float32,),
 
 
 def no_grad_guard(name: str, *tensors: torch.Tensor) -> None:
-    """For kernels with no backward (the attention kernels, like the
-    reference's ``pallas_call``): refuse to build a graph through them."""
+    """For kernels with no backward (attention, rmsnorm, ssd_chunk, like
+    the reference's ``pallas_call``): refuse to build a graph through
+    them."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name} has no backward; call it under "
                            "torch.no_grad() or on tensors that do not "

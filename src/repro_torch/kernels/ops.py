@@ -3,8 +3,9 @@
 Each op takes the layouts :mod:`repro_torch.models` and
 :mod:`repro_torch.fl.models` use and reaches a hand-written kernel for
 tensors on a CUDA device, or its plain PyTorch version for tensors on the
-CPU (the platform gate :func:`repro_torch.kernels.use_kernel`).  Oracles
-live in :mod:`repro_torch.kernels.ref`.
+CPU (the platform gate :func:`repro_torch.kernels.use_kernel`): the four
+composition ops, ``flash_attention``, ``decode_attention``, ``ssd_chunk``
+and ``rmsnorm``.  Oracles live in :mod:`repro_torch.kernels.ref`.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from repro_torch.kernels.decode_attention import (
     decode_attention as decode_attention_kernel)
 from repro_torch.kernels.flash_attention import (
     flash_attention as flash_attention_kernel)
+from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+from repro_torch.kernels.ssd_chunk import ssd_chunk as ssd_chunk_kernel
 
 __all__ = [
     "compose", "rank_dense_apply", "conv_rank_apply", "compose_dense_apply",
@@ -60,13 +63,17 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
 
 
 def ssd_chunk(cb: Tensor, bb: Tensor, xw: Tensor, cum: Tensor,
-              h_in: Tensor) -> Tensor:
-    """Mamba2 SSD intra-chunk block: not ported yet."""
-    raise NotImplementedError(
-        "ssd_chunk is not ported yet (ROADMAP queue B item 7)")
+              h_in: Tensor, *, heads: int = 1) -> Tensor:
+    """Mamba2 SSD intra-chunk block plus carry-in (the reference's
+    layout): cb/bb (BCH, Q, N) replicated per head, xw (BCH, Q, P), cum
+    (BCH, Q) f32, h_in (BCH, N, P) -> y (BCH, Q, P).  With ``heads > 1``
+    cb/bb hold one row per group of ``heads`` rows instead
+    (:func:`repro_torch.models.ssm.ssd_chunked` passes them so)."""
+    return ssd_chunk_kernel(cb.contiguous(), bb.contiguous(),
+                            xw.contiguous(), cum.contiguous(),
+                            h_in.contiguous(), heads=heads)
 
 
 def rmsnorm(x: Tensor, scale: Tensor, *, eps: float = 1e-6) -> Tensor:
-    """Fused RMSNorm: not ported yet."""
-    raise NotImplementedError(
-        "rmsnorm is not ported yet (ROADMAP queue B item 8)")
+    """Fused RMSNorm: x (..., d), scale (d,) -> x's shape and type."""
+    return rmsnorm_kernel(x.contiguous(), scale, eps=eps)

@@ -83,3 +83,27 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(mask, s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bk,bkd->bd", p.to(v.dtype), v)
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """x (..., d), scale (d,) -> x's shape and type; f32 statistics."""
+    xf = x.float()
+    ms = torch.mean(torch.square(xf), -1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def ssd_chunk_ref(cb: torch.Tensor, bb: torch.Tensor, xw: torch.Tensor,
+                  cum: torch.Tensor, h_in: torch.Tensor) -> torch.Tensor:
+    """Intra-chunk SSD block + carry-in (oracle for the ssd_chunk kernel).
+
+    cb/bb (B, Q, N), xw (B, Q, P), cum (B, Q), h_in (B, N, P) -> (B, Q, P).
+    """
+    Q = cb.shape[1]
+    scores = torch.einsum("bin,bjn->bij", cb, bb)
+    diff = cum[:, :, None] - cum[:, None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=cb.device))
+    w = scores * torch.where(mask[None], torch.exp(diff), 0.0)
+    y_intra = torch.einsum("bij,bjp->bip", w, xw.to(w.dtype))
+    carry = torch.einsum("bin,bnp->bip", cb, h_in)
+    return y_intra + torch.exp(cum)[:, :, None] * carry

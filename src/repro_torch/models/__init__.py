@@ -1,3 +1,12 @@
-"""Model building blocks of the port: the parts of the JAX package's model
-zoo that the composed transformer uses (RoPE and the chunked
-streaming-softmax attention of :mod:`repro_torch.models.attention`)."""
+"""Model building blocks of the port.
+
+* :mod:`repro_torch.models.attention` — RoPE and the chunked
+  streaming-softmax attention the composed transformer trains through,
+  and the zoo's attention block (prefill and KV-cache decode).
+* The zoo's hybrid family (zamba2): :mod:`~repro_torch.models.module`,
+  :mod:`~repro_torch.models.layers`, :mod:`~repro_torch.models.ssm`,
+  :mod:`~repro_torch.models.transformer`,
+  :mod:`~repro_torch.models.sampling` and the unified API in
+  :mod:`~repro_torch.models.model`, served by
+  :mod:`repro_torch.launch.serve`.
+"""

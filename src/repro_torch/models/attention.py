@@ -1,8 +1,9 @@
-"""Attention: RoPE and a chunked streaming-softmax attention, in PyTorch.
+"""Attention: RoPE, chunked streaming-softmax attention, KV-cache decode.
 
 Layouts (the JAX package's):
   q           (B, S, KV, G, D)   G = q heads per kv head (GQA groups)
   k, v        (B, S, KV, D)
+  kv cache    (B, Smax, KV, D)   keys stored *post-RoPE*
 
 :func:`flash_attention` is the training and prefill path: a loop over
 query chunks and, inside it, over KV chunks with a running max and sum,
@@ -10,15 +11,27 @@ so the (S x S) score matrix never materialises.  It is plain PyTorch and
 differentiable by autograd, as the reference's scan is; the forward-only
 CUDA kernel with the same schedule is
 :func:`repro_torch.kernels.flash_attention.flash_attention`.
+
+The attention block of the model zoo (:func:`self_attention`,
+:func:`decode_self_attention`) runs on a CUDA tensor through the two
+forward-only kernels (``kernels.ops.flash_attention`` and
+``kernels.ops.decode_attention``) and on the CPU through the plain
+:func:`flash_attention` and :func:`decode_attention` here.  Not ported:
+M-RoPE, the int8 KV cache, sliding-window caches and cross-attention
+(they raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ops, use_kernel
+from repro_torch.models import module
+
 Tensor = torch.Tensor
+Params = Dict[str, Any]
 NEG_INF = -1e30
 
 
@@ -108,3 +121,130 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         out = acc / l.clamp(min=1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4))  # (B, nq, KV, G, D)
     return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def default_positions(batch: int, seq: int, offset=0,
+                      device=None) -> Tensor:
+    """(1, seq) int32 positions starting at ``offset``."""
+    return (torch.arange(seq, dtype=torch.int32, device=device)[None, :]
+            + int(offset))
+
+
+def angles_for(cfg, positions: Tensor) -> Tuple[Tensor, Tensor]:
+    """positions: (B, S) for rope.  M-RoPE is not ported."""
+    if cfg.rope_type == "mrope":
+        raise NotImplementedError("M-RoPE is not ported (ROADMAP A11)")
+    return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                     valid_mask: Tensor) -> Tensor:
+    """One-token attention over a KV cache, plain.
+
+    q: (B, 1, KV, G, D); caches (B, S, KV, D); valid_mask (B, S) bool.
+    """
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(),
+                     k_cache.float()) * (q.shape[-1] ** -0.5)
+    s = torch.where(valid_mask[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention block (projections + cache plumbing)
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen, cfg, d_model: Optional[int] = None) -> Params:
+    d = d_model or cfg.d_model
+    hd = cfg.resolved_head_dim
+    return {
+        "wq": module.maybe_factorized(gen, d, cfg.num_heads * hd, cfg,
+                                      cfg.pdtype),
+        "wk": module.maybe_factorized(gen, d, cfg.num_kv_heads * hd, cfg,
+                                      cfg.pdtype),
+        "wv": module.maybe_factorized(gen, d, cfg.num_kv_heads * hd, cfg,
+                                      cfg.pdtype),
+        "wo": module.maybe_factorized(gen, cfg.num_heads * hd, d, cfg,
+                                      cfg.pdtype),
+    }
+
+
+def qkv(params: Params, cfg, x: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    KV, G = cfg.num_kv_heads, cfg.q_per_kv
+    q = module.linear(params["wq"], x).reshape(B, S, KV, G, hd)
+    k = module.linear(params["wk"], x).reshape(B, S, KV, hd)
+    v = module.linear(params["wv"], x).reshape(B, S, KV, hd)
+    return q, k, v
+
+
+def _rotate(cfg, q: Tensor, k: Tensor, cos: Tensor, sin: Tensor):
+    if cfg.rope_type == "none":
+        return q, k
+    B, S = q.shape[:2]
+    qf = q.reshape(B, S, -1, q.shape[-1])
+    return (apply_rotary(qf, cos, sin).reshape(q.shape),
+            apply_rotary(k, cos, sin))
+
+
+def _unported(cfg) -> None:
+    if cfg.sliding_window > 0:
+        raise NotImplementedError("sliding-window attention is not ported "
+                                  "(ROADMAP A11)")
+
+
+def self_attention(params: Params, cfg, x: Tensor, cos: Tensor,
+                   sin: Tensor) -> Tensor:
+    """Full-sequence causal self attention (prefill): the flash-attention
+    kernel on a CUDA tensor, the plain chunked softmax on the CPU."""
+    _unported(cfg)
+    B, S, _ = x.shape
+    q, k, v = qkv(params, cfg, x)
+    q, k = _rotate(cfg, q, k, cos, sin)
+    if use_kernel(x):
+        out = ops.flash_attention(q, k, v)
+    else:
+        out = flash_attention(q, k, v, q_chunk=cfg.q_chunk,
+                              kv_chunk=cfg.kv_chunk)
+    out = out.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim)
+    return module.linear(params["wo"], out)
+
+
+def decode_self_attention(params: Params, cfg, x: Tensor, cache_k: Tensor,
+                          cache_v: Tensor, cache_len: int, cos: Tensor,
+                          sin: Tensor):
+    """One-token decode step.
+
+    x: (B, 1, d); caches (B, Smax, KV, D); ``cache_len`` (an int) tokens
+    are already in the cache.  The new key and value are written into
+    slot ``cache_len`` of the caches *in place* (the reference returns
+    updated copies); the query attends over slots ``0..cache_len``.  On a
+    CUDA tensor that is the decode-attention kernel with lengths
+    ``cache_len + 1``, exactly the reference's prefix ``valid`` mask.
+
+    Returns (out, cache_k, cache_v).
+    """
+    _unported(cfg)
+    if cfg.kv_cache_quant == "int8":
+        raise NotImplementedError("the int8 KV cache is not ported "
+                                  "(ROADMAP A11)")
+    B = x.shape[0]
+    Smax = cache_k.shape[1]
+    t = int(cache_len)
+    q, k, v = qkv(params, cfg, x)
+    q, k = _rotate(cfg, q, k, cos, sin)
+    cache_k[:, t] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, t] = v[:, 0].to(cache_v.dtype)
+    if use_kernel(x):
+        lengths = torch.full((B,), t + 1, dtype=torch.int32,
+                             device=x.device)
+        out = ops.decode_attention(q, cache_k, cache_v, lengths)
+    else:
+        valid = (torch.arange(Smax, device=x.device) <= t)[None, :]
+        out = decode_attention(q, cache_k, cache_v, valid.expand(B, Smax))
+    out = out.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim)
+    return module.linear(params["wo"], out), cache_k, cache_v

@@ -1,0 +1,124 @@
+"""Minimal functional module system, in PyTorch.
+
+Parameters are plain nested dicts of tensors.  Layers are functions
+``apply(params, x, ...)``; initialisers are functions ``init(gen, ...) ->
+params`` that draw from an explicit :class:`torch.Generator` (on the
+device the parameters are made on).  Stacked-layer models store every
+layer's params with a leading ``L`` axis, as the reference does for its
+``lax.scan``; the port walks that axis with a Python loop.
+
+Factorized linears (Heroes neural composition) are supported as in the
+reference: a linear's params are either ``{"w": (din, dout)}`` (dense) or
+``{"basis": (I, R), "coeff": (m, R, O)}`` (factorized, m = p^2 blocks at
+width p).  The factorized forward never materialises the composed
+weight::
+
+    y[(b,o)] = sum_a (x_a @ v) @ u_{ab}
+
+It is the reference's einsum (no Pallas kernel there), so it stays plain
+PyTorch here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict
+
+import torch
+
+from repro_torch.core.composition import CompositionSpec, init_factors
+from repro_torch.core.estimator import tree_leaves, tree_map
+
+Tensor = torch.Tensor
+Params = Dict[str, Any]
+
+
+def normal(gen: torch.Generator, shape, dtype, std: float = 1.0) -> Tensor:
+    """``std`` * standard normal draws from ``gen``, on its device."""
+    t = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (std * t).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# dense linear
+# ---------------------------------------------------------------------------
+
+
+def init_linear(gen, d_in: int, d_out: int, dtype) -> Params:
+    return {"w": normal(gen, (d_in, d_out), dtype, 1.0 / math.sqrt(d_in))}
+
+
+def init_embedding(gen, vocab: int, d: int, dtype) -> Params:
+    # d^-0.5 keeps tied-unembed logits O(1) at init
+    return {"table": normal(gen, (vocab, d), dtype, d ** -0.5)}
+
+
+# ---------------------------------------------------------------------------
+# factorized linear (Heroes)
+# ---------------------------------------------------------------------------
+
+
+def comp_spec_for(d_in: int, d_out: int, max_width: int,
+                  rank: int) -> CompositionSpec:
+    """Spec of a factorized linear whose *full-width* (p=P) weight is
+    (d_in, d_out): base_in = d_in / P, base_out = d_out / P."""
+    if d_in % max_width or d_out % max_width:
+        raise ValueError(f"dims ({d_in},{d_out}) not divisible by "
+                         f"P={max_width}")
+    return CompositionSpec(max_width=max_width, rank=rank,
+                           base_in=d_in // max_width,
+                           base_out=d_out // max_width, ksq=1)
+
+
+def init_factorized_linear(gen, d_in: int, d_out: int, max_width: int,
+                           rank: int, width: int, dtype) -> Params:
+    """Init at active width ``width`` (p^2 leading blocks)."""
+    spec = comp_spec_for(d_in, d_out, max_width, rank)
+    v, u = init_factors(gen, spec, gen.device)
+    m = width * width
+    return {"basis": v[0].to(dtype), "coeff": u[:m].to(dtype)}
+
+
+def linear(params: Params, x: Tensor, width: int = 0) -> Tensor:
+    """Apply dense or factorized linear.  ``x``: (..., d_in)."""
+    if "w" in params:
+        return x @ params["w"].to(x.dtype)
+    basis, coeff = params["basis"], params["coeff"]
+    p = width or math.isqrt(coeff.shape[0])
+    if p * p != coeff.shape[0]:
+        raise ValueError("coeff blocks must be a square count")
+    I = basis.shape[0]
+    R, O = coeff.shape[1], coeff.shape[2]
+    *lead, d_in = x.shape
+    if d_in != p * I:
+        raise ValueError(f"x dim {d_in} != p*I = {p}*{I}")
+    u = coeff.to(x.dtype).reshape(p, p, R, O)
+    xa = x.reshape(*lead, p, I)
+    z = torch.einsum("...ai,ir->...ar", xa, basis.to(x.dtype))
+    y = torch.einsum("...ar,abro->...bo", z, u)
+    return y.reshape(*lead, p * O)
+
+
+def maybe_factorized(gen, d_in: int, d_out: int, cfg, dtype) -> Params:
+    """Init a linear honouring cfg.composition (every projection of the
+    zoo, so Heroes composition is a first-class switch)."""
+    c = cfg.composition
+    if not c.enabled:
+        return init_linear(gen, d_in, d_out, dtype)
+    return init_factorized_linear(gen, d_in, d_out, c.max_width,
+                                  cfg.comp_rank, cfg.comp_width, dtype)
+
+
+# ---------------------------------------------------------------------------
+# stacked init: an initialiser run ``num`` times, stacked on a leading axis
+# ---------------------------------------------------------------------------
+
+
+def stacked_init(init_fn: Callable, gen, num: int, *args, **kwargs):
+    layers = [init_fn(gen, *args, **kwargs) for _ in range(num)]
+    return tree_map(lambda *xs: torch.stack(xs), *layers)
+
+
+def count_params(params) -> int:
+    return sum(x.numel() for x in tree_leaves(params))

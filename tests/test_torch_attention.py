@@ -10,7 +10,8 @@
   against the reference's scan, with chunks small enough that several
   blocks stream; RoPE against the reference's.
 * The two kernels refuse to record a gradient (the reference's
-  ``pallas_call`` has none); the ops not ported yet raise.
+  ``pallas_call`` has none); ``ssd_chunk`` and ``rmsnorm``, once
+  unported, now return results.
 
 Inputs are drawn with numpy from a seed and handed to both packages.
 """
@@ -249,12 +250,22 @@ def test_attention_kernels_refuse_gradients(which):
 
 @pytest.mark.parametrize("op", ["ssd_chunk", "rmsnorm"])
 def test_unported_ops_raise(op):
+    """The two ops that raised ``NotImplementedError`` until they were
+    ported now return results (their parity is
+    ``tests/test_torch_ssd_rmsnorm.py``'s); they raise only on arguments
+    of the wrong shape."""
     x = torch.zeros(2, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if op == "ssd_chunk":
+    if op == "ssd_chunk":
+        with pytest.raises(ValueError, match="ssd_chunk"):
             tops.ssd_chunk(x, x, x, x, x)
-        else:
-            tops.rmsnorm(x, torch.ones(4))
+        cb = torch.zeros(2, 4, 3)
+        y = tops.ssd_chunk(cb, cb, torch.ones(2, 4, 5), torch.zeros(2, 4),
+                           torch.ones(2, 3, 5))
+        assert y.shape == (2, 4, 5) and bool(torch.isfinite(y).all())
+    else:
+        with pytest.raises(ValueError, match="rmsnorm"):
+            tops.rmsnorm(x, torch.ones(3))
+        assert tops.rmsnorm(x + 1, torch.ones(4)).shape == (2, 4)
 
 
 def test_ops_reexports_the_composition_primitives():

@@ -4,7 +4,9 @@
   ``repro`` module (checked in a fresh interpreter).
 * No source file of the port, and not ``chip_smoke.py``, imports them.
 * With no CUDA device, the entry points (``init_factorized`` and
-  ``init_dense`` included) raise unless asked for the CPU.
+  ``init_dense``, the calibration entry points, and the model zoo's
+  ``model.init`` / ``init_cache`` / ``launch.serve`` included) raise
+  unless asked for the CPU.
 """
 
 import ast
@@ -32,6 +34,10 @@ def _modules():
 def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = list(_modules())
     assert "repro_torch.fl.engine.runner" in mods
+    assert {"repro_torch.models.model", "repro_torch.models.ssm",
+            "repro_torch.launch.serve", "repro_torch.configs",
+            "repro_torch.kernels.ssd_chunk",
+            "repro_torch.kernels.rmsnorm"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -105,3 +111,58 @@ def test_text_entry_points_raise_without_cuda_unless_asked_for_cpu(
     w = serving_weights(model, model.init_factorized(0, device="cpu"), 1)
     toks, _ = greedy_decode(model, w, 1, [[1, 2]], 2)
     assert toks.shape == (1, 2)
+
+
+def test_calibration_entry_points_raise_without_cuda_unless_asked_for_cpu(
+        monkeypatch):
+    """The calibration measures where the run is: with no device given
+    that is the CUDA card, as for every entry point, never a silent CPU
+    measurement for a CUDA run."""
+    from repro_torch.core import calibration as cal
+    from repro_torch.core.composition import conv_rank_overhead
+    from repro_torch.fl import FLConfig
+    from repro_torch.fl.models import make_cnn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    auto = FLConfig(forward_impl="auto")
+    calls = {
+        "measure": cal.measure,
+        "get_calibration": cal.get_calibration,
+        "from_config": lambda **kw: cal.from_config(auto, **kw),
+        "for_dispatch": lambda **kw: cal.for_dispatch(auto, **kw),
+        "conv_rank_overhead": lambda **kw: conv_rank_overhead(**kw),
+    }
+    for name, fn in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn()
+        got = fn(device="cpu")
+        assert got is not None, name
+        if hasattr(got, "platform"):
+            assert got.platform == "cpu" and got.measured, name
+    # prepare_weights measures on the device of the parameters it is given
+    model = make_cnn()
+    params = model.init_factorized(0, device="cpu")
+    batch = {"x": torch.zeros((4, 8, 8, 3)), "labels": torch.zeros(
+        4, dtype=torch.long)}
+    w = model.prepare_weights(params, 3, batch, "auto")
+    assert set(w) == set(model.specs)
+
+
+def test_zoo_entry_points_raise_without_cuda_unless_asked_for_cpu(
+        monkeypatch):
+    from repro_torch import configs
+    from repro_torch.core.estimator import tree_leaves
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_smoke("zamba2-2.7b")
+    for fn in (lambda **kw: model.init(0, cfg, **kw),
+               lambda **kw: model.init_cache(cfg, 2, 8, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn()
+        leaves = tree_leaves(fn(device="cpu"))
+        assert leaves and all(t.device.type == "cpu" for t in leaves)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--smoke", "--requests", "1"])
+    serve.main(["--smoke", "--requests", "1", "--device", "cpu"])
