@@ -12,8 +12,9 @@ when this package is imported: the CPU tests import every module.
   compose_apply  fused compose+apply, the weight built in shared memory
   conv_rank      fused conv rank path: basis conv + coefficient contraction
                  (:mod:`repro_torch.kernels.conv_rank`)
-  decode_attention  one query per row over a ragged KV cache, online
-                 softmax (:mod:`repro_torch.kernels.decode_attention`)
+  decode_attention  one query per row over a ragged KV cache, split over
+                 the keys and shared by the query group, online softmax
+                 (:mod:`repro_torch.kernels.decode_attention`)
   flash_attention   blockwise streaming-softmax attention with causal and
                  window masks (:mod:`repro_torch.kernels.flash_attention`)
   rmsnorm        per-row RMS normalisation, f32 statistics
@@ -55,7 +56,7 @@ _SIGNATURES = {
     "rank_apply": ("rank_apply_f32", [_P] * 4 + [_I] * 6 + [_P]),
     "compose_apply": ("compose_apply_f32", [_P] * 4 + [_I] * 7 + [_P]),
     "conv_rank": ("conv_rank_f32", [_P] * 4 + [_I] * 14 + [_P]),
-    "decode_attention": ("decode_attention", [_P] * 5 + [_I] * 5 + [_P]),
+    "decode_attention": ("decode_attention", [_P] * 7 + [_I] * 8 + [_P]),
     "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 8 + [_P]),
     "rmsnorm": ("rmsnorm", [_P] * 3 + [_I] * 3 + [_F, _P]),
     "ssd_chunk": ("ssd_chunk", [_P] * 6 + [_I] * 6 + [_P]),
@@ -96,10 +97,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    """Build output keyed by the source, the shared header and the flags,
-    so an edited source is never served a stale library."""
+    """Build output keyed by the source, every shared header and the
+    flags, so an edited source or header is never served a stale
+    library."""
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"

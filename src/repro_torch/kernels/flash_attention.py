@@ -44,8 +44,11 @@ def attention_mask(sq: int, sk: int, causal: bool, window: int,
 
 def _flash_math(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
                 window: int = 0, q_per_kv: int = 1) -> Tensor:
-    """Plain version of the kernel, in f32: masked scores (-1e30),
-    max-shifted exponentials, weighted sum over their total."""
+    """Plain version of the kernel: masked scores (-1e30) in f32,
+    max-shifted exponentials, their f32 total; the exponentials rounded
+    to v's type before the weighted sum (f32 accumulation), as the
+    reference's kernel does (``p.astype(v.dtype)``), then divided by the
+    total.  In f32 the rounding is a no-op."""
     BH, Sq, D = q.shape
     BKV, Sk, _ = k.shape
     qf = q.float().reshape(BKV, q_per_kv, Sq, D)
@@ -53,8 +56,9 @@ def _flash_math(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
     s = torch.where(attention_mask(Sq, Sk, causal, window, q.device), s,
                     NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
-    out = torch.einsum("bgqk,bkd->bgqd", p, v.float())
-    out = out / p.sum(-1, keepdim=True).clamp(min=1e-30)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bgqk,bkd->bgqd", p.to(v.dtype).float(), v.float())
+    out = out / l.clamp(min=1e-30)
     return out.reshape(BH, Sq, D).to(q.dtype)
 
 

@@ -51,14 +51,12 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
                      lengths: Tensor) -> Tensor:
     """Model layout: q (B, 1, KV, G, D), caches (B, S, KV, D), lengths
-    (B,) -> (B, 1, KV, G, D)."""
+    (B,) -> (B, 1, KV, G, D).  The kernel reads the caches as they are
+    (no copy)."""
     B, _, KV, G, D = q.shape
-    S = k_cache.shape[1]
     qf = q[:, 0].reshape(B * KV * G, D).contiguous()
-    kf = k_cache.permute(0, 2, 1, 3).reshape(B * KV, S, D).contiguous()
-    vf = v_cache.permute(0, 2, 1, 3).reshape(B * KV, S, D).contiguous()
     lens = torch.repeat_interleave(lengths.to(torch.int32), KV * G)
-    out = decode_attention_kernel(qf, kf, vf, lens, q_per_kv=G)
+    out = decode_attention_kernel(qf, k_cache, v_cache, lens, q_per_kv=G)
     return out.reshape(B, 1, KV, G, D)
 
 

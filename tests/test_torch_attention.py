@@ -4,8 +4,17 @@
   plain versions) and the model-layout ``kernels.ops`` wrappers against
   the reference's Pallas kernels in interpret mode and its oracles in
   ``repro.kernels.ref``, over the reference's sweep shapes in f32 and
-  bf16, with ``tests/test_kernels.py``'s tolerances (8x its per-type
-  tolerance, relative and absolute).
+  bf16.  f32 is held to ``tests/test_kernels.py``'s tolerance (8x 2e-5,
+  relative and absolute).  In bf16 the plain versions round p to v's
+  type as the Pallas kernels do, so they are held to those kernels at
+  atol 1e-3, rtol 1e-2 (rtol: one bf16 ulp of the output; worst atol
+  needed at that rtol, 2.4e-4, where the Pallas kernel's running max
+  differs from the row's), and to the f32 oracles, which do not round p,
+  at atol 4e-3 (worst needed 1.7e-3).
+* The plain versions round p exactly as the reference (a case the
+  unrounded softmax fails), the kernel's split-and-merge arithmetic
+  equals the unsplit plain version, and ``kernels.ops.decode_attention``
+  hands the model-layout caches to the kernel uncopied.
 * ``models.attention.flash_attention`` (the differentiable training path)
   against the reference's scan, with chunks small enough that several
   blocks stream; RoPE against the reference's.
@@ -46,11 +55,17 @@ def _pair(rng, shape, dtype):
         TDT[dtype])
 
 
-def _close(got, want, dtype):
-    tol = 8 * TOL[dtype]
+# bf16 (atol, rtol) against the reference's Pallas kernels and against
+# its f32 oracles (see the module docstring)
+BF16_TOL = {"kernel": (1e-3, 1e-2), "oracle": (4e-3, 1e-2)}
+
+
+def _close(got, want, dtype, against="kernel"):
+    atol, rtol = ((8 * TOL[dtype],) * 2 if dtype == "float32"
+                  else BF16_TOL[against])
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
-                               atol=tol, rtol=tol)
+                               atol=atol, rtol=rtol)
 
 
 FLASH_SWEEP = [
@@ -87,7 +102,7 @@ def test_ops_flash_attention_matches_reference(dtype, b, s, kv, g, d,
     want = jref.attention_ref(qf.astype(jnp.float32), kf.astype(jnp.float32),
                               vf.astype(jnp.float32), window=window)
     _close(got, jnp.transpose(want.reshape(b, kv, g, s, d), (0, 3, 1, 2, 4)),
-           dtype)
+           dtype, "oracle")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -110,7 +125,7 @@ def test_ops_decode_attention_matches_reference(dtype, b, s, kv, g, d):
     want = jref.decode_attention_ref(
         qf.astype(jnp.float32), kf.astype(jnp.float32),
         vf.astype(jnp.float32), jnp.repeat(jnp.asarray(lens), kv * g))
-    _close(got, want.reshape(b, 1, kv, g, d), dtype)
+    _close(got, want.reshape(b, 1, kv, g, d), dtype, "oracle")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -148,6 +163,113 @@ def test_decode_kernel_layout_matches_pallas(dtype, bkv, g, s, d):
     want = decode_attention_pallas(jq, jk, jv, jnp.asarray(lens), q_per_kv=g,
                                    interpret=True)
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_ops_decode_attention_reads_model_layout_uncopied(monkeypatch, g):
+    """``kernels.ops.decode_attention`` passes the (B, S, KV, D) caches to
+    the kernel wrapper as they are (the kernel reads the model layout),
+    and equals the reference's ``ops.decode_attention``."""
+    from repro_torch.kernels import ops as tops_mod
+
+    b, s, kv, d = 3, 700, 2, 32
+    rng = np.random.default_rng(g)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (b, 1, kv, g, d), "bfloat16"),
+                                    _pair(rng, (b, s, kv, d), "bfloat16"),
+                                    _pair(rng, (b, s, kv, d), "bfloat16"))
+    lens = np.array([s, 1, 413], np.int32)
+    seen = []
+    kernel = tops_mod.decode_attention_kernel
+
+    def spy(q, k, v, lengths, **kw):
+        seen.append((k, v))
+        return kernel(q, k, v, lengths, **kw)
+
+    monkeypatch.setattr(tops_mod, "decode_attention_kernel", spy)
+    got = tops.decode_attention(tq, tk, tv, torch.from_numpy(lens))
+    assert len(seen) == 1 and seen[0][0] is tk and seen[0][1] is tv
+    assert got.shape == (b, 1, kv, g, d)
+    _close(got, jops.decode_attention(jq, jk, jv, jnp.asarray(lens),
+                                      interpret=True), "bfloat16")
+
+
+def _frac_differing(got, want):
+    return float(np.mean(got.float().numpy() != np.asarray(want, np.float32)))
+
+
+@pytest.mark.parametrize("which", ["flash", "decode"])
+def test_plain_versions_round_p_as_the_reference(which):
+    """With one KV block (the Pallas kernel's running max is the row's
+    max) the bf16 plain version gives the Pallas kernel's bf16 outputs,
+    but for rare last-bit flips of the f32 sums' order.  The same softmax
+    without rounding p (the f32 plain version on the same values) misses
+    a third of them: removing the cast fails this case."""
+    rng = np.random.default_rng(7)
+    if which == "flash":
+        (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (4, 64, 32), "bfloat16")
+                                        for _ in range(3))
+        want = flash_attention_pallas(jq, jk, jv, interpret=True)
+        got = flash_attention(tq, tk, tv)
+        unrounded = flash_attention(tq.float(), tk.float(), tv.float())
+    else:
+        jq, tq = _pair(rng, (8, 64), "bfloat16")
+        (jk, tk), (jv, tv) = (_pair(rng, (2, 300, 64), "bfloat16")
+                              for _ in range(2))
+        lens = rng.integers(1, 301, 8).astype(np.int32)
+        want = decode_attention_pallas(jq, jk, jv, jnp.asarray(lens),
+                                       q_per_kv=4, interpret=True)
+        got = decode_attention(tq, tk, tv, torch.from_numpy(lens), q_per_kv=4)
+        unrounded = decode_attention(tq.float(), tk.float(), tv.float(),
+                                     torch.from_numpy(lens), q_per_kv=4)
+    assert _frac_differing(got, want) <= 0.01
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want,
+                                                               np.float32),
+                               atol=2e-3, rtol=2 ** -7)
+    assert _frac_differing(unrounded.to(torch.bfloat16), want) >= 0.1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", [1, 3, 7])
+def test_split_merge_matches_unsplit(dtype, splits):
+    """The kernel's split arithmetic (each split's (m, l, acc), merged in
+    split order) equals the unsplit plain version; the last split is
+    ragged and some rows end before it, one row is empty.  In bf16 each
+    split rounds p against its own max, so the two differ by that
+    rounding (the attention kernels' bf16 tolerance)."""
+    from repro_torch.kernels.decode_attention import _decode_math, _split_math
+
+    rng = np.random.default_rng(splits)
+    S, D, G = 1300, 32, 4
+    _, q = _pair(rng, (3 * G, D), dtype)
+    _, k = _pair(rng, (3, S, D), dtype)
+    _, v = _pair(rng, (3, S, D), dtype)
+    lens = torch.tensor([0, S, 1299, 17, 500, 1, 256, 257, 1200, S, 3, 700])
+    chunk = 64 * -(-S // (64 * splits))  # whole 64-key tiles, as planned
+    assert -(-S // chunk) == splits
+    got = _split_math(q, k, v, lens, G, splits, chunk)
+    want = _decode_math(q, k, v, lens, G)
+    assert bool((got[0] == 0).all())
+    atol, rtol = (1e-6, 1e-5) if dtype == "float32" else (4e-3, 1e-2)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("row_blocks,S", [(128, 32768), (3, 3000), (128, 64),
+                                          (1, 100), (1024, 40), (5, 0)])
+def test_split_plan_covers_the_cache_and_the_card(row_blocks, S):
+    """Splits of whole 64-key tiles cover the cache once; there are
+    enough to fill 132 SMs twice, unless a split would hold fewer than
+    256 keys."""
+    from repro_torch.kernels.decode_attention import (MIN_SPLIT_KEYS,
+                                                      split_plan)
+
+    splits, chunk = split_plan(row_blocks, S, 132)
+    assert splits >= 1 and chunk % 64 == 0
+    assert (splits - 1) * chunk < max(S, 1) <= splits * chunk
+    if splits > 1:
+        assert chunk >= MIN_SPLIT_KEYS - 63
+    full = splits * row_blocks >= 2 * 132
+    assert full or splits >= -(-S // MIN_SPLIT_KEYS)
 
 
 def test_port_oracles_match_reference_oracles():

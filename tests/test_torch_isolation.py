@@ -2,7 +2,10 @@
 
 * Importing every ``repro_torch`` module loads neither ``jax`` nor any
   ``repro`` module (checked in a fresh interpreter).
-* No source file of the port, and not ``chip_smoke.py``, imports them.
+* No source file of the port, and neither ``chip_smoke.py`` nor
+  ``chip_faults.py``, imports them.
+* The build cache keys every kernel library on its source and every
+  shared header.
 * With no CUDA device, the entry points (``init_factorized`` and
   ``init_dense``, the calibration entry points, and the model zoo's
   ``model.init`` / ``init_cache`` / ``launch.serve`` included) raise
@@ -64,7 +67,7 @@ def _imported_names(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py", ROOT / "chip_faults.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax_and_no_repro(path):
     for name in _imported_names(path):
@@ -166,3 +169,28 @@ def test_zoo_entry_points_raise_without_cuda_unless_asked_for_cpu(
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--smoke", "--requests", "1"])
     serve.main(["--smoke", "--requests", "1", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "rmsnorm"])
+def test_build_key_covers_every_header(tmp_path, monkeypatch, name):
+    """A kernel library is keyed on its source and every ``*.cuh`` beside
+    it: adding or editing any header (a new MMA helper, say) gives every
+    library a new key, so none is served stale; the same files give the
+    same key."""
+    import shutil
+
+    from repro_torch import kernels as rt
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(rt.CSRC, csrc)
+    orig = rt._lib_path(name)
+    monkeypatch.setattr(rt, "CSRC", csrc)
+    key = rt._lib_path(name)
+    assert key == orig == rt._lib_path(name)
+    (csrc / "zz_new.cuh").write_text("#pragma once\n")
+    added = rt._lib_path(name)
+    assert added != key
+    with open(csrc / "mma.cuh", "a") as f:
+        f.write("// an edit\n")
+    assert rt._lib_path(name) not in (key, added)
