@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Planted faults in the attention kernels: does the smoke's phase 2 see
-them?
+"""Planted faults in the attention, SSD-chunk and RMSNorm kernels: does
+the smoke's phase 2 see them?
 
     python3 chip_faults.py
 
 Run from the root of a checkout, on a machine with a CUDA device.  For
 each fault below it copies ``src/`` and ``chip_smoke.py`` into a fresh
 temporary directory, edits one line of one kernel source there (the
-checkout is not touched), and runs ``chip_smoke.check_attention`` (the
-attention kernels' phase 2, which builds the edited kernel) in a process
-of its own.  Each fault must make phase 2 fail at the first case that
-runs the edited kernel: the first bf16 flash case for the two faults of
-the bf16 flash kernel, the first decode case for the merge's.  Prints
-one line per fault (the case it failed at and its worst margin) and
-exits 1 unless every fault did.
+checkout is not touched), and runs that kernel's phase 2 from
+``chip_smoke`` (``check_attention`` or ``check_ssd_rmsnorm``, which
+builds the edited kernel) in a process of its own.  Each fault must make
+phase 2 fail at the first case that runs the edited code: the first bf16
+flash case for the two faults of the bf16 flash kernel, the first decode
+case for the merge's, the first bf16 ssd_chunk case for the bf16 SSD
+kernels', the first (f32) rmsnorm case for the one-pass rmsnorm's.
+Prints one line per fault (the case it failed at and its worst margin)
+and exits 1 unless every fault did.
 """
 
 from __future__ import annotations
@@ -28,23 +30,45 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # name: (kernel source, pattern, replacement, occurrences, the prefix of
-# the first phase-2 case that runs the edited code)
+# the first phase-2 case that runs the edited code, the phase-2 check)
 FAULTS = {
     "flash: (m, l) correction skipped on the second KV tile": (
         "flash_attention.cu", r"corr\[h\] = fast_exp2\(m\[mt\]\[h\] - mx\);",
         "corr[h] = t == t_begin + 1 ? 1.f : fast_exp2(m[mt][h] - mx);", 1,
-        "flash_attention bfloat16"),
+        "flash_attention bfloat16", "check_attention"),
     "flash: causal edge off by one": (
         "flash_attention.cu", r"if \(causal\) ok = ok && qpos >= kpos;",
         "if (causal) ok = ok && qpos + 1 >= kpos;", 1,
-        "flash_attention bfloat16"),
+        "flash_attention bfloat16", "check_attention"),
     "decode: last split dropped in the merge": (
         "decode_attention.cu", r"s < splits;", "s < splits - 1;", 3,
-        "decode_attention"),
+        "decode_attention", "check_attention"),
+    "ssd_chunk: causal edge off by one": (
+        "ssd_chunk.cu", r"const bool live = kt < m \|\| j <= i;",
+        "const bool live = kt < m || j <= i + 1;", 1,
+        "ssd_chunk bfloat16", "check_ssd_rmsnorm"),
+    "ssd_chunk: carry-in dropped for a warp's query tiles after its first": (
+        "ssd_chunk.cu",
+        r"const float e\[2\] = \{expf\(ci\[0\]\), expf\(ci\[1\]\)\};",
+        "const float e[2] = {s > 0 ? 0.f : expf(ci[0]), "
+        "s > 0 ? 0.f : expf(ci[1])};", 1,
+        "ssd_chunk bfloat16", "check_ssd_rmsnorm"),
+    "ssd_chunk: the scores' last state column left out": (
+        "ssd_chunk.cu",
+        r"n < N; \+\+n\) \{\n(    const float4 ca = \*reinterpret_cast"
+        r"<const float4\*>\(Ct \+ n \* SC_LD)",
+        r"n < N - 1; ++n) {\n\1", 1,
+        "ssd_chunk bfloat16", "check_ssd_rmsnorm"),
+    "rmsnorm: the row's last vector left out of the sum": (
+        "rmsnorm.cu", r"for \(int v = 0; v < VPT; \+\+v\) ss \+= "
+        r"sum_sq<T>\(xv\[v\]\);",
+        "for (int v = 0; v < VPT; ++v) ss += (v == VPT - 1 && t == tpr - 1) "
+        "? 0.f : sum_sq<T>(xv[v]);", 1,
+        "rmsnorm float32", "check_ssd_rmsnorm"),
 }
 RUN = ("import sys, torch; sys.path.insert(0, 'src'); import chip_smoke as cs;"
        " torch.backends.cuda.matmul.allow_tf32 = False;"
-       " cs.check_attention(torch)")
+       " cs.{check}(torch)")
 
 
 def plant(workdir: Path, source: str, pattern: str, repl: str,
@@ -68,12 +92,13 @@ def main() -> int:
         return 1
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
-        for i, (name, (source, pat, repl, count, _)) in enumerate(
+        for i, (name, (source, pat, repl, count, _, check)) in enumerate(
                 FAULTS.items()):
             work = Path(tmp) / f"fault{i}"
             plant(work, source, pat, repl, count)
             procs[name] = subprocess.Popen(
-                [sys.executable, "-c", RUN], cwd=work, text=True,
+                [sys.executable, "-c", RUN.format(check=check)], cwd=work,
+                text=True,
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         caught = 0
         for name, proc in procs.items():

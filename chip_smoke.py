@@ -6,9 +6,9 @@
 Run from the root of a checkout.  It
 
 1. builds the eight CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-   per source, in parallel), prints the build seconds, the attention
-   libraries' tensor-core instruction counts and the card's name and
-   power limit, and turns TF32 off for matmuls and convolutions;
+   per source, in parallel), prints the build seconds, the attention and
+   SSD-chunk libraries' tensor-core instruction counts and the card's
+   name and power limit, and turns TF32 off for matmuls and convolutions;
 2. holds every kernel against its plain PyTorch version on the card: the
    four composition kernels at the CNN's shapes for widths p = 1, 2, 3
    (all three composition modes, strides 1 and 2, compose with a client
@@ -17,13 +17,18 @@ Run from the root of a checkout.  It
    transformer path's shapes, the reference's sweep shapes, head dims 80
    and 256 over several KV tiles, a query group of 8 over uneven key
    splits with ragged lengths down to 0, and in model layout through
-   ``kernels.ops``; rmsnorm and ssd_chunk in f32 and bf16 at zamba2's
-   path shapes, the reference's sweep shapes and with ``heads > 1``.  It
-   times kernel, plain version and, where one PyTorch call computes the
-   same function, that call (the port never calls it), at the main
+   ``kernels.ops``; rmsnorm and ssd_chunk in f32 and bf16, element-wise,
+   at zamba2's path shapes, the reference's sweep shapes, with ``heads >
+   1``, at every width of the zoo's rmsnorm configs and widths the
+   one-pass kernel does not take, and at every instance and edge of the
+   bf16 ssd_chunk kernel (a gentle decay, N up to 128, Q from 1 to 1024).
+   It times kernel, plain version and, where one PyTorch call computes
+   the same function, that call (the port never calls it), at the main
    path's widest shapes and, for the attention, rmsnorm and ssd_chunk
-   kernels, at one realistic shape each (flash also at path (g)'s own
-   call, decode also through ``kernels.ops`` on the model layout);
+   kernels, at one realistic shape each over ``BIG_ITERS`` eager calls
+   (flash also at path (g)'s own call, decode also through
+   ``kernels.ops`` on the model layout, rmsnorm also at path (g)'s
+   decode shapes);
 3. drives the port's main paths, with the launch counts set to 0 just
    before each and read just after, each checked against the same run on
    the CPU (the plain versions, which the CPU tests hold to the JAX
@@ -92,7 +97,10 @@ FLASH_PATH_G = dict(B=4, H=32, S=512, D=80)
 # them; in bf16 the kernel and its plain version round the same f32 sums
 # once, so they may differ by one bf16 ulp (2^-7 relative, under rtol
 # 1e-2) and, near zero, by the f32 sums' order (atol 1e-3).  A kernel
-# that left w unrounded, or dropped the carry-in, misses these.
+# that left w unrounded, or dropped the carry-in, misses these.  So does
+# one whose scores round w to bf16 differently: the bf16 ssd_chunk kernel
+# sums its scores in the plain version's order, so w is the same bit for
+# bit (kernels/ssd_chunk.py).
 RMS_TOL = {"float32": (8e-5, 8e-5), "bfloat16": (1e-3, 1e-2)}
 SSD_TOL = {"float32": (3.2e-4, 3.2e-4), "bfloat16": (1e-3, 1e-2)}
 # their realistic timing shapes: prefill_32k (32768 tokens, batch cut
@@ -100,6 +108,8 @@ SSD_TOL = {"float32": (3.2e-4, 3.2e-4), "bfloat16": (1e-3, 1e-2)}
 # of P = 64, state N = 64, chunk 256 -> 128 chunks)
 RMS_AT_SCALE = dict(rows=2 * 32768, d=5120)
 SSD_AT_SCALE = dict(B=2, nc=128, H=80, Q=256, N=64, P=64)
+# eager calls a realistic ("big") shape is timed over, after 2 warm-ups
+BIG_ITERS = 20
 
 DEVICE = "cuda"
 
@@ -132,11 +142,12 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def sass_counts(rt, names=("flash_attention", "decode_attention")) -> dict:
+def sass_counts(rt, names=("flash_attention", "decode_attention",
+                            "ssd_chunk")) -> dict:
     """Tensor-core (HMMA, HGMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
-    instructions in the built attention libraries (``cuobjdump -sass``);
-    fails unless each library has tensor-core instructions (its bf16
-    kernel)."""
+    instructions in the built attention and SSD-chunk libraries
+    (``cuobjdump -sass``); fails unless each library has tensor-core
+    instructions (its bf16 kernel)."""
     import re
 
     cuobjdump = Path(rt._nvcc()).parent / "cuobjdump"
@@ -225,17 +236,22 @@ def time_kernel(torch, name, label, shape, fn, plain, library, nbytes,
     the one PyTorch call computing the same function (``library``, or
     None) and, where none does, the reference's several calls
     (``two_call``).  ``big`` (ms-scale) calls are timed with events
-    around 3 eager calls, small ones by CUDA-graph replay."""
+    around ``BIG_ITERS`` eager calls, small ones by CUDA-graph replay."""
+    iters, warmup = (BIG_ITERS, 2) if big else (200, 20)
     if big:
-        t = lambda f: call_ms(torch, f, iters=3, warmup=1)  # noqa: E731
+        def t(f):
+            return call_ms(torch, f, iters=iters, warmup=warmup)
     else:
-        t = lambda f: device_ms(torch, f)  # noqa: E731
-    iters, warmup = (3, 1) if big else (200, 20)
+        def t(f):
+            return device_ms(torch, f)
     rec = {"ms": t(fn), "plain_ms": t(plain),
            "library_ms": t(library) if library else None,
            "call_ms": call_ms(torch, fn, iters=iters, warmup=warmup),
            "plain_call_ms": call_ms(torch, plain, iters=iters,
                                     warmup=warmup)}
+    if library:
+        rec["library_call_ms"] = call_ms(torch, library, iters=iters,
+                                         warmup=warmup)
     if two_call:
         rec["two_call_ms"] = t(two_call)
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, peak)
@@ -244,7 +260,9 @@ def time_kernel(torch, name, label, shape, fn, plain, library, nbytes,
           f"{rec['plain_ms']:.5f} library_ms {rec['library_ms']} "
           + (f"two_call_ms {rec['two_call_ms']:.5f} " if two_call else "")
           + f"bound_ms {rec['bound_ms']:.6f} ({rec['bound_by']}) call_ms "
-          f"{rec['call_ms']:.5f} [{shape}]")
+          f"{rec['call_ms']:.5f} "
+          + (f"library_call_ms {rec['library_call_ms']:.5f} " if library
+             else "") + f"[{shape}]")
     return rec
 
 
@@ -824,28 +842,48 @@ def check_ssd_rmsnorm(torch):
         tn = str(dtype).split(".")[1]
         # path (g)'s rows (prefill 4 x 512, decode batch 4) at d_model and
         # d_inner, the reference's sweep, an unaligned width (scalar
-        # loads) and a wide one
+        # loads) and a wide one (one-pass kernel); then every other width
+        # of the zoo's rmsnorm configs (one-pass, few rows), widths that
+        # no one-pass instance takes (generic kernel: 1000, 65536) and a
+        # row start that is not 16-byte aligned (generic, scalar loads)
         for shape in ((2048, 2560), (2048, 5120), (4, 2560), (4, 5120),
                       (4, 64), (2, 7, 96), (1, 130, 32), (3, 100),
-                      (8, 8192)):
-            x, sc = rn(*shape, dtype=dtype), rn(shape[-1], scale=0.1) + 1.0
+                      (8, 8192), (3, 128), (5, 256), (6, 2048), (7, 3584),
+                      (4, 7168), (5, 1000), (2, 65536), "misaligned"):
+            if shape == "misaligned":  # a contiguous view at element 1
+                x = rn(3 * 2560 + 1, dtype=dtype)[1:].view(3, 2560)
+            else:
+                x = rn(*shape, dtype=dtype)
+            sc = rn(x.shape[-1], scale=0.1) + 1.0
             keep("rmsnorm", close(torch, rmsnorm(x, sc),
                                   _rmsnorm_math(x, sc, 1e-6), RMS_TOL[tn],
                                   f"rmsnorm {tn} {shape}"))
             if dtype == torch.float32:
                 close(torch, ops.rmsnorm(x, sc), ref.rmsnorm_ref(x, sc),
                       RMS_TOL[tn], f"ops.rmsnorm {tn} {shape} vs oracle")
-        # path (g)'s prefill call (batch 4 x 512 tokens: 2 chunks of 256,
-        # 80 heads of P = 64 sharing B/C of N = 64), the smoke config's
+        # a gentle decay (exp(cum_i) still ~0.1 at the chunk's end, so the
+        # carry-in of every query tile counts: under the model's usual
+        # decay it vanishes past the first rows), path (g)'s prefill call
+        # (batch 4 x 512 tokens: 2 chunks of 256, 80 heads of P = 64
+        # sharing B/C of N = 64), the smoke config's
         # (chunk 32, N 8, P 16, 16 heads), the reference's sweep
         # (replicated rows), a group of 5 heads over a ragged chunk, the
         # widest state the kernel takes (N = 128), and a steep decay
-        # whose upper triangle overflows exp
-        cases = [("path (g) prefill", (8, 80, 256, 64, 64, 1.0)),
+        # whose upper triangle overflows exp; then the bf16 kernel's other
+        # instances (N = P = 32; N = 48 and P = 24 zero-padded), a chunk
+        # of one step, a long one that still fits shared memory (Q = 512)
+        # and one that does not (Q = 1024: the FFMA kernel, by shape)
+        cases = [("gentle decay", (2, 8, 256, 64, 64, 0.01)),
+                 ("path (g) prefill", (8, 80, 256, 64, 64, 1.0)),
                  ("smoke config", (6, 16, 32, 8, 16, 1.0)),
                  ("G=3 heads=5 Q=100", (3, 5, 100, 64, 64, 1.0)),
                  ("N=128", (2, 3, 96, 128, 64, 1.0)),
-                 ("steep decay", (2, 4, 64, 16, 32, 40.0))]
+                 ("steep decay", (2, 4, 64, 16, 32, 40.0)),
+                 ("N=32 P=32", (2, 3, 64, 32, 32, 1.0)),
+                 ("N=48 P=24", (2, 2, 80, 48, 24, 1.0)),
+                 ("Q=1", (2, 2, 1, 16, 16, 1.0)),
+                 ("Q=512", (1, 2, 512, 64, 64, 1.0)),
+                 ("Q=1024", (1, 2, 1024, 64, 64, 1.0))]
         cases += [(f"sweep b={b} q={q} n={n} p={p}", (b, 1, q, n, p, 1.0))
                   for b, q, n, p in ((4, 32, 8, 16), (2, 64, 16, 32),
                                      (1, 16, 4, 8), (3, 24, 4, 12))]
@@ -893,9 +931,11 @@ def check_ssd_rmsnorm(torch):
             2 * 2 * x.numel() + 4 * d, 4 * x.numel(), PEAK_BF16_FLOPS, big)
 
     path = rms_case(2048, 5120, "path (g) prefill d_inner", big=False)
+    decode = {f"(4,{d})": rms_case(4, d, f"path (g) decode d={d}", big=False)
+              for d in (2560, 5120)}
     real = rms_case(RMS_AT_SCALE["rows"], RMS_AT_SCALE["d"],
                     "prefill_32k x zamba2", big=True)
-    records["rmsnorm"] = dict(path, at_scale=real)
+    records["rmsnorm"] = dict(path, at_scale=real, decode=decode)
     torch.cuda.empty_cache()
 
     def ssd_case(G, heads, Q, N, P, label, big):
@@ -910,7 +950,9 @@ def check_ssd_rmsnorm(torch):
         # reference is the einsum oracle on B/C replicated per head
         rep = [t.repeat_interleave(heads, 0) for t in a[:2]]
         pairs = Q * (Q + 1) // 2  # the causal half this data needs
-        flops = R * (2 * pairs * (N + P) + 2 * Q * N * P)
+        # the scores once per group (the heads share them), w . xw and
+        # the carry per head
+        flops = 2 * G * pairs * N + R * (2 * pairs * P + 2 * Q * N * P)
         nbytes = (2 * (2 * G * Q * N + 2 * R * Q * P + R * N * P)
                   + 4 * R * Q)
         rec = time_kernel(
@@ -1135,8 +1177,9 @@ ZOO_EXPECT = frozenset({"rmsnorm", "ssd_chunk", "flash_attention",
 PORT_SYMBOLS = {"flash_attention": ("flash_mma_kernel", "flash_ffma_kernel"),
                 "decode_attention": ("decode_split_kernel",
                                      "decode_merge_kernel"),
-                "ssd_chunk": ("ssd_chunk_kernel",),
-                "rmsnorm": ("rmsnorm_kernel",)}
+                "ssd_chunk": ("ssd_scores_kernel", "ssd_mma_kernel",
+                              "ssd_ffma_kernel"),
+                "rmsnorm": ("rmsnorm_regs_kernel", "rmsnorm_generic_kernel")}
 
 
 def zoo_path(torch, cfg=None):
@@ -1465,7 +1508,7 @@ def main() -> int:
             "launches_by_path": {k: v[name] for k, v in by_path.items()},
         })
         for extra in ("two_call_ms", "at_scale", "path_g",
-                      "ops_model_layout"):
+                      "ops_model_layout", "decode"):
             if extra in rec:
                 kernels[-1][extra] = rec[extra]
     print(json.dumps({"kernels": kernels}))

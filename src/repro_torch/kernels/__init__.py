@@ -59,7 +59,7 @@ _SIGNATURES = {
     "decode_attention": ("decode_attention", [_P] * 7 + [_I] * 8 + [_P]),
     "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 8 + [_P]),
     "rmsnorm": ("rmsnorm", [_P] * 3 + [_I] * 3 + [_F, _P]),
-    "ssd_chunk": ("ssd_chunk", [_P] * 6 + [_I] * 6 + [_P]),
+    "ssd_chunk": ("ssd_chunk", [_P] * 7 + [_I] * 6 + [_P]),
 }
 KERNELS = tuple(_SIGNATURES)
 

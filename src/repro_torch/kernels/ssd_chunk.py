@@ -41,10 +41,20 @@ MAX_HEAD_DIM = 64  # P
 def _ssd_math(cb: Tensor, bb: Tensor, xw: Tensor, cum: Tensor, h_in: Tensor,
               heads: int = 1) -> Tensor:
     """Plain version of the kernel: f32 scores per (batch, chunk) group,
-    the causal decay per head, w rounded to xw's type, f32 sums."""
+    the causal decay per head, w rounded to xw's type, f32 sums.
+
+    The scores are summed in n order, one rounding a step (for bf16
+    inputs each product is exact in f32, so a step is one FMA): the
+    order the kernel's scores follow, so that w rounds to bf16 the same
+    way on both sides.  In another order a score that lands near a
+    rounding boundary of w can round the other way, and one such w moves
+    y by up to 2^-8 |w| |xw|, past the bf16 tolerance."""
     R, Q, P = xw.shape
     G, _, N = cb.shape
-    scores = torch.einsum("gin,gjn->gij", cb.float(), bb.float())
+    cf, bf = cb.float(), bb.float()
+    scores = torch.zeros((G, Q, Q), dtype=torch.float32, device=xw.device)
+    for n in range(N):
+        scores.addcmul_(cf[:, :, n, None], bf[:, None, :, n])
     c = cum.float().reshape(G, heads, Q)
     live = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xw.device))
     # exp only where the mask keeps the pair: the upper triangle may
@@ -87,6 +97,10 @@ def ssd_chunk(cb: Tensor, bb: Tensor, xw: Tensor, cum: Tensor, h_in: Tensor,
         raise ValueError(f"ssd_chunk: state {N} > {MAX_STATE} or head_dim "
                          f"{P} > {MAX_HEAD_DIM}")
     out = torch.empty_like(xw)
-    launch("ssd_chunk", (cb, bb, xw, cum, h_in, out), R, Q, N, P, heads,
-           DTYPE_CODES[xw.dtype])
+    # the bf16 kernel's scores, once per (batch, chunk) group, Q rounded
+    # up to the score tile of 64
+    qs = -(-Q // 64) * 64 if xw.dtype == torch.bfloat16 else 0
+    scores = torch.empty((G, qs, qs), dtype=torch.float32, device=xw.device)
+    launch("ssd_chunk", (cb, bb, xw, cum, h_in, out, scores), R, Q, N, P,
+           heads, DTYPE_CODES[xw.dtype])
     return out

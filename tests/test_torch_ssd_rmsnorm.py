@@ -11,6 +11,10 @@
   triangle would overflow ``exp`` stays finite.
 * ``models.ssm.ssd_chunked`` against the reference's, with a non-zero
   initial state, several chunks and padding: y and the final state.
+* The shapes the bf16 kernels' other code paths take: ``heads = 8`` over
+  a ragged chunk (Q = 100), the widest state (N = 128), zamba2's rmsnorm
+  widths (2560, 5120) with few rows, and ``ssd_chunked`` with 8 heads,
+  N = 128 and a padded last chunk.
 * Both kernels refuse to record a gradient (the reference's
   ``pallas_call`` has none).
 
@@ -35,7 +39,9 @@ JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 SSD_SWEEP = [(4, 32, 8, 16), (2, 64, 16, 32), (1, 16, 4, 8), (3, 24, 4, 12)]
-RMS_SWEEP = [(4, 64), (2, 7, 96), (1, 130, 32)]
+# the reference's sweep, then zamba2-2.7b's d_model and d_inner at
+# decode's few rows
+RMS_SWEEP = [(4, 64), (2, 7, 96), (1, 130, 32), (4, 2560), (4, 5120)]
 
 
 def _pair(x: np.ndarray, dtype):
@@ -122,6 +128,28 @@ def test_rmsnorm_matches_reference(dtype, shape):
     _close(got, tref.rmsnorm_ref(tx, ts).float().numpy(), tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,heads,Q,N,P", [(2, 8, 100, 16, 16),
+                                           (2, 3, 64, 128, 32)])
+def test_ssd_chunk_heads_and_wide_state_match_reference(dtype, G, heads, Q,
+                                                        N, P):
+    """B and C passed once per group to the port, replicated per head for
+    the reference (its layout)."""
+    rng = np.random.default_rng(Q + N)
+    cb = _pair(rng.standard_normal((G, Q, N)), dtype)
+    bb = _pair(rng.standard_normal((G, Q, N)), dtype)
+    R = G * heads
+    xw, cum, hin = _ssd_inputs(rng, R, Q, N, P, dtype)[2:]
+    got = tops.ssd_chunk(cb[1], bb[1], xw[1], cum[1], hin[1], heads=heads)
+    assert got.shape == (R, Q, P) and got.dtype == TDT[dtype]
+    jrep = [jnp.repeat(j, heads, axis=0) for j in (cb[0], bb[0])]
+    tol = 16 * TOL[dtype]
+    _close(got, jops.ssd_chunk(*jrep, xw[0], cum[0], hin[0], interpret=True),
+           tol)
+    f32 = [j.astype(jnp.float32) for j in (*jrep, xw[0], cum[0], hin[0])]
+    _close(got, jref.ssd_chunk_ref(*f32), tol)
+
+
 def test_ssd_chunked_matches_reference():
     """T = 80 over chunks of 32: three chunks, the last padded by 16, and
     a non-zero state entering the first."""
@@ -133,6 +161,25 @@ def test_ssd_chunked_matches_reference():
     jA, tA = _pair(np.exp(np.log(np.linspace(1.0, 16.0, H))), "float32")
     jb, tb = _pair(rng.standard_normal((B, T, N)), "float32")
     jc, tc = _pair(rng.standard_normal((B, T, N)), "float32")
+    jh, th = _pair(rng.standard_normal((B, H, N, P)), "float32")
+    jy, jst = jssm.ssd_chunked(jx, jdt, jA, jb, jc, Q, init_state=jh)
+    ty, tst = tssm.ssd_chunked(tx, tdt, tA, tb, tc, Q, init_state=th)
+    assert ty.shape == (B, T, H, P) and tst.shape == (B, H, N, P)
+    _close(ty, jy, 1e-5)
+    _close(tst, jst, 1e-5)
+
+
+def test_ssd_chunked_heads_wide_state_matches_reference():
+    """T = 100 over chunks of 64 (the last padded by 28), 8 heads sharing
+    B and C of N = 128, a non-zero state entering the first chunk."""
+    rng = np.random.default_rng(1)
+    B, T, H, P, N, Q = 1, 100, 8, 16, 128, 64
+    jx, tx = _pair(rng.standard_normal((B, T, H, P)), "float32")
+    dt = np.logaddexp(0.0, rng.standard_normal((B, T, H)) - 1.0)
+    jdt, tdt = _pair(dt, "float32")
+    jA, tA = _pair(np.linspace(0.5, 4.0, H), "float32")
+    jb, tb = _pair(rng.standard_normal((B, T, N)) / np.sqrt(N), "float32")
+    jc, tc = _pair(rng.standard_normal((B, T, N)) / np.sqrt(N), "float32")
     jh, th = _pair(rng.standard_normal((B, H, N, P)), "float32")
     jy, jst = jssm.ssd_chunked(jx, jdt, jA, jb, jc, Q, init_state=jh)
     ty, tst = tssm.ssd_chunked(tx, tdt, tA, tb, tc, Q, init_state=th)
