@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Planted faults in the attention, SSD-chunk and RMSNorm kernels: does
-the smoke's phase 2 see them?
+"""Planted faults in the conv_rank, rank_apply, attention, SSD-chunk and
+RMSNorm kernels: does the smoke's phase 2 see them?
 
     python3 chip_faults.py
 
@@ -8,12 +8,15 @@ Run from the root of a checkout, on a machine with a CUDA device.  For
 each fault below it copies ``src/`` and ``chip_smoke.py`` into a fresh
 temporary directory, edits one line of one kernel source there (the
 checkout is not touched), and runs that kernel's phase 2 from
-``chip_smoke`` (``check_attention`` or ``check_ssd_rmsnorm``, which
+``chip_smoke`` (``check_kernels``, ``check_attention`` or
+``check_ssd_rmsnorm``, which
 builds the edited kernel) in a process of its own.  Each fault must make
-phase 2 fail at the first case that runs the edited code: the first bf16
-flash case for the two faults of the bf16 flash kernel, the first decode
-case for the merge's, the first bf16 ssd_chunk case for the bf16 SSD
-kernels', the first (f32) rmsnorm case for the one-pass rmsnorm's.
+phase 2 fail at the first case that runs the edited code: the first
+conv_rank case for a dropped tap, its first stride-2 case for the
+padding's, the first rank_apply case for its column tiles', the first
+bf16 flash case for the two faults of the bf16 flash kernel, the first
+decode case for the merge's, the first bf16 ssd_chunk case for the bf16
+SSD kernels', the first (f32) rmsnorm case for the one-pass rmsnorm's.
 Prints one line per fault (the case it failed at and its worst margin)
 and exits 1 unless every fault did.
 """
@@ -32,6 +35,18 @@ ROOT = Path(__file__).resolve().parent
 # name: (kernel source, pattern, replacement, occurrences, the prefix of
 # the first phase-2 case that runs the edited code, the phase-2 check)
 FAULTS = {
+    "conv_rank: the last tap dropped": (
+        "conv_rank.cu", r"for \(int kx = 0; kx < K; \+\+kx\) \{",
+        "for (int kx = 0; kx < K - (ky == K - 1); ++kx) {", 1,
+        "conv_rank square p=1 s=1", "check_kernels"),
+    "conv_rank: stride-2 low padding off by one": (
+        "conv_rank.cu", r"const int h0 = ho0 \* stride - pad_h;",
+        "const int h0 = ho0 * stride - pad_h - (stride == 2);", 1,
+        "conv_rank square p=1 s=2", "check_kernels"),
+    "rank_apply: the last column tile left unwritten": (
+        "rank_apply.cu", r"if \(dq \* 4 >= cols\) continue;",
+        "if (dq * 4 >= cols || blockIdx.y + 1 == gridDim.y) continue;", 1,
+        "rank_apply square p=1", "check_kernels"),
     "flash: (m, l) correction skipped on the second KV tile": (
         "flash_attention.cu", r"corr\[h\] = fast_exp2\(m\[mt\]\[h\] - mx\);",
         "corr[h] = t == t_begin + 1 ? 1.f : fast_exp2(m[mt][h] - mx);", 1,
@@ -66,8 +81,11 @@ FAULTS = {
         "? 0.f : sum_sq<T>(xv[v]);", 1,
         "rmsnorm float32", "check_ssd_rmsnorm"),
 }
+# TF32 off for matmuls and convolutions, as chip_smoke.main sets it: the
+# plain conv_rank runs F.conv2d, which cuDNN would take in TF32
 RUN = ("import sys, torch; sys.path.insert(0, 'src'); import chip_smoke as cs;"
        " torch.backends.cuda.matmul.allow_tf32 = False;"
+       " torch.backends.cudnn.allow_tf32 = False;"
        " cs.{check}(torch)")
 
 

@@ -12,7 +12,11 @@ Run from the root of a checkout.  It
 2. holds every kernel against its plain PyTorch version on the card: the
    four composition kernels at the CNN's shapes for widths p = 1, 2, 3
    (all three composition modes, strides 1 and 2, compose with a client
-   axis C = 4), forward and gradient through each autograd Function; the
+   axis C = 4), at the composed transformer's, and conv_rank and
+   rank_apply at their edges (odd and 32x32 images, C = 3, ragged row
+   and column tiles, M up to 1000, D 6 to 96, rank 6, tiles past 48 KB;
+   rank_apply's (y, t) pair), forward and gradient through each
+   autograd Function; the
    two attention kernels in f32 and bf16, element-wise, at the
    transformer path's shapes, the reference's sweep shapes, head dims 80
    and 256 over several KV tiles, a query group of 8 over uneven key
@@ -24,7 +28,9 @@ Run from the root of a checkout.  It
    bf16 ssd_chunk kernel (a gentle decay, N up to 128, Q from 1 to 1024).
    It times kernel, plain version and, where one PyTorch call computes
    the same function, that call (the port never calls it), at the main
-   path's widest shapes and, for the attention, rmsnorm and ssd_chunk
+   path's widest shapes (conv_rank also at conv1 and on 32x32 images,
+   rank_apply also at path (e)'s widest call), each wrapper's host cost
+   per call at a small shape, and, for the attention, rmsnorm and ssd_chunk
    kernels, at one realistic shape each over ``BIG_ITERS`` eager calls
    (flash also at path (g)'s own call, decode also through
    ``kernels.ops`` on the model layout, rmsnorm also at path (g)'s
@@ -42,7 +48,9 @@ Run from the root of a checkout.  It
    a GQA shape; (g) the model zoo's serving path on zamba2-2.7b at full
    width and depth (bf16 compute): a 4 x 512 prefill held against
    step-by-step ``serve_step``, then ``launch/serve.py``'s loop at its
-   defaults; and one superblock in f32 held against the CPU;
+   defaults; one superblock in f32 held against the CPU; and one
+   ``loss_fn`` backward on the smoke config in f32, held against the
+   CPU's, with no forward-only kernel launched while it records;
 4. traces one round of (c) with ``torch.profiler`` (device busy share,
    top kernels);
 5. prints the ``kernels`` JSON line, the card line, and last
@@ -311,8 +319,9 @@ def grad_check(torch, fn, ref_fn, args, tol, what):
         err(torch, g1.grad, g2.grad, tol, f"{what} grad[{i}]")
 
 
-def check_kernels(torch, rt):
-    """Phase 2.  Returns the timing records of the four kernels."""
+def check_kernels(torch):
+    """Phase 2 of the four composition kernels.  Returns their timing
+    records."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.compose import (_compose_apply_math, _fwd_math,
                                              _u2_layout, compose,
@@ -391,18 +400,46 @@ def check_kernels(torch, rt):
                 torch, compose_kernel(vb, u), ref.compose_ref(vb, u),
                 DENSE_TOL, f"compose {what}"))
 
-    # conv_rank: all modes x p x stride at the 8x8 input, and conv3's 4x4
+    # rank_apply's edge cases: ragged row tiles (M 17, 1000, 1), a ragged
+    # column tile (D 10, 6), path (e)'s widest D (96), a row that is not
+    # 16-byte aligned (g*I = 9) with a rank that is not a multiple of 4
+    # (R 6), and a basis whose tiles pass 48 KB; the (y, t) pair the
+    # training forward takes, against the plain pair
+    for M, g, I, R, D in ((17, 3, 8, 8, 10), (1000, 3, 16, 8, 96),
+                          (1, 2, 16, 8, 64), (17, 3, 3, 6, 6),
+                          (16, 1, 2048, 8, 10)):
+        xg, v, u2 = rn(M, g, I, scale=1.0), rn(I, R), rn(g * R, D)
+        what = f"rank_apply edge xg{tuple(xg.shape)} D={D}"
+        maxerr["rank_apply"] = max(maxerr["rank_apply"], err(
+            torch, rank_apply_kernel(xg, v, u2), _fwd_math(xg, v, u2),
+            DENSE_TOL, what))
+        y, t = rank_apply_kernel(xg, v, u2, with_t=True)
+        y0, t0 = _fwd_math(xg, v, u2, with_t=True)
+        err(torch, y, y0, DENSE_TOL, f"{what} with t: y")
+        maxerr["rank_apply"] = max(maxerr["rank_apply"], err(
+            torch, t, t0, DENSE_TOL, f"{what} with t: t"))
+
+    # conv_rank: all modes x p x stride at the 8x8 input, and conv3's 4x4;
+    # then odd sizes 7 and 5, the cifar10 task's 32x32 (both strides, C 3
+    # and 24), rank 6 (not a multiple of 4) with C = 6, and a basis whose
+    # tiles pass 48 KB (C = I = 192)
     conv_cases = []
     for mode in modes:
         for p in (1, 2, 3):
             for stride in (1, 2):
-                conv_cases.append((mode, p, stride, 8))
-    conv_cases += [("square", p, 2, 4) for p in (1, 2, 3)]
-    for mode, p, stride, hw in conv_cases:
+                conv_cases.append((mode, p, stride, 8, 16))
+    conv_cases += [("square", p, 2, 4, 16) for p in (1, 2, 3)]
+    for hw in (7, 5, 32):
+        for stride in (1, 2):
+            conv_cases += [("square", 3, stride, hw, 16),
+                           ("grow_out", 3, stride, hw, 16)]
+    conv_cases += [("grow_in", 2, 1, 7, 3), ("grow_out", 1, 1, 8, 2)]
+    for mode, p, stride, hw, N in conv_cases:
         g = 1 if mode == "grow_out" else p
-        I = 3 if mode == "grow_out" else 8
+        I = {2: 192, 3: 3}.get(N, 3 if mode == "grow_out" else 8)
+        R = 6 if N == 3 else 8
         m = p * p if mode == "square" else p
-        x, v, u = rn(16, hw, hw, g * I, scale=1.0), rn(9, I, 8), rn(m, 8, 8)
+        x, v, u = rn(N, hw, hw, g * I, scale=1.0), rn(9, I, R), rn(m, R, 8)
         u2 = _u2_conv_layout(u, p, mode).contiguous()
         got = conv_rank_kernel(x, v, u2, p=p, mode=mode, stride=stride)
         maxerr["conv_rank"] = max(maxerr["conv_rank"], err(
@@ -424,6 +461,19 @@ def check_kernels(torch, rt):
                        lambda a, b, c: ref.compose_apply_ref(a, b, c, p,
                                                              "grow_in"),
                        (x, vd, ud), GRAD_TOL, f"{name} grow_in p={p}")
+        # path (e)'s MLP up projection (square, 256 rows), and grow_out
+        for mode, M, I, O in (("square", 256, 16, 32), ("grow_out", 17, 8,
+                                                         10)):
+            g = 1 if mode == "grow_out" else p
+            m = p * p if mode == "square" else p
+            x, vd, ud = rn(M, g * I, scale=1.0), rn(1, I, 8), rn(m, 8, O)
+            grad_check(torch,
+                       lambda a, b, c, md=mode: rank_dense_apply(a, b, c, p,
+                                                                 md),
+                       lambda a, b, c, md=mode: ref.compose_apply_ref(
+                           a, b, c, p, md),
+                       (x, vd, ud), GRAD_TOL,
+                       f"rank_dense_apply {mode} p={p} x{tuple(x.shape)}")
         for mode, stride in (("grow_out", 1), ("square", 2)):
             g = 1 if mode == "grow_out" else p
             I = 3 if mode == "grow_out" else 8
@@ -439,69 +489,102 @@ def check_kernels(torch, rt):
 
     print("phase 2: timing at the main path's widest shapes (p=3)")
     f32 = 4
-    timings = {}
+    records = rank_kernel_times(torch, rn)
     # compose: conv2's (9,8,8) x (9,8,8) -> (9,8,72)
     v, u = rn(9, 8, 8), rn(9, 8, 8)
     vf, uf = v.reshape(72, 8), u.permute(1, 0, 2).reshape(8, 72)
-    timings["compose"] = dict(
-        shape="basis (9,8,8) x coeff (9,8,8) -> (9,8,72)",
-        fn=lambda: compose_kernel(v, u), plain=lambda: ref.compose_ref(v, u),
-        library=lambda: torch.matmul(vf, uf),
-        nbytes=f32 * (v.numel() + u.numel() + 9 * 8 * 72),
-        flops=2 * 9 * 8 * 8 * 9 * 8)
-    # conv_rank: conv2 square p=3, x (16,8,8,24) stride 2 -> (16,4,4,24)
-    xc, vc, uc = rn(16, 8, 8, 24, scale=1.0), rn(9, 8, 8), rn(9, 8, 8)
-    u2c = _u2_conv_layout(uc, 3, "square").contiguous()
-    timings["conv_rank"] = dict(
-        shape="conv2 square p=3: x (16,8,8,24) s=2 -> (16,4,4,24)",
-        fn=lambda: conv_rank_kernel(xc, vc, u2c, p=3, mode="square",
-                                    stride=2),
-        plain=lambda: _fused_math(xc, vc, u2c, 3, "square", 2),
-        # no single PyTorch call takes (x, basis, coeff): the two-call
-        # reference is compose (einsum) + F.conv2d on the composed weight
-        library=None,
-        two_call=lambda: ref.conv_rank_ref(xc, vc, uc, 3, "square", 2),
-        nbytes=f32 * (xc.numel() + vc.numel() + u2c.numel() + 16 * 16 * 24),
-        flops=2 * 16 * 16 * (3 * 9 * 8 * 8 + 24 * 24))
-    # dense primitives: fc grow_in p=3, xg (16,3,8), v (8,8), u2 (24,10)
+    records["compose"] = time_kernel(
+        torch, "compose", "conv2", "basis (9,8,8) x coeff (9,8,8) -> (9,8,72)",
+        lambda: compose_kernel(v, u), lambda: ref.compose_ref(v, u),
+        lambda: torch.matmul(vf, uf),
+        f32 * (v.numel() + u.numel() + 9 * 8 * 72), 2 * 9 * 8 * 8 * 9 * 8,
+        PEAK_F32_FLOPS, False)
+    # compose_apply: fc grow_in p=3, xg (16,3,8), v (8,8), u3 (3,8,10)
     xg, vd, ud = rn(16, 3, 8, scale=1.0), rn(8, 8), rn(3, 8, 10)
-    u2d = _u2_layout(ud, 3, "grow_in").contiguous()
-    u3d = u2d.reshape(3, 8, 10).contiguous()
-    dense_bytes = f32 * (xg.numel() + vd.numel() + u2d.numel() + 16 * 10)
-    timings["rank_apply"] = dict(
-        shape="fc grow_in p=3: xg (16,3,8) v (8,8) u2 (24,10) -> (16,10)",
-        fn=lambda: rank_apply_kernel(xg, vd, u2d),
-        plain=lambda: _fwd_math(xg, vd, u2d),
-        library=lambda: torch.einsum("mai,ir,ard->md", xg, vd, u3d),
-        nbytes=dense_bytes, flops=2 * (16 * 3 * 8 * 8 + 16 * 24 * 10))
-    timings["compose_apply"] = dict(
-        shape="fc grow_in p=3: xg (16,3,8) v (8,8) u3 (3,8,10) -> (16,10)",
-        fn=lambda: compose_apply_kernel(xg, vd, u3d),
-        plain=lambda: _compose_apply_math(xg, vd, u3d),
-        library=lambda: torch.einsum("mai,ir,ard->md", xg, vd, u3d),
-        nbytes=dense_bytes, flops=2 * (3 * 8 * 8 * 10 + 16 * 3 * 8 * 10))
-    records = {}
-    for name, t in timings.items():
-        rec = {"ms": device_ms(torch, t["fn"]),
-               "plain_ms": device_ms(torch, t["plain"]),
-               "library_ms": (device_ms(torch, t["library"])
-                              if t["library"] else None),
-               "call_ms": call_ms(torch, t["fn"]),
-               "plain_call_ms": call_ms(torch, t["plain"])}
-        if t.get("two_call"):
-            rec["two_call_ms"] = device_ms(torch, t["two_call"])
-        rec["bound_ms"], rec["bound_by"] = bound(t["nbytes"], t["flops"])
-        rec["shape"] = t["shape"]
+    u3d = _u2_layout(ud, 3, "grow_in").reshape(3, 8, 10).contiguous()
+    records["compose_apply"] = time_kernel(
+        torch, "compose_apply", "fc grow_in",
+        "fc grow_in p=3: xg (16,3,8) v (8,8) u3 (3,8,10) -> (16,10)",
+        lambda: compose_apply_kernel(xg, vd, u3d),
+        lambda: _compose_apply_math(xg, vd, u3d),
+        lambda: torch.einsum("mai,ir,ard->md", xg, vd, u3d),
+        f32 * (xg.numel() + vd.numel() + u3d.numel() + 16 * 10),
+        2 * (3 * 8 * 8 * 10 + 16 * 3 * 8 * 10), PEAK_F32_FLOPS, False)
+    for name, rec in records.items():
         rec["max_abs_err"] = maxerr[name]
-        records[name] = rec
-        print(f"  {name}: kernel_ms {rec['ms']:.5f} plain_ms "
-              f"{rec['plain_ms']:.5f} library_ms {rec['library_ms']} "
-              f"bound_ms {rec['bound_ms']:.6f} ({rec['bound_by']}) "
-              f"call_ms {rec['call_ms']:.5f} plain_call_ms "
-              f"{rec['plain_call_ms']:.5f}"
-              + (f" two_call_ms {rec['two_call_ms']:.5f}"
-                 if "two_call_ms" in rec else "") + f" [{t['shape']}]")
     return records
+
+
+# conv_rank's timed shapes (p = 3, batch 16): the CNN's two convs on its
+# 8x8 inputs, and on the cifar10 task's 32x32 images
+# (src/repro/data/cifar10.py) at the CNN's widths: (label, mode, g, I,
+# hw, stride); D = 24 each
+CONV_TIMED = (("conv2 square", "square", 3, 8, 8, 2),
+              ("conv1 grow_out", "grow_out", 1, 3, 8, 1),
+              ("conv1 grow_out 32x32", "grow_out", 1, 3, 32, 1),
+              ("conv2 square 32x32", "square", 3, 8, 32, 2))
+# rank_apply's: the CNN's classifier head and path (e)'s MLP up
+# projection at p = 3: (label, M, g, I, D)
+RANK_TIMED = (("fc grow_in", 16, 3, 8, 10),
+              ("path (e) up square", 256, 3, 16, 96))
+
+
+def rank_kernel_times(torch, rn) -> dict:
+    """Timing records of conv_rank and rank_apply at every timed shape
+    (``CONV_TIMED``, ``RANK_TIMED``), through the wrappers' public
+    calls: the first shape's record, with the others under
+    ``more_shapes``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.compose import (_fwd_math, _u2_layout,
+                                             rank_apply_kernel)
+    from repro_torch.kernels.conv_rank import (_fused_math, _u2_conv_layout,
+                                               conv_rank_kernel)
+
+    f32 = 4
+    recs = {"conv_rank": [], "rank_apply": []}
+    for label, mode, g, I, hw, stride in CONV_TIMED:
+        m = 9 if mode == "square" else 3
+        x, v, u = rn(16, hw, hw, g * I, scale=1.0), rn(9, I, 8), rn(m, 8, 8)
+        u2 = _u2_conv_layout(u, 3, mode).contiguous()
+        Ho = -(-hw // stride)
+        y_elems = 16 * Ho * Ho * u2.shape[1]
+        shape = (f"{label} p=3: x {tuple(x.shape)} s={stride} -> "
+                 f"(16,{Ho},{Ho},{u2.shape[1]})")
+        recs["conv_rank"].append(time_kernel(
+            torch, "conv_rank", label, shape,
+            lambda x=x, v=v, u2=u2, md=mode, s=stride: conv_rank_kernel(
+                x, v, u2, p=3, mode=md, stride=s),
+            lambda x=x, v=v, u2=u2, md=mode, s=stride: _fused_math(
+                x, v, u2, 3, md, s),
+            # no single PyTorch call takes (x, basis, coeff): the two-call
+            # reference is compose (einsum) + F.conv2d on the composed
+            # weight
+            None, f32 * (x.numel() + v.numel() + u2.numel() + y_elems),
+            2 * 16 * Ho * Ho * (g * 9 * I * 8 + g * 8 * u2.shape[1]),
+            PEAK_F32_FLOPS, False,
+            two_call=lambda x=x, v=v, u=u, md=mode, s=stride:
+                ref.conv_rank_ref(x, v, u, 3, md, s)))
+    for label, M, g, I, D in RANK_TIMED:
+        mode = "grow_in" if D == 10 else "square"
+        m = 9 if mode == "square" else 3
+        xg, v, u = rn(M, g, I, scale=1.0), rn(I, 8), rn(m, 8, D // g
+                                                       if m == 9 else D)
+        u2 = _u2_layout(u, 3, mode).contiguous()
+        u3 = u2.reshape(g, 8, D).contiguous()
+        shape = (f"{label} p=3: xg {tuple(xg.shape)} v {tuple(v.shape)} u2 "
+                 f"{tuple(u2.shape)} -> ({M},{D})")
+        recs["rank_apply"].append(time_kernel(
+            torch, "rank_apply", label, shape,
+            lambda xg=xg, v=v, u2=u2: rank_apply_kernel(xg, v, u2),
+            lambda xg=xg, v=v, u2=u2: _fwd_math(xg, v, u2),
+            lambda xg=xg, v=v, u3=u3: torch.einsum("mai,ir,ard->md", xg, v,
+                                                   u3),
+            f32 * (xg.numel() + v.numel() + u2.numel() + M * D),
+            2 * (M * g * I * 8 + M * g * 8 * D), PEAK_F32_FLOPS, False))
+    out = {}
+    for name, rows in recs.items():
+        out[name] = dict(rows[0], more_shapes=rows[1:])
+    return out
 
 
 def _flat_decode(q, k, v, lengths):
@@ -1371,6 +1454,65 @@ def zoo_vs_cpu(torch, cfg):
             "depth6_min_top2_margin": margin}
 
 
+# path (g)'s gradient: zamba2's smoke config in f32, the card's loss_fn
+# backward against the CPU's; the leaves span 4e-5 to 0.2, so each is
+# held relative to its own largest entry, at the tolerance the CPU tests
+# hold the CPU's to jax.grad
+GRAD_BATCH, GRAD_LEN = 2, 80
+ZOO_GRAD_TOL = 1e-4
+ZOO_FWD_KERNELS = ("rmsnorm", "ssd_chunk", "flash_attention")
+
+
+def zoo_grad(torch):
+    """One ``loss_fn`` backward on zamba2's smoke config (f32) on the card
+    and on the CPU from the same weights and tokens.  The card's forward
+    runs rmsnorm, ssd_chunk and flash attention (each must launch in it;
+    their backward is their plain versions', ``kernels.ops``); every
+    gradient leaf must match the CPU's."""
+    from repro_torch import configs
+    from repro_torch.core.estimator import tree_leaves
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import model, module
+
+    import numpy as np
+
+    cfg = configs.get_smoke(ZAMBA_ARCH).replace(compute_dtype="float32")
+    params = model.init(0, cfg, "cpu")
+    toks = np.random.default_rng(4).integers(0, cfg.vocab,
+                                             (GRAD_BATCH, GRAD_LEN))
+    grads, counts = {}, None
+    for dev in (DEVICE, "cpu"):
+        p = module.tree_map(lambda t: t.detach().to(dev).requires_grad_(),
+                            params)
+        batch = {"tokens": torch.as_tensor(toks, device=dev),
+                 "labels": torch.as_tensor(np.roll(toks, -1, axis=1),
+                                           device=dev)}
+        reset_launches()
+        loss, _ = model.loss_fn(p, cfg, batch)
+        if dev != "cpu":
+            counts = {k: LAUNCHES[k] for k in ZOO_FWD_KERNELS}
+        loss.backward()
+        grads[dev] = [t.grad.cpu() for t in tree_leaves(p)]
+        check(all(g is not None for g in grads[dev]),
+              f"(g) gradient: a leaf has no gradient on {dev}")
+    worst = 0.0
+    for g, c in zip(grads[DEVICE], grads["cpu"]):
+        scale = max(1e-30, float(c.abs().max()))
+        worst = max(worst, float((g - c).abs().max()) / scale)
+    print(f"  (g) loss_fn backward, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, f32, {GRAD_BATCH}x{GRAD_LEN}: "
+          f"{len(grads['cpu'])} leaves, worst error relative to the leaf "
+          f"{worst:.3e} (tol {ZOO_GRAD_TOL:.0e}); launches in its forward "
+          f"{counts}")
+    check(math.isfinite(worst) and worst <= ZOO_GRAD_TOL,
+          "(g) loss_fn gradients differ between the card and the CPU")
+    check(all(n > 0 for n in counts.values()),
+          f"(g) a zoo kernel never launched in the training forward: "
+          f"{counts}")
+    return {"leaves": len(grads["cpu"]), "worst_rel_err": worst,
+            "forward_launches": counts}
+
+
 def main_path(torch, rt):
     from repro_torch.kernels import KERNELS, LAUNCHES, reset_launches
 
@@ -1413,6 +1555,7 @@ def main_path(torch, rt):
     # (g) the zoo's hybrid serving path: zamba2-2.7b prefill + serve
     print("  (g) zamba2-2.7b: prefill and launch/serve.py's loop")
     by_path["g"], zoo_stats = zoo_path(torch)
+    zoo_stats["grad"] = zoo_grad(torch)
 
     for counts in by_path.values():
         for k, n in counts.items():
@@ -1486,7 +1629,7 @@ def main() -> int:
           f"(per source {json.dumps({k: round(v, 2) for k, v in secs.items()})})")
     sass_counts(rt)
 
-    records = check_kernels(torch, rt)
+    records = check_kernels(torch)
     records.update(check_attention(torch))
     records.update(check_ssd_rmsnorm(torch))
     launches, by_path, zoo_stats = main_path(torch, rt)
@@ -1507,7 +1650,7 @@ def main() -> int:
             "shape": rec["shape"],
             "launches_by_path": {k: v[name] for k, v in by_path.items()},
         })
-        for extra in ("two_call_ms", "at_scale", "path_g",
+        for extra in ("two_call_ms", "more_shapes", "at_scale", "path_g",
                       "ops_model_layout", "decode"):
             if extra in rec:
                 kernels[-1][extra] = rec[extra]

@@ -1,8 +1,10 @@
-// Tensor-core and async-copy helpers shared by the attention kernels.
+// Tensor-core and async-copy helpers shared by the attention, SSD-chunk
+// and rank-space kernels.
 //
 // Warp-level bf16 products on the tensor cores (mma.sync.m16n8k16, f32
 // accumulation), their operands read from shared memory with ldmatrix,
-// and 16-byte cp.async copies from device memory into shared memory.
+// and cp.async copies (16 and 4 bytes) of row tiles from device memory
+// into shared memory (stage_rows, stage_f32).
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4), in 32-bit
 // registers of two bf16 (the lower half holds the smaller column):
@@ -18,6 +20,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -29,6 +33,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+// 4-byte copy, the same way
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -112,6 +123,36 @@ __device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src,
       dst[r * ld + c] = (r < valid_rows && c < D)
                             ? src[r * stride + c]
                             : static_cast<T>(0.f);
+    }
+  }
+}
+
+// Copy a rows x cols f32 matrix (source row stride `stride` floats) into
+// shared memory rows of `ld` floats (ld % 4 == 0, ld >= cols), zero-filling
+// columns cols..ld-1: 16-byte cp.async copies when every source row starts
+// on 16 bytes and cols % 4 == 0, 4-byte ones otherwise; the caller commits
+// and waits.  Called by every thread of the block.  The rank-space kernels
+// (conv_rank, rank_apply) stage this way: their tiles are all in range,
+// and staging them through stage_rows (its bound on the valid rows, its
+// width at run time) read slower on the H100 at their path shapes, where
+// a call takes a few microseconds (PERF.md section 6).
+__device__ __forceinline__ void stage_f32(float* dst, int ld, const float* src,
+                                          long long stride, int rows,
+                                          int cols) {
+  if (cols % 4 == 0 && stride % 4 == 0 && aligned16(src)) {
+    const int c4 = ld / 4;
+    for (int e = threadIdx.x; e < rows * c4; e += blockDim.x) {
+      const int r = e / c4;
+      const int c = (e - r * c4) * 4;
+      const float* s = src + r * stride;
+      cp_async16(dst + r * ld + c, c < cols ? s + c : s, c < cols);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * ld; e += blockDim.x) {
+      const int r = e / ld;
+      const int c = e - r * ld;
+      const float* s = src + r * stride;
+      cp_async4(dst + r * ld + c, c < cols ? s + c : s, c < cols);
     }
   }
 }

@@ -53,9 +53,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C launcher name and argument types per source file
 _SIGNATURES = {
     "compose": ("compose_f32", [_P, _P, _P] + [_I] * 6 + [_P]),
-    "rank_apply": ("rank_apply_f32", [_P] * 4 + [_I] * 6 + [_P]),
+    "rank_apply": ("rank_apply_f32", [_P] * 5 + [_I] * 7 + [_P]),
     "compose_apply": ("compose_apply_f32", [_P] * 4 + [_I] * 7 + [_P]),
-    "conv_rank": ("conv_rank_f32", [_P] * 4 + [_I] * 14 + [_P]),
+    "conv_rank": ("conv_rank_f32", [_P] * 4 + [_I] * 15 + [_P]),
     "decode_attention": ("decode_attention", [_P] * 7 + [_I] * 8 + [_P]),
     "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 8 + [_P]),
     "rmsnorm": ("rmsnorm", [_P] * 3 + [_I] * 3 + [_F, _P]),
@@ -66,7 +66,7 @@ KERNELS = tuple(_SIGNATURES)
 # kernel launches per kernel name: each wrapper adds one where it launches
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, ctypes._CFuncPtr] = {}  # each kernel's C launcher, bound once
 _lock = threading.Lock()
 
 
@@ -144,36 +144,48 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     return secs
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of kernel ``name``, built on first use."""
+def _launcher(name: str) -> ctypes._CFuncPtr:
+    """Kernel ``name``'s C launcher: built, loaded and bound (argument
+    types set) on first use."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
+        fn = _fns.get(name)
+        if fn is None:
             build([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
             fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
+            fn = getattr(ctypes.CDLL(str(_lib_path(name))), fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _libs[name] = lib
-        return lib
+            _fns[name] = fn
+        return fn
 
 
 def launch(name: str, tensors, *scalars) -> None:
     """Call kernel ``name``'s C launcher on the current stream of the
     tensors' device, raise on a launch error, and count the launch.
-    ``scalars`` are the sizes (ints) and, where the launcher takes one, a
-    float, in the launcher's order."""
+    ``tensors`` may hold None for a pointer the launcher takes as
+    optional; ``scalars`` are the sizes (ints) and, where the launcher
+    takes one, a float, in the launcher's order."""
+    fn = _fns.get(name) or _launcher(name)
     dev = tensors[0].device
-    fn = getattr(library(name), _SIGNATURES[name][0])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[t.data_ptr() for t in tensors],
+        err = fn(*[None if t is None else t.data_ptr() for t in tensors],
                  *[x if isinstance(x, float) else int(x) for x in scalars],
                  stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+
+
+# shared memory a block may use: without the opt-in of ``allow_dynamic_smem``
+# (csrc/common.cuh), and at most after it (H100)
+SMEM_DEFAULT = 48 * 1024
+SMEM_MAX = 227 * 1024
+
+
+def round4(v: int) -> int:
+    """v rounded up to a multiple of 4 (a float4)."""
+    return -(-v // 4) * 4
 
 
 # element type codes of the kernels that take more than float32
@@ -202,7 +214,8 @@ def check_operands(name: str, dtypes=(torch.float32,),
 def no_grad_guard(name: str, *tensors: torch.Tensor) -> None:
     """For kernels with no backward (attention, rmsnorm, ssd_chunk, like
     the reference's ``pallas_call``): refuse to build a graph through
-    them."""
+    them.  :mod:`repro_torch.kernels.ops` gives the three that the model
+    zoo trains through a backward of their plain versions."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name} has no backward; call it under "
                            "torch.no_grad() or on tensors that do not "

@@ -30,7 +30,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_operands, launch, use_kernel
+from repro_torch.kernels import (SMEM_DEFAULT, SMEM_MAX, check_operands,
+                                 launch, round4, use_kernel)
 from repro_torch.kernels.ref import compose_ref
 
 Tensor = torch.Tensor
@@ -109,19 +110,57 @@ def _u2_layout(u: Tensor, p: int, mode: str) -> Tensor:
     return u4.permute(0, 2, 1, 3).reshape(p * R, p * O)
 
 
-def _fwd_math(xg: Tensor, v2: Tensor, u2: Tensor) -> Tensor:
-    """Plain version of the rank_apply kernel: (xg·v) reshaped to
-    (M, g*R), then ·u2."""
+def _fwd_math(xg: Tensor, v2: Tensor, u2: Tensor,
+              with_t: bool = False):
+    """Plain version of the rank_apply kernel: t = xg·v (M, g, R), then
+    t reshaped to (M, g*R) ·u2; with ``with_t`` the pair (y, t)."""
     M, g, I = xg.shape
-    t = (xg.reshape(M * g, I) @ v2).reshape(M, g * v2.shape[1])
-    return t @ u2
+    t = (xg.reshape(M * g, I) @ v2).reshape(M, g, v2.shape[1])
+    y = t.reshape(M, -1) @ u2
+    return (y, t) if with_t else y
 
 
-def rank_apply_kernel(xg: Tensor, v2: Tensor, u2: Tensor) -> Tensor:
+# launch geometry of the rank_apply kernel (csrc/rank_apply.cu)
+RA_BLOCKS = 128  # blocks a call aims at: about one an SM of the H100's 132
+RA_ROWS = 16     # rows a block owns at most
+RA_COLS = 32     # output columns a block owns at most (a multiple of 4)
+
+
+def _rank_apply_smem(g: int, I: int, R: int, bm: int, bd: int) -> int:
+    """Shared bytes of one rank_apply block (``rank_apply_smem_floats`` in
+    the kernel): v and the u2 column tile padded to 4 columns, the
+    block's xg rows and its rank tile."""
+    R4 = round4(R)
+    return 4 * (I * R4 + g * R4 * bd + bm * round4(g * I) + bm * g * R4)
+
+
+def _rank_apply_tiles(M: int, g: int, I: int, R: int,
+                      D: int) -> tuple[int, int, int]:
+    """Rows and output columns one block owns, (bm, bd), and its shared
+    bytes.  bd is D rounded up to 4, at most ``RA_COLS``; bm halves from
+    ``RA_ROWS`` while the grid has fewer than ``RA_BLOCKS`` blocks, and
+    while the block passes 48 KB.  The blocks tile the (M, D) output
+    exactly, the last row and column tiles ragged."""
+    bd = min(round4(D), RA_COLS)
+    n_cols = -(-D // bd)
+    bm = RA_ROWS
+    while bm > 1 and (-(-M // bm) * n_cols < RA_BLOCKS
+                      or _rank_apply_smem(g, I, R, bm, bd) > SMEM_DEFAULT):
+        bm //= 2
+    smem = _rank_apply_smem(g, I, R, bm, bd)
+    if smem > SMEM_MAX:
+        raise ValueError(f"rank_apply: v ({I}, {R}) and one row's tiles do "
+                         "not fit in shared memory")
+    return bm, bd, smem
+
+
+def rank_apply_kernel(xg: Tensor, v2: Tensor, u2: Tensor, *,
+                      with_t: bool = False):
     """Fused two-stage contraction: xg (M, g, I) x v2 (I, R) x u2 (g*R, D)
-    -> (M, D); the (M, g*R) rank intermediate stays in shared memory."""
+    -> (M, D); the (M, g*R) rank intermediate stays in shared memory.
+    With ``with_t`` also returns it, as t (M, g, R): the pair (y, t)."""
     if not use_kernel(xg):
-        return _fwd_math(xg, v2, u2)
+        return _fwd_math(xg, v2, u2, with_t)
     check_operands("rank_apply", xg=xg, v2=v2, u2=u2)
     M, g, I = xg.shape
     I2, R = v2.shape
@@ -129,13 +168,12 @@ def rank_apply_kernel(xg: Tensor, v2: Tensor, u2: Tensor) -> Tensor:
         raise ValueError(f"rank_apply: xg {tuple(xg.shape)}, v2 "
                          f"{tuple(v2.shape)}, u2 {tuple(u2.shape)} disagree")
     D = u2.shape[1]
-    if g * R * 4 > 227 * 1024:
-        raise ValueError(f"rank_apply: a (g*R = {g * R}) rank row does not "
-                         "fit in shared memory")
-    bm = max(1, min(16, (48 * 1024) // (4 * g * R)))
+    bm, bd, _ = _rank_apply_tiles(M, g, I, R, D)
     y = torch.empty((M, D), device=xg.device, dtype=xg.dtype)
-    launch("rank_apply", (xg, v2, u2, y), M, g, I, R, D, bm)
-    return y
+    t = (torch.empty((M, g, R), device=xg.device, dtype=xg.dtype)
+         if with_t else None)
+    launch("rank_apply", (xg, v2, u2, y, t), M, g, I, R, D, bm, bd)
+    return (y, t) if with_t else y
 
 
 def _rank_residual(xg: Tensor, v2: Tensor, mode: str) -> Tensor:
@@ -174,15 +212,19 @@ def _rank_space_bwd(p: int, mode: str, x2: Tensor, v2: Tensor, u: Tensor,
 
 class _RankDense(torch.autograd.Function):
     """rank_apply kernel forward, rank-space backward (reference
-    ``_rank_dense_fn``)."""
+    ``_rank_dense_fn``); the kernel hands back the residual t it computed
+    on the way, so the forward runs no second contraction for it."""
 
     @staticmethod
     def forward(ctx, x2, v2, u, p, mode):
         g = 1 if mode == "grow_out" else p
         xg = x2.reshape(x2.shape[0], g, -1)
-        y = rank_apply_kernel(xg.contiguous(), v2.contiguous(),
-                              _u2_layout(u, p, mode).contiguous())
-        ctx.save_for_backward(x2, v2, u, _rank_residual(xg, v2, mode))
+        args = (xg.contiguous(), v2.contiguous(),
+                _u2_layout(u, p, mode).contiguous())
+        if not any(ctx.needs_input_grad[:3]):  # no graph is recorded
+            return rank_apply_kernel(*args)
+        y, t = rank_apply_kernel(*args, with_t=True)
+        ctx.save_for_backward(x2, v2, u, t[:, 0] if mode == "grow_out" else t)
         ctx.p, ctx.mode = p, mode
         return y
 

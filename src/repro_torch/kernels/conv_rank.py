@@ -23,7 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import check_operands, launch, use_kernel
+from repro_torch.kernels import (SMEM_MAX, check_operands, launch, round4,
+                                 use_kernel)
 
 Tensor = torch.Tensor
 
@@ -127,22 +128,41 @@ def _fused_math(x: Tensor, basis: Tensor, u2: Tensor, p: int, mode: str,
     return acc.reshape(N, Ho, Wo, g * R) @ u2
 
 
-def _rows_per_block(Ho: int, Wo: int, k: int, stride: int, C: int,
-                    ksq_I_R: int, gR: int) -> tuple[int, int]:
-    """Output rows per block (about 32 output pixels, fewer if the shared
-    memory tiles would pass 48 KB) and the shared bytes it needs."""
+# launch geometry of the conv_rank kernel (csrc/conv_rank.cu)
+TILE_BLOCKS = 128  # blocks a call aims at: about one an SM of the H100's 132
+TILE_PIX = 32      # output pixels a block owns at most
 
-    def smem(th):
-        return 4 * (((th - 1) * stride + k) * ((Wo - 1) * stride + k) * C
-                    + ksq_I_R + th * Wo * gR)
 
-    th = max(1, min(Ho, 32 // max(Wo, 1)))
-    while th > 1 and smem(th) > 48 * 1024:
-        th -= 1
-    if smem(th) > 227 * 1024:
-        raise ValueError("conv_rank: one output row's tiles do not fit in "
-                         "shared memory")
-    return th, smem(th)
+def _conv_smem(g: int, I: int, R: int, D: int, k: int, stride: int, th: int,
+               tw: int) -> int:
+    """Shared bytes of one conv_rank block (``conv_rank_smem_floats`` in
+    the kernel): the basis and u2 padded to 4 columns, the input window
+    of a th x tw output rectangle, and k partial rank tiles."""
+    R4, D4 = round4(R), round4(D)
+    win = ((th - 1) * stride + k) * ((tw - 1) * stride + k) * g * I
+    return 4 * (k * k * I * R4 + g * R4 * D4 + round4(win)
+                + k * th * tw * g * R4)
+
+
+def _conv_tiles(N: int, Ho: int, Wo: int, g: int, I: int, R: int, D: int,
+                k: int = 3, stride: int = 1) -> tuple[int, int, int]:
+    """The rectangle of output pixels one block owns, (th, tw), and its
+    shared bytes: about ``N*Ho*Wo / TILE_BLOCKS`` pixels (1 to
+    ``TILE_PIX``), a row segment first, whole rows stacked after; shrunk
+    until its tiles fit in shared memory.  The blocks tile every image's
+    Ho x Wo outputs exactly, the last row and column of tiles ragged."""
+    want = max(1, min(TILE_PIX, (N * Ho * Wo) // TILE_BLOCKS))
+    tw = max(1, min(Wo, want))
+    th = max(1, min(Ho, want // tw))
+    while _conv_smem(g, I, R, D, k, stride, th, tw) > SMEM_MAX:
+        if th > 1:
+            th -= 1
+        elif tw > 1:
+            tw -= 1
+        else:
+            raise ValueError("conv_rank: one output pixel's tiles do not "
+                             "fit in shared memory")
+    return th, tw, _conv_smem(g, I, R, D, k, stride, th, tw)
 
 
 def conv_rank_kernel(x: Tensor, basis: Tensor, u2: Tensor, *, p: int,
@@ -172,10 +192,10 @@ def conv_rank_kernel(x: Tensor, basis: Tensor, u2: Tensor, *, p: int,
     D = u2.shape[1]
     Ho, (ph_lo, _) = _same_pads(H, k, stride)
     Wo, (pw_lo, _) = _same_pads(W, k, stride)
-    th, _ = _rows_per_block(Ho, Wo, k, stride, C, ksq * I * R, g * R)
+    th, tw, _ = _conv_tiles(N, Ho, Wo, g, I, R, D, k, stride)
     y = torch.empty((N, Ho, Wo, D), device=x.device, dtype=x.dtype)
     launch("conv_rank", (x, basis, u2, y), N, H, W, g, I, R, D, k, stride,
-           Ho, Wo, ph_lo, pw_lo, th)
+           Ho, Wo, ph_lo, pw_lo, th, tw)
     return y
 
 

@@ -6,6 +6,13 @@ tensors on a CUDA device, or its plain PyTorch version for tensors on the
 CPU (the platform gate :func:`repro_torch.kernels.use_kernel`): the four
 composition ops, ``flash_attention``, ``decode_attention``, ``ssd_chunk``
 and ``rmsnorm``.  Oracles live in :mod:`repro_torch.kernels.ref`.
+
+``flash_attention``, ``ssd_chunk`` and ``rmsnorm`` are differentiable,
+so the model zoo trains through them: the forward runs the kernel (or,
+on the CPU, its plain version) and the backward recomputes the plain
+version and takes its gradient (:class:`_PlainBackward`).  The kernel
+wrappers themselves stay forward-only, as the reference's
+``pallas_call`` is, and raise under autograd.
 """
 
 from __future__ import annotations
@@ -17,9 +24,12 @@ from repro_torch.kernels.compose import (compose, compose_dense_apply,
 from repro_torch.kernels.conv_rank import conv_rank_apply
 from repro_torch.kernels.decode_attention import (
     decode_attention as decode_attention_kernel)
+from repro_torch.kernels.flash_attention import _flash_math
 from repro_torch.kernels.flash_attention import (
     flash_attention as flash_attention_kernel)
+from repro_torch.kernels.rmsnorm import _rmsnorm_math
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+from repro_torch.kernels.ssd_chunk import _ssd_math
 from repro_torch.kernels.ssd_chunk import ssd_chunk as ssd_chunk_kernel
 
 __all__ = [
@@ -35,6 +45,34 @@ Tensor = torch.Tensor
 # (m, R, O)) and they carry their own autograd Functions.
 
 
+class _PlainBackward(torch.autograd.Function):
+    """A forward-only kernel made differentiable: the forward calls the
+    kernel wrapper ``kernel(*tensors, **kw)``; the backward recomputes
+    its plain version ``plain(*tensors, **kw)`` under autograd and
+    returns that version's gradient, as ``_ConvRank`` and ``_RankDense``
+    pair a kernel forward with a plain backward.  The recomputation
+    holds the plain version's intermediates (attention's whole score
+    matrix) for the backward's duration."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, kw, *tensors):
+        ctx.plain, ctx.kw = plain, kw
+        ctx.save_for_backward(*tensors)
+        return kernel(*tensors, **kw)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[3:]
+        tensors = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            out = ctx.plain(*tensors, **ctx.kw)
+        grads = iter(torch.autograd.grad(
+            out, [t for t in tensors if t.requires_grad], grad))
+        return (None, None, None,
+                *(next(grads) if n else None for n in need))
+
+
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: int = 0) -> Tensor:
     """Model layout: q (B, S, KV, G, D), k/v (B, S, KV, D) ->
@@ -43,8 +81,9 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     qf = q.permute(0, 2, 3, 1, 4).reshape(B * KV * G, S, D).contiguous()
     kf = k.permute(0, 2, 1, 3).reshape(B * KV, S, D).contiguous()
     vf = v.permute(0, 2, 1, 3).reshape(B * KV, S, D).contiguous()
-    out = flash_attention_kernel(qf, kf, vf, causal=causal, window=window,
-                                 q_per_kv=G)
+    out = _PlainBackward.apply(flash_attention_kernel, _flash_math,
+                               dict(causal=causal, window=window,
+                                    q_per_kv=G), qf, kf, vf)
     return out.reshape(B, KV, G, S, D).permute(0, 3, 1, 2, 4)
 
 
@@ -67,11 +106,13 @@ def ssd_chunk(cb: Tensor, bb: Tensor, xw: Tensor, cum: Tensor,
     (BCH, Q) f32, h_in (BCH, N, P) -> y (BCH, Q, P).  With ``heads > 1``
     cb/bb hold one row per group of ``heads`` rows instead
     (:func:`repro_torch.models.ssm.ssd_chunked` passes them so)."""
-    return ssd_chunk_kernel(cb.contiguous(), bb.contiguous(),
-                            xw.contiguous(), cum.contiguous(),
-                            h_in.contiguous(), heads=heads)
+    return _PlainBackward.apply(ssd_chunk_kernel, _ssd_math,
+                                dict(heads=heads), cb.contiguous(),
+                                bb.contiguous(), xw.contiguous(),
+                                cum.contiguous(), h_in.contiguous())
 
 
 def rmsnorm(x: Tensor, scale: Tensor, *, eps: float = 1e-6) -> Tensor:
     """Fused RMSNorm: x (..., d), scale (d,) -> x's shape and type."""
-    return rmsnorm_kernel(x.contiguous(), scale, eps=eps)
+    return _PlainBackward.apply(rmsnorm_kernel, _rmsnorm_math,
+                                dict(eps=eps), x.contiguous(), scale)

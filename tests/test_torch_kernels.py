@@ -222,3 +222,128 @@ def test_other_devices_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="device"):
         conv_rank_kernel(torch.empty((1, 8, 8, 8), device="meta"), v,
                          torch.empty((8, 8), device="meta"), p=1)
+
+
+# --------------------------------------------------------------------------
+# launch geometry of the conv_rank and rank_apply kernels
+# --------------------------------------------------------------------------
+
+def _conv_geometry_cases():
+    """(N, H, g, I, R, D, stride): the CNN's convs (conv1 grow_out at 8x8,
+    conv2 square at 8x8 and conv3 square at 4x4, both stride 2) at
+    widths 1-3 over a training batch (1 to 16 images) and the 400-image
+    test set; every mode and stride of phase 2 at 8x8; the cifar10
+    task's 32x32; odd sizes 7 and 5; rank 6; a wide basis past 48 KB."""
+    cases = set()
+    for p in (1, 2, 3):
+        for N in (1, 16, 400):
+            cases.add((N, 8, 1, 3, 8, 8 * p, 1))
+            cases.add((N, 8, p, 8, 8, 8 * p, 2))
+            cases.add((N, 4, p, 8, 8, 8 * p, 2))
+        for stride in (1, 2):
+            cases.add((16, 8, p, 8, 8, 8, stride))      # grow_in
+            cases.add((16, 8, p, 8, 8, 8 * p, stride))  # square
+            cases.add((16, 8, 1, 3, 8, 8 * p, stride))  # grow_out
+            for hw in (7, 5, 32):
+                cases.add((16, hw, p, 8, 8, 8 * p, stride))
+                cases.add((16, hw, 1, 3, 8, 8 * p, stride))
+    cases.add((2, 8, 1, 192, 8, 8, 1))
+    cases.add((3, 7, 2, 3, 6, 8, 1))  # phase 2's rank-6 edge
+    return sorted(cases)
+
+
+@pytest.mark.parametrize("N,H,g,I,R,D,stride", _conv_geometry_cases())
+def test_conv_rank_tiles_cover_every_output_once(N, H, g, I, R, D, stride):
+    """Each block's rectangle, as ``conv_rank_kernel`` derives it from its
+    block index, covers every output pixel of every image exactly once,
+    and the block's tiles fit in shared memory."""
+    from repro_torch.kernels import conv_rank as cr
+
+    Ho, _ = cr._same_pads(H, 3, stride)
+    th, tw, smem = cr._conv_tiles(N, Ho, Ho, g, I, R, D, 3, stride)
+    assert 1 <= th <= Ho and 1 <= tw <= Ho and th * tw <= cr.TILE_PIX
+    assert smem == cr._conv_smem(g, I, R, D, 3, stride, th, tw)
+    assert smem <= K.SMEM_MAX
+    tiles_w, tiles_h = -(-Ho // tw), -(-Ho // th)
+    seen = np.zeros((N, Ho, Ho), np.int64)
+    for b in range(N * tiles_h * tiles_w):
+        n, tile = divmod(b, tiles_w * tiles_h)
+        ho0, wo0 = (tile // tiles_w) * th, (tile % tiles_w) * tw
+        rows, cols = min(th, Ho - ho0), min(tw, Ho - wo0)
+        assert rows >= 1 and cols >= 1
+        seen[n, ho0:ho0 + rows, wo0:wo0 + cols] += 1
+    assert (seen == 1).all()
+    if (N, H, g, stride) == (16, 8, 3, 2) and D == 24:
+        assert N * tiles_h * tiles_w >= 64  # conv2's timed shape: 16 before
+
+
+def _rank_geometry_cases():
+    """(M, g, I, R, D): the CNN's head (grow_in, D = 10) at widths 1-3
+    and the composed transformer's projections (d_base 16, ff 32,
+    vocab 64) at p = 1-3, over M in {1, 16, 17, 256, 1000}; rank 6 on
+    rows of 9 floats; a wide basis past 48 KB."""
+    cases = set()
+    for M in (1, 16, 17, 256, 1000):
+        for p in (1, 2, 3):
+            cases.add((M, p, 8, 8, 10))       # fc grow_in
+            cases.add((M, 1, 8, 8, 10 * p))   # grow_out
+            cases.add((M, p, 8, 8, 10 * p))   # square
+            for I, O in ((16, 16), (16, 32), (32, 16)):
+                cases.add((M, p, I, 8, O * p))
+            cases.add((M, p, 16, 8, 64))      # head grow_in
+    cases.add((16, 1, 2048, 8, 10))
+    cases.add((17, 3, 3, 6, 6))  # phase 2's unaligned, rank-6 edge
+    return sorted(cases)
+
+
+@pytest.mark.parametrize("M,g,I,R,D", _rank_geometry_cases())
+def test_rank_apply_tiles_cover_every_output_once(M, g, I, R, D):
+    from repro_torch.kernels import compose as cm
+
+    bm, bd, smem = cm._rank_apply_tiles(M, g, I, R, D)
+    assert 1 <= bm <= cm.RA_ROWS and bd % 4 == 0 and 4 <= bd <= cm.RA_COLS
+    assert smem == cm._rank_apply_smem(g, I, R, bm, bd) <= K.SMEM_MAX
+    seen = np.zeros((M, D), np.int64)
+    for bx in range(-(-M // bm)):
+        for by in range(-(-D // bd)):
+            m0, d0 = bx * bm, by * bd
+            rows, cols = min(bm, M - m0), min(bd, D - d0)
+            assert rows >= 1 and cols >= 1
+            seen[m0:m0 + rows, d0:d0 + cols] += 1
+    assert (seen == 1).all()
+    if (M, g, I, D) == (256, 3, 16, 96):  # path (e)'s up: 16 blocks before
+        assert -(-M // bm) * -(-D // bd) >= 128
+
+
+def test_launchers_opt_into_large_shared_memory():
+    """The wide cases the card's checks run (conv_rank on one group of
+    192 channels, rank_apply on 2048 inputs) tile into blocks past the
+    default 48 KB, which the launchers then opt into, and within the
+    card's 227 KB."""
+    from repro_torch.kernels import compose as cm
+    from repro_torch.kernels import conv_rank as cr
+
+    conv = cr._conv_tiles(2, 8, 8, 1, 192, 8, 8, 3, 1)[2]
+    rank = cm._rank_apply_tiles(16, 1, 2048, 8, 10)[2]
+    for smem in (conv, rank):
+        assert K.SMEM_DEFAULT < smem <= K.SMEM_MAX
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("p", [1, 3])
+def test_rank_apply_pair_matches_plain_and_residual(mode, p):
+    """With ``with_t`` the wrapper hands back (y, t): y as the plain
+    version computes it, t the rank-space residual the backward reads."""
+    from repro_torch.kernels.compose import _fwd_math, _rank_residual
+
+    x, v, u, g = _dense_inputs(mode, p, seed=30 + p, M=17, I=16)
+    xg = _t(x).reshape(17, g, -1)
+    u2 = _t(np.asarray(j_u2_layout(jnp.asarray(u), p, mode)))
+    y, t = rank_apply_kernel(xg, _t(v[0]), u2, with_t=True)
+    torch.testing.assert_close(y, _fwd_math(xg, _t(v[0]), u2), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(rank_apply_kernel(xg, _t(v[0]), u2), y,
+                               rtol=0, atol=0)
+    want_t = _rank_residual(xg, _t(v[0]), "square")
+    assert t.shape == (17, g, 8)
+    _close(t.numpy(), want_t.numpy(), DENSE_TOL)

@@ -189,12 +189,22 @@ def test_ssd_chunked_heads_wide_state_matches_reference():
 
 
 def test_kernels_refuse_grad():
+    """The kernel wrappers are forward-only; ``kernels.ops`` gives them a
+    backward (the plain versions'), so through ops the same calls take a
+    gradient."""
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+
     x = torch.randn(4, 8, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
-        tops.rmsnorm(x, torch.ones(8))
+        rmsnorm(x, torch.ones(8))
     cb = torch.randn(1, 8, 4, requires_grad=True)
+    ssd_args = (torch.randn(1, 8, 4), torch.randn(1, 8, 4),
+                torch.zeros(1, 8), torch.randn(1, 4, 4))
     with pytest.raises(RuntimeError, match="no backward"):
-        tops.ssd_chunk(cb, torch.randn(1, 8, 4), torch.randn(1, 8, 4),
-                       torch.zeros(1, 8), torch.randn(1, 4, 4))
+        ssd_chunk(cb, *ssd_args)
     with torch.no_grad():
-        assert tops.rmsnorm(x, torch.ones(8)).shape == (4, 8)
+        assert rmsnorm(x, torch.ones(8)).shape == (4, 8)
+    tops.rmsnorm(x, torch.ones(8)).sum().backward()
+    tops.ssd_chunk(cb, *ssd_args).sum().backward()
+    assert x.grad is not None and cb.grad is not None

@@ -6,6 +6,10 @@ the same numpy tokens go through both packages:
 
 * ``model.forward`` logits at T = 80 (three 32-token chunks, the last
   padded) within atol/rtol 1e-4 in f32, and ``loss_fn``;
+* ``loss_fn``'s gradient (``backward``) against ``jax.grad`` of the
+  reference's, leaf by leaf: the zoo's kernels run forward, and their
+  backward is their plain versions' (``kernels.ops``); the kernel
+  wrappers themselves still refuse autograd;
 * 12 teacher-forced ``serve_step`` logits within 1e-4, and the port's
   own forward against its step-by-step decode (the reference's
   ``tests/test_decode_consistency.py`` check);
@@ -37,8 +41,10 @@ from repro.models import sampling as jsampling
 from repro_torch import configs as tconfigs
 from repro_torch.configs.base import CompositionConfig as TComp
 from repro_torch.convert import from_jax_params
+from repro_torch.kernels import ops
 from repro_torch.launch import serve as tserve
 from repro_torch.models import model as tmodel
+from repro_torch.models import module as tmodule
 from repro_torch.models import sampling as tsampling
 
 ARCH = "zamba2-2.7b"
@@ -48,6 +54,9 @@ TOL = 1e-4
 # reference's casts p to bf16 before p @ v), so logits of magnitude ~4
 # agree to about 2-3 bf16 ulps after the two layers
 BF16_TOL = 6e-2
+# gradients in f32, each leaf relative to its own largest entry (the
+# leaves span 4e-5 (A_log) to 0.2 (conv_w)); seen up to 2.6e-6
+GRAD_TOL = 1e-4
 
 
 def _cfgs(**kw):
@@ -94,6 +103,135 @@ def test_forward_and_loss_match_reference(f32):
                                          "labels": jnp.asarray(labels)})
     np.testing.assert_allclose(float(loss), float(jloss), rtol=TOL)
     assert float(met["ce"]) == float(loss)
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k.key]
+    return tree
+
+
+def test_loss_fn_gradients_match_reference(f32):
+    jcfg, tcfg, jp, tp = f32
+    toks = _tokens(jcfg, 2, 80, seed=4)
+    labels = np.roll(toks, -1, axis=1)
+    jgrads = jax.grad(lambda p: jmodel.loss_fn(p, jcfg, {
+        "tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})[0])(jp)
+    leaves = jax.tree_util.tree_leaves_with_path(jgrads)
+    tp = tmodule.tree_map(lambda t: t.detach().clone().requires_grad_(), tp)
+    loss, _ = tmodel.loss_fn(tp, tcfg, {"tokens": torch.from_numpy(toks),
+                                        "labels": torch.from_numpy(labels)})
+    loss.backward()
+    assert len(leaves) == len(tmodule.tree_leaves(tp)) == 21
+    for path, want in leaves:
+        want = np.asarray(want)
+        got = _leaf(tp, path).grad
+        assert got is not None, jax.tree_util.keystr(path)
+        np.testing.assert_allclose(
+            got.numpy(), want, rtol=GRAD_TOL,
+            atol=GRAD_TOL * float(np.abs(want).max()),
+            err_msg=jax.tree_util.keystr(path))
+
+
+def test_kernel_wrappers_refuse_autograd():
+    """The kernel wrappers stay forward-only, as the reference's
+    ``pallas_call`` is: called directly under autograd they raise; under
+    ``no_grad`` they return."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+
+    g = torch.Generator().manual_seed(0)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g).requires_grad_()
+
+    calls = {
+        "rmsnorm": lambda: rmsnorm(rn(4, 16), rn(16)),
+        "ssd_chunk": lambda: ssd_chunk(
+            rn(2, 8, 4), rn(2, 8, 4), rn(2, 8, 4), torch.zeros(2, 8),
+            rn(2, 4, 4)),
+        "flash_attention": lambda: flash_attention(
+            rn(2, 8, 4), rn(1, 8, 4), rn(1, 8, 4), q_per_kv=2),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+            call()
+        with torch.no_grad():
+            assert torch.isfinite(call()).all()
+
+
+def _oracle_cases():
+    """(op, its oracle, inputs, which require grad), f64 on the CPU: the
+    ops in the model layout against the port's oracles (``kernels.ref``;
+    attention against the zoo's plain chunked softmax)."""
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import flash_attention as chunked
+
+    g = torch.Generator().manual_seed(1)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64)
+
+    return {
+        "rmsnorm": (lambda x, s: ops.rmsnorm(x, s),
+                    lambda x, s: ref.rmsnorm_ref(x, s),
+                    (rn(3, 5, 16), rn(16)), (True, True)),
+        # h_in without a gradient: that input's slot is None
+        "ssd_chunk": (ops.ssd_chunk, ref.ssd_chunk_ref,
+                      (rn(4, 8, 4), rn(4, 8, 4), rn(4, 8, 6),
+                       -rn(4, 8).abs().cumsum(-1), rn(4, 4, 6)),
+                      (True, True, True, True, False)),
+        "flash_attention": (
+            ops.flash_attention,
+            lambda q, k, v: chunked(q, k, v, q_chunk=4, kv_chunk=4),
+            (rn(2, 10, 2, 3, 8), rn(2, 10, 2, 8), rn(2, 10, 2, 8)),
+            (True, True, True)),
+    }
+
+
+@pytest.mark.parametrize("name", ["rmsnorm", "ssd_chunk", "flash_attention"])
+def test_ops_gradients_match_oracles(name):
+    """The three ops the zoo trains through take the gradient of their
+    plain version (recomputed in the backward) wherever they run: held
+    to autograd through an independent oracle.  The plain versions
+    compute in f32, hence the tolerance."""
+    op, oracle, inputs, need = _oracle_cases()[name]
+    grads = []
+    for fn in (op, oracle):
+        xs = [t.clone().requires_grad_(n) for t, n in zip(inputs, need)]
+        out = fn(*xs)
+        w = torch.linspace(-1, 1, out.numel(), dtype=out.dtype)
+        (out * w.reshape(out.shape)).sum().backward()
+        grads.append([x.grad for x in xs])
+    for got, want, n in zip(*grads, need):
+        assert (got is None) == (not n)
+        if n:
+            np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                       rtol=1e-5, atol=1e-5)
+
+
+def test_zoo_routes_to_the_kernels_unless_recording(f32, monkeypatch):
+    """The zoo reaches the kernel wrappers (through ``kernels.ops``)
+    under ``no_grad`` and while a gradient is recorded alike, so serving
+    and training both launch the kernels on the card; training's
+    backward is the plain versions'."""
+    _, tcfg, _, tp = f32
+    seen = []
+    for name in ("rmsnorm_kernel", "ssd_chunk_kernel"):
+        real = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _n=name, _f=real, **k: (
+            seen.append(_n), _f(*a, **k))[1])
+    toks = torch.from_numpy(_tokens(tcfg, 1, 40, seed=5))
+    with torch.no_grad():
+        tmodel.forward(tp, tcfg, {"tokens": toks})
+    assert set(seen) == {"rmsnorm_kernel", "ssd_chunk_kernel"}
+    seen.clear()
+    tp = tmodule.tree_map(lambda t: t.detach().clone().requires_grad_(), tp)
+    logits, _ = tmodel.forward(tp, tcfg, {"tokens": toks})
+    logits.float().sum().backward()
+    assert set(seen) == {"rmsnorm_kernel", "ssd_chunk_kernel"}
+    assert all(t.grad is not None for t in tmodule.tree_leaves(tp))
 
 
 def test_serve_steps_match_reference_and_forward(f32):
