@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Planted faults in the conv_rank, rank_apply, attention, SSD-chunk and
-RMSNorm kernels: does the smoke's phase 2 see them?
+"""Planted faults in the composition, attention, SSD-chunk and RMSNorm
+kernels: does the smoke's phase 2 see them?
 
     python3 chip_faults.py
 
@@ -14,7 +14,11 @@ builds the edited kernel) in a process of its own.  Each fault must make
 phase 2 fail at the first case that runs the edited code: the first
 conv_rank case for a dropped tap, its first stride-2 case for the
 padding's, the first rank_apply case for its column tiles', the first
-bf16 flash case for the two faults of the bf16 flash kernel, the first
+compose_apply case for its column tiles', its first case built in chunks
+for the chunks', compose's first case with m*O not a multiple of 4 for
+its scalar tail's, its first case with a client axis for the client
+offset's, the first bf16 flash case for the two faults of the bf16 flash
+kernel, the first
 decode case for the merge's, the first bf16 ssd_chunk case for the bf16
 SSD kernels', the first (f32) rmsnorm case for the one-pass rmsnorm's.
 Prints one line per fault (the case it failed at and its worst margin)
@@ -47,6 +51,22 @@ FAULTS = {
         "rank_apply.cu", r"if \(dq \* 4 >= cols\) continue;",
         "if (dq * 4 >= cols || blockIdx.y + 1 == gridDim.y) continue;", 1,
         "rank_apply square p=1", "check_kernels"),
+    "compose_apply: the last column tile left unwritten": (
+        "compose_apply.cu", r"const bool live = mm < rows && dq < DQ;",
+        "const bool live = mm < rows && dq < DQ && "
+        "blockIdx.y + 1 < gridDim.y;", 1,
+        "compose_apply edge", "check_kernels"),
+    "compose_apply: the second weight chunk built from the first's rows": (
+        "compose_apply.cu", r"const int k = k0 \+ kk;",
+        "const int k = kk;", 1,
+        "compose_apply edge xg(5, 3, 512)", "check_kernels"),
+    "compose: the scalar columns past the last quad's dropped": (
+        "compose.cu", r"\*dst = acc;", "if (j < MO - MO % 4) *dst = acc;", 1,
+        "compose fc p=1", "check_kernels"),
+    "compose: the coefficient's client offset off by one": (
+        "compose.cu", r"\(static_cast<long long>\(c\) \* m \+ b\)",
+        "(static_cast<long long>(c > 0 ? c - 1 : 0) * m + b)", 1,
+        "compose C=4", "check_kernels"),
     "flash: (m, l) correction skipped on the second KV tile": (
         "flash_attention.cu", r"corr\[h\] = fast_exp2\(m\[mt\]\[h\] - mx\);",
         "corr[h] = t == t_begin + 1 ? 1.f : fast_exp2(m[mt][h] - mx);", 1,

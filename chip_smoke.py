@@ -12,11 +12,13 @@ Run from the root of a checkout.  It
 2. holds every kernel against its plain PyTorch version on the card: the
    four composition kernels at the CNN's shapes for widths p = 1, 2, 3
    (all three composition modes, strides 1 and 2, compose with a client
-   axis C = 4), at the composed transformer's, and conv_rank and
-   rank_apply at their edges (odd and 32x32 images, C = 3, ragged row
-   and column tiles, M up to 1000, D 6 to 96, rank 6, tiles past 48 KB;
-   rank_apply's (y, t) pair), forward and gradient through each
-   autograd Function; the
+   axis C = 4 and 10), at the composed transformer's, and at their edges
+   (odd and 32x32 images, C = 3, ragged row and column tiles, M up to
+   1000, D 6 to 96, ragged m*O, rank 6, tiles past 48 KB, compose_apply's
+   weight tile in chunks; the (y, t) pairs of rank_apply and
+   compose_apply), forward and gradient through each autograd Function,
+   and the fused head's no-grad forward (one compose_apply launch, no
+   GEMM beside it) and the t its recorded forward saves; the
    two attention kernels in f32 and bf16, element-wise, at the
    transformer path's shapes, the reference's sweep shapes, head dims 80
    and 256 over several KV tiles, a query group of 8 over uneven key
@@ -29,8 +31,12 @@ Run from the root of a checkout.  It
    It times kernel, plain version and, where one PyTorch call computes
    the same function, that call (the port never calls it), at the main
    path's widest shapes (conv_rank also at conv1 and on 32x32 images,
-   rank_apply also at path (e)'s widest call), each wrapper's host cost
-   per call at a small shape, and, for the attention, rmsnorm and ssd_chunk
+   rank_apply also at path (e)'s widest call, compose also at the fc
+   layer, path (e)'s up projection and a 10-client cohort stack,
+   compose_apply also at the calibration's head and a wide grow_in shape
+   no path runs it at) beside
+   the device time of an empty launch, each call's host cost
+   (``call_ms``), and, for the attention, rmsnorm and ssd_chunk
    kernels, at one realistic shape each over ``BIG_ITERS`` eager calls
    (flash also at path (g)'s own call, decode also through
    ``kernels.ops`` on the model layout, rmsnorm also at path (g)'s
@@ -52,7 +58,8 @@ Run from the root of a checkout.  It
    ``loss_fn`` backward on the smoke config in f32, held against the
    CPU's, with no forward-only kernel launched while it records;
 4. traces one round of (c) with ``torch.profiler`` (device busy share,
-   top kernels);
+   top kernels), and prints the calibration ``core.calibration.measure``
+   takes with no pins and the per-layer impls ``auto`` then picks;
 5. prints the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -62,11 +69,14 @@ result.  Without a CUDA device, or outside a checkout, it exits 1.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -185,10 +195,45 @@ def card_line() -> str:
 # --------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def deterministic(torch, on: bool):
+    """Deterministic algorithms on or off for the block (warn only).  On,
+    ``torch.empty`` fills float tensors with NaN
+    (``torch.utils.deterministic.fill_uninitialized_memory``), so an output
+    a kernel leaves unwritten fails its check, whatever answer the caching
+    allocator's recycled buffer held; the timers turn it off, so no fill
+    is timed."""
+    was = torch.are_deterministic_algorithms_enabled()
+    was_warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = True
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*deterministic")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=was_warn)
+
+
+def nan_empty(check_fn):
+    """Run a phase-2 check (``check_fn(torch, ...)``) under
+    ``deterministic(torch, True)``."""
+    @functools.wraps(check_fn)
+    def run(torch, *args, **kwargs):
+        with deterministic(torch, True):
+            return check_fn(torch, *args, **kwargs)
+    return run
+
+
 def device_ms(torch, fn, reps: int = 100, replays: int = 5) -> float:
     """Device time of one ``fn()`` call: ``reps`` calls captured in a CUDA
     graph, replayed and timed with CUDA events, so the host's launch cost
     is not in the number."""
+    with deterministic(torch, False):
+        return _graph_ms(torch, fn, reps, replays)
+
+
+def _graph_ms(torch, fn, reps: int, replays: int) -> float:
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -214,6 +259,11 @@ def device_ms(torch, fn, reps: int = 100, replays: int = 5) -> float:
 def call_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
     """Per-call time of ``fn()`` issued eagerly back to back (CUDA events),
     host launch cost included: what one call costs the training loop."""
+    with deterministic(torch, False):
+        return _eager_ms(torch, fn, iters, warmup)
+
+
+def _eager_ms(torch, fn, iters: int, warmup: int) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -319,6 +369,7 @@ def grad_check(torch, fn, ref_fn, args, tol, what):
         err(torch, g1.grad, g2.grad, tol, f"{what} grad[{i}]")
 
 
+@nan_empty
 def check_kernels(torch):
     """Phase 2 of the four composition kernels.  Returns their timing
     records."""
@@ -358,6 +409,32 @@ def check_kernels(torch):
     maxerr["compose"] = max(maxerr["compose"], err(
         torch, compose_kernel(v4, u4), ref.compose_ref(v4, u4), DENSE_TOL,
         "compose C=4 (4,9,8,8)x(4,9,8,8)"))
+    # compose's edges: the cohort stack of 10 clients (conv2, and the fc
+    # layer's ragged m*O), rank 6 with ragged rows and m*O, and a rank in
+    # the thousands (the generic r loop)
+    for C, ksq, I, R, m, O in COMPOSE_EDGES:
+        lead = (C,) if C > 1 else ()
+        v, u = rn(*lead, ksq, I, R), rn(*lead, m, R, O)
+        maxerr["compose"] = max(maxerr["compose"], err(
+            torch, compose_kernel(v, u), ref.compose_ref(v, u), DENSE_TOL,
+            f"compose edge C={C} {tuple(v.shape)}x{tuple(u.shape)}"))
+
+    # compose_apply's edges: ragged row tiles (M 17, 1000, 1), ragged and
+    # several column tiles (D 10, 96, 64, 6), rank 6 on rows of 9 floats,
+    # a basis past 48 KB (I = 2048) and a weight tile built in chunks (g*I
+    # = 1536); each also as the (y, t) pair the training forward takes,
+    # against the plain pair
+    for M, g, I, R, D in COMPOSE_APPLY_EDGES:
+        xg, v, u3 = rn(M, g, I, scale=1.0), rn(I, R), rn(g, R, D)
+        what = f"compose_apply edge xg{tuple(xg.shape)} R={R} D={D}"
+        maxerr["compose_apply"] = max(maxerr["compose_apply"], err(
+            torch, compose_apply_kernel(xg, v, u3),
+            _compose_apply_math(xg, v, u3), DENSE_TOL, what))
+        y, t = compose_apply_kernel(xg, v, u3, with_t=True)
+        y0, t0 = _compose_apply_math(xg, v, u3, with_t=True)
+        err(torch, y, y0, DENSE_TOL, f"{what} with t: y")
+        maxerr["compose_apply"] = max(maxerr["compose_apply"], err(
+            torch, t, t0, DENSE_TOL, f"{what} with t: t"))
 
     # dense primitives at the classifier head, all modes, p = 1..3
     for mode in modes:
@@ -399,6 +476,8 @@ def check_kernels(torch):
             maxerr["compose"] = max(maxerr["compose"], err(
                 torch, compose_kernel(vb, u), ref.compose_ref(vb, u),
                 DENSE_TOL, f"compose {what}"))
+
+    no_grad = fused_head_forward(torch, rn)
 
     # rank_apply's edge cases: ragged row tiles (M 17, 1000, 1), a ragged
     # column tile (D 10, 6), path (e)'s widest D (96), a row that is not
@@ -488,28 +567,9 @@ def check_kernels(torch):
                 (x, v, u), CONV_GRAD_TOL, f"conv_rank {mode} p={p} s={stride}")
 
     print("phase 2: timing at the main path's widest shapes (p=3)")
-    f32 = 4
     records = rank_kernel_times(torch, rn)
-    # compose: conv2's (9,8,8) x (9,8,8) -> (9,8,72)
-    v, u = rn(9, 8, 8), rn(9, 8, 8)
-    vf, uf = v.reshape(72, 8), u.permute(1, 0, 2).reshape(8, 72)
-    records["compose"] = time_kernel(
-        torch, "compose", "conv2", "basis (9,8,8) x coeff (9,8,8) -> (9,8,72)",
-        lambda: compose_kernel(v, u), lambda: ref.compose_ref(v, u),
-        lambda: torch.matmul(vf, uf),
-        f32 * (v.numel() + u.numel() + 9 * 8 * 72), 2 * 9 * 8 * 8 * 9 * 8,
-        PEAK_F32_FLOPS, False)
-    # compose_apply: fc grow_in p=3, xg (16,3,8), v (8,8), u3 (3,8,10)
-    xg, vd, ud = rn(16, 3, 8, scale=1.0), rn(8, 8), rn(3, 8, 10)
-    u3d = _u2_layout(ud, 3, "grow_in").reshape(3, 8, 10).contiguous()
-    records["compose_apply"] = time_kernel(
-        torch, "compose_apply", "fc grow_in",
-        "fc grow_in p=3: xg (16,3,8) v (8,8) u3 (3,8,10) -> (16,10)",
-        lambda: compose_apply_kernel(xg, vd, u3d),
-        lambda: _compose_apply_math(xg, vd, u3d),
-        lambda: torch.einsum("mai,ir,ard->md", xg, vd, u3d),
-        f32 * (xg.numel() + vd.numel() + u3d.numel() + 16 * 10),
-        2 * (3 * 8 * 8 * 10 + 16 * 3 * 8 * 10), PEAK_F32_FLOPS, False)
+    records.update(composition_times(torch, rn))
+    records["compose_apply"]["no_grad"] = no_grad
     for name, rec in records.items():
         rec["max_abs_err"] = maxerr[name]
     return records
@@ -587,6 +647,161 @@ def rank_kernel_times(torch, rn) -> dict:
     return out
 
 
+# compose's phase-2 edges: (C, ksq, I, R, m, O), C = 1 as a 3-d call
+COMPOSE_EDGES = ((10, 9, 8, 8, 9, 8), (10, 1, 8, 8, 3, 10),
+                 (1, 9, 3, 6, 3, 10), (3, 4, 7, 6, 1, 5),
+                 (1, 1, 4, 3000, 1, 8))
+# compose_apply's: (M, g, I, R, D)
+COMPOSE_APPLY_EDGES = ((17, 3, 8, 8, 10), (1000, 3, 16, 8, 96),
+                       (1, 2, 16, 8, 64), (17, 3, 3, 6, 6),
+                       (16, 1, 2048, 8, 10), (5, 3, 512, 8, 40))
+# compose's timed shapes at p = 3: the CNN's conv2 and fc layer (m*O =
+# 30, not a multiple of 4), path (e)'s MLP up projection, and the cohort
+# stack of conv2 over 10 clients: (label, C, ksq, I, m, O), rank 8
+COMPOSE_TIMED = (("conv2", 1, 9, 8, 9, 8), ("fc", 1, 1, 8, 3, 10),
+                 ("path (e) up", 1, 1, 16, 9, 32),
+                 ("cohort C=10 conv2", 10, 9, 8, 9, 8))
+# compose_apply's: the CNN's head (grow_in, p = 3), the calibration's head
+# (core/calibration.py _DENSE_SHAPE: grow_in, p = 2, 32 rows) and a wide
+# shape that no path runs compose_apply at, path (e)'s head shape (grow_in,
+# p = 3, vocab 64; path (e) runs rank_apply there), on the generic
+# instance: (label, M, g, I, D), rank 8
+COMPOSE_APPLY_TIMED = (("fc grow_in", 16, 3, 8, 10),
+                       ("calibration grow_in p=2", 32, 2, 8, 10),
+                       ("wide grow_in, no path", 256, 3, 16, 64))
+# kernel names a GEMM or contraction launches, none of which the fused
+# head's no-grad forward may run
+CONTRACTION_NAMES = ("gemm", "einsum", "matmul", "bmm", "dot", "xmma",
+                     "cutlass", "splitk")
+
+
+def launch_floor_ms(torch) -> float:
+    """Device time of an empty launch (``torch.cuda._sleep(0)``), timed as
+    ``device_ms`` times the kernels: 100 launches in a CUDA graph."""
+    return device_ms(torch, lambda: torch.cuda._sleep(0))
+
+
+def composition_times(torch, rn) -> dict:
+    """Timing records of compose and compose_apply at every timed shape
+    (``COMPOSE_TIMED``, ``COMPOSE_APPLY_TIMED``) through the wrappers'
+    public calls, each the first shape's record with the others under
+    ``more_shapes``; compose's also carries the launch floor measured in
+    the same run (``launch_floor_ms``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.compose import (_compose_apply_math,
+                                             compose_apply_kernel,
+                                             compose_kernel)
+
+    f32 = 4
+    floor = launch_floor_ms(torch)
+    print(f"  launch floor (empty kernel, CUDA graph): {floor:.7f} ms")
+    recs = {"compose": [], "compose_apply": []}
+    for label, C, ksq, I, m, O in COMPOSE_TIMED:
+        lead = (C,) if C > 1 else ()
+        v, u = rn(*lead, ksq, I, 8), rn(*lead, m, 8, O)
+        # the one-matmul library call: (C,) ksq*I x R times R x m*O
+        vf = v.reshape(*lead, ksq * I, 8)
+        uf = u.transpose(-3, -2).reshape(*lead, 8, m * O).contiguous()
+        shape = (f"{label} p=3: basis {tuple(v.shape)} x coeff "
+                 f"{tuple(u.shape)} -> {(*lead, ksq, I, m * O)}")
+        recs["compose"].append(time_kernel(
+            torch, "compose", label, shape,
+            lambda v=v, u=u: compose_kernel(v, u),
+            lambda v=v, u=u: ref.compose_ref(v, u),
+            lambda vf=vf, uf=uf: torch.matmul(vf, uf),
+            f32 * (v.numel() + u.numel() + C * ksq * I * m * O),
+            2 * C * ksq * I * 8 * m * O, PEAK_F32_FLOPS, False))
+    for label, M, g, I, D in COMPOSE_APPLY_TIMED:
+        xg, v, u3 = rn(M, g, I, scale=1.0), rn(I, 8), rn(g, 8, D)
+        shape = (f"{label}: xg {tuple(xg.shape)} v {tuple(v.shape)} u3 "
+                 f"{tuple(u3.shape)} -> ({M},{D})")
+        recs["compose_apply"].append(time_kernel(
+            torch, "compose_apply", label, shape,
+            lambda xg=xg, v=v, u3=u3: compose_apply_kernel(xg, v, u3),
+            lambda xg=xg, v=v, u3=u3: _compose_apply_math(xg, v, u3),
+            lambda xg=xg, v=v, u3=u3: torch.einsum("mai,ir,ard->md", xg, v,
+                                                   u3),
+            f32 * (xg.numel() + v.numel() + u3.numel() + M * D),
+            2 * (g * I * 8 * D + M * g * I * D), PEAK_F32_FLOPS, False))
+    out = {name: dict(rows[0], more_shapes=rows[1:])
+           for name, rows in recs.items()}
+    out["compose"]["launch_floor_ms"] = floor
+    return out
+
+
+def fused_head_forward(torch, rn) -> dict:
+    """The fused head's two forwards on the card.  Under
+    ``torch.no_grad()`` ``compose_dense_apply`` launches compose_apply
+    once and nothing else of the port, and the profiler sees no GEMM or
+    contraction kernel beside it (layout copies of u may run); with a
+    graph recorded, in every mode, the t it saves for the backward is the
+    kernel's and within ``DENSE_TOL`` of the reference's residual
+    ``einsum("mgi,ir->mgr")``.  Returns the no-grad run's launches and
+    device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.compose import _ComposeDense, compose_dense_apply
+
+    print("phase 2: the fused head's forwards (no-grad launches, saved t)")
+    seen = {}
+    for mode in ("grow_in", "square", "grow_out"):
+        g = 1 if mode == "grow_out" else 3
+        m = 9 if mode == "square" else 3
+        x, vd, ud = rn(16, g * 8, scale=1.0), rn(1, 8, 8), rn(m, 8, 10)
+        with torch.no_grad():
+            compose_dense_apply(x, vd, ud, 3, mode)  # built and bound
+        torch.cuda.synchronize()
+        reset_launches()
+        # no NaN fill of the output: the trace holds the port's kernels only
+        with deterministic(torch, False), torch.no_grad(), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            compose_dense_apply(x, vd, ud, 3, mode)
+            torch.cuda.synchronize()
+        counts = {k: n for k, n in LAUNCHES.items() if n}
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        contractions = [k for k in names
+                        if any(w in k.lower() for w in CONTRACTION_NAMES)]
+        print(f"  compose_dense_apply {mode} p=3 no_grad: launches {counts}; "
+              f"device kernels {names}")
+        check(counts == {"compose_apply": 1},
+              f"fused head {mode}: no-grad launches {counts}")
+        check(any("compose_apply" in k for k in names) and not contractions,
+              f"fused head {mode}: no-grad device kernels {names}")
+        seen[mode] = {"launches": counts, "device_kernels": names}
+
+        x2, v2 = x.clone().requires_grad_(), vd[0].clone().requires_grad_()
+        reset_launches()
+        y = _ComposeDense.apply(x2, v2, ud, 3, mode)
+        check(LAUNCHES["compose_apply"] == 1 and LAUNCHES["rank_apply"] == 0,
+              f"fused head {mode}: recorded forward launches {dict(LAUNCHES)}")
+        t = torch.einsum("mgi,ir->mgr", x.reshape(16, g, 8), vd[0])
+        err(torch, y.grad_fn.saved_tensors[3],
+            t[:, 0] if mode == "grow_out" else t, DENSE_TOL,
+            f"compose_dense_apply {mode} p=3 saved t vs the reference's "
+            "residual")
+    return seen
+
+
+def calibration_record(torch) -> dict:
+    """``core.calibration.measure`` on the card (both knobs, no pins) and
+    the impl ``prepare_weights`` then picks for each CNN layer under
+    ``forward_impl="auto"`` at widths 1-3 (a training batch of 16)."""
+    from repro_torch.core.calibration import measure
+    from repro_torch.fl import build_image_setup
+
+    cal = measure(DEVICE)
+    model, px, _, _ = build_image_setup(num_clients=10, device=DEVICE)
+    shape = (16,) + tuple(px[0].shape[1:])
+    impls = {p: model.layer_impls(p, 16, "auto", shape, cal)
+             for p in (1, 2, 3)}
+    return {"conv_rank_overhead": cal.conv_rank_overhead,
+            "fused_compose_gain": cal.fused_compose_gain,
+            "layer_impls": impls}
+
+
 def _flat_decode(q, k, v, lengths):
     """Model layout -> the decode kernel's rows (q (B,1,KV,G,D), caches
     (B,S,KV,D), lengths (B,)), for the plain version."""
@@ -619,6 +834,7 @@ def _causal_pairs(sq: int, sk: int, window: int = 0) -> int:
     return n
 
 
+@nan_empty
 def check_attention(torch):
     """Phase 2 for the two attention kernels, f32 and bf16, element-wise
     against their plain versions.  The first case of each kernel and
@@ -888,6 +1104,7 @@ def check_attention(torch):
     return records
 
 
+@nan_empty
 def check_ssd_rmsnorm(torch):
     """Phase 2 for the SSD-chunk and RMSNorm kernels, f32 and bf16, at
     path (g)'s shapes, the reference's sweep shapes and with ``heads >
@@ -1635,6 +1852,7 @@ def main() -> int:
     launches, by_path, zoo_stats = main_path(torch, rt)
     print(f"path (g) {json.dumps(zoo_stats)}")
     trace_round(torch)
+    print(f"calibration {json.dumps(calibration_record(torch))}")
 
     kernels = []
     for name in rt.KERNELS:
@@ -1651,7 +1869,8 @@ def main() -> int:
             "launches_by_path": {k: v[name] for k, v in by_path.items()},
         })
         for extra in ("two_call_ms", "more_shapes", "at_scale", "path_g",
-                      "ops_model_layout", "decode"):
+                      "ops_model_layout", "decode", "launch_floor_ms",
+                      "no_grad"):
             if extra in rec:
                 kernels[-1][extra] = rec[extra]
     print(json.dumps({"kernels": kernels}))

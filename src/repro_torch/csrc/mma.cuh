@@ -132,10 +132,10 @@ __device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src,
 // columns cols..ld-1: 16-byte cp.async copies when every source row starts
 // on 16 bytes and cols % 4 == 0, 4-byte ones otherwise; the caller commits
 // and waits.  Called by every thread of the block.  The rank-space kernels
-// (conv_rank, rank_apply) stage this way: their tiles are all in range,
-// and staging them through stage_rows (its bound on the valid rows, its
-// width at run time) read slower on the H100 at their path shapes, where
-// a call takes a few microseconds (PERF.md section 6).
+// (conv_rank, rank_apply, compose_apply) stage this way: their tiles are
+// all in range, and staging them through stage_rows (its bound on the
+// valid rows, its width at run time) read slower on the H100 at their
+// path shapes, where a call takes a few microseconds (PERF.md section 6).
 __device__ __forceinline__ void stage_f32(float* dst, int ld, const float* src,
                                           long long stride, int rows,
                                           int cols) {

@@ -52,9 +52,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C launcher name and argument types per source file
 _SIGNATURES = {
-    "compose": ("compose_f32", [_P, _P, _P] + [_I] * 6 + [_P]),
+    "compose": ("compose_f32", [_P, _P, _P] + [_I] * 9 + [_P]),
     "rank_apply": ("rank_apply_f32", [_P] * 5 + [_I] * 7 + [_P]),
-    "compose_apply": ("compose_apply_f32", [_P] * 4 + [_I] * 7 + [_P]),
+    "compose_apply": ("compose_apply_f32", [_P] * 5 + [_I] * 8 + [_P]),
     "conv_rank": ("conv_rank_f32", [_P] * 4 + [_I] * 15 + [_P]),
     "decode_attention": ("decode_attention", [_P] * 7 + [_I] * 8 + [_P]),
     "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 8 + [_P]),

@@ -41,6 +41,44 @@ Tensor = torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+# launch geometry of the compose kernel (csrc/compose.cu)
+CO_THREADS = 128  # threads a block has at most
+CO_QUADS = 2      # column quads a block row spans at most (four-column threads)
+CO_COLS = 32      # columns a block row spans at most (one-column threads)
+
+
+def _compose_tiles(rows: int, m: int, O: int,
+                   cw: int = 4) -> tuple[int, int]:
+    """Rows and column threads one block owns, (by, cx), over a client's
+    (rows = ksq*I, m*O) output, for threads that own ``cw`` (4 or 1)
+    neighbouring output columns each.  cx covers m*O, at most
+    ``CO_QUADS`` quads (so a warp spans many rows and few coefficient
+    quads) or ``CO_COLS`` columns (a warp reads one 128-byte line of a
+    coefficient row); by fills the block to ``CO_THREADS`` threads, so a
+    call launches as few blocks as its shape allows (a block's dispatch
+    costs more than its threads' work at the path shapes).  The blocks
+    tile the output exactly, the last row and column tiles ragged.
+    Raises where the kernel's reciprocal for j / O is not exact (m*O*O
+    >= 2^32)."""
+    if m * O * O >= 1 << 32:
+        raise ValueError(f"compose: m*O*O = {m * O * O} passes 2^32")
+    cx = max(1, min(CO_QUADS if cw == 4 else CO_COLS, -(-(m * O) // cw)))
+    by = max(1, min(rows, CO_THREADS // cx))
+    return by, cx
+
+
+def _compose_width(basis: Tensor, coeff: Tensor, out: Tensor) -> int:
+    """The output columns a compose thread owns: four (float4 reads and
+    stores) where O and R are multiples of 4, O < 32 and every operand is
+    16-byte aligned; one otherwise.  From O = 32 up a warp of one-column
+    threads reads whole 128-byte lines of the coefficient's rows, which
+    read faster on the H100 (PERF.md, PR 17)."""
+    O = coeff.shape[-1]
+    return 4 if (O % 4 == 0 and O < 32 and basis.shape[-1] % 4 == 0
+                 and all(t.data_ptr() % 16 == 0
+                         for t in (basis, coeff, out))) else 1
+
+
 def compose_kernel(basis: Tensor, coeff: Tensor) -> Tensor:
     """basis (ksq, I, R) x coeff (m, R, O) -> (ksq, I, m*O); with a leading
     client axis on both, (C, ksq, I, R) x (C, m, R, O) -> (C, ksq, I, m*O)
@@ -61,7 +99,9 @@ def compose_kernel(basis: Tensor, coeff: Tensor) -> Tensor:
                          f"match coeff {tuple(coeff.shape)}")
     out = torch.empty((C, ksq, I, m * O), device=basis.device,
                       dtype=basis.dtype)
-    launch("compose", (b4, c4, out), C, ksq, I, R, m, O)
+    cw = _compose_width(b4, c4, out)
+    by, cx = _compose_tiles(ksq * I, m, O, cw)
+    launch("compose", (b4, c4, out), C, ksq, I, R, m, O, by, cx, cw)
     return out if batched else out[0]
 
 
@@ -176,13 +216,6 @@ def rank_apply_kernel(xg: Tensor, v2: Tensor, u2: Tensor, *,
     return (y, t) if with_t else y
 
 
-def _rank_residual(xg: Tensor, v2: Tensor, mode: str) -> Tensor:
-    """Rank-space residual t of the shared backward, recomputed cheaply
-    (M·g·I·R MACs) — never the composed weight."""
-    t = torch.einsum("mgi,ir->mgr", xg, v2)
-    return t[:, 0] if mode == "grow_out" else t
-
-
 def _rank_space_bwd(p: int, mode: str, x2: Tensor, v2: Tensor, u: Tensor,
                     t: Tensor, dy: Tensor):
     """Shared rank-space backward for ``rank_dense_apply`` and
@@ -210,20 +243,30 @@ def _rank_space_bwd(p: int, mode: str, x2: Tensor, v2: Tensor, u: Tensor,
     return dx, dv2, du
 
 
+def _records_graph(*tensors: Tensor) -> bool:
+    """Whether autograd records a graph through these operands: grad mode
+    on and one of them requiring grad (inside a ``Function.forward`` grad
+    mode is off, so the dense wrappers ask before they apply one)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _rank_args(x2: Tensor, v2: Tensor, u: Tensor, p: int, mode: str):
+    """rank_apply's operands for a dense layer: xg (M, g, I), v2, u2."""
+    g = 1 if mode == "grow_out" else p
+    return (x2.reshape(x2.shape[0], g, -1).contiguous(), v2.contiguous(),
+            _u2_layout(u, p, mode).contiguous())
+
+
 class _RankDense(torch.autograd.Function):
     """rank_apply kernel forward, rank-space backward (reference
     ``_rank_dense_fn``); the kernel hands back the residual t it computed
-    on the way, so the forward runs no second contraction for it."""
+    on the way, so the forward runs no second contraction for it.  Applied
+    only when a graph is recorded: without one, ``rank_dense_apply``
+    launches the kernel alone."""
 
     @staticmethod
     def forward(ctx, x2, v2, u, p, mode):
-        g = 1 if mode == "grow_out" else p
-        xg = x2.reshape(x2.shape[0], g, -1)
-        args = (xg.contiguous(), v2.contiguous(),
-                _u2_layout(u, p, mode).contiguous())
-        if not any(ctx.needs_input_grad[:3]):  # no graph is recorded
-            return rank_apply_kernel(*args)
-        y, t = rank_apply_kernel(*args, with_t=True)
+        y, t = rank_apply_kernel(*_rank_args(x2, v2, u, p, mode), with_t=True)
         ctx.save_for_backward(x2, v2, u, t[:, 0] if mode == "grow_out" else t)
         ctx.p, ctx.mode = p, mode
         return y
@@ -244,7 +287,11 @@ def rank_dense_apply(x: Tensor, basis: Tensor, reduced_coeff: Tensor, p: int,
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    y2 = _RankDense.apply(x2, basis[0], reduced_coeff, p, mode)
+    if _records_graph(x2, basis, reduced_coeff):
+        y2 = _RankDense.apply(x2, basis[0], reduced_coeff, p, mode)
+    else:
+        y2 = rank_apply_kernel(*_rank_args(x2, basis[0], reduced_coeff, p,
+                                           mode))
     return y2.reshape(lead + (y2.shape[-1],))
 
 
@@ -253,18 +300,74 @@ def rank_dense_apply(x: Tensor, basis: Tensor, reduced_coeff: Tensor, p: int,
 # ---------------------------------------------------------------------------
 
 
-def _compose_apply_math(xg: Tensor, v2: Tensor, u3: Tensor) -> Tensor:
+def _compose_apply_math(xg: Tensor, v2: Tensor, u3: Tensor,
+                        with_t: bool = False):
     """Plain version of the compose_apply kernel: per-group weights as one
-    batched einsum, then one grouped contraction."""
+    batched einsum, then one grouped contraction; with ``with_t`` also
+    t = xg·v (M, g, R), the pair (y, t)."""
     w = torch.einsum("ir,arj->aij", v2, u3)
-    return torch.einsum("nai,aij->nj", xg, w)
+    y = torch.einsum("nai,aij->nj", xg, w)
+    if not with_t:
+        return y
+    M, g, I = xg.shape
+    return y, (xg.reshape(M * g, I) @ v2).reshape(M, g, v2.shape[1])
 
 
-def compose_apply_kernel(xg: Tensor, v2: Tensor, u3: Tensor) -> Tensor:
+# launch geometry of the compose_apply kernel (csrc/compose_apply.cu)
+CA_BLOCKS = 128    # blocks a call aims at
+CA_ROWS = 16       # rows a block owns at most: 16 rows x 8 column quads
+CA_COLS = 32       # output columns at most: the kernel's 128 threads
+CA_CHUNK_MIN = 16  # weight rows a chunk holds at least within 48 KB
+
+
+def _compose_apply_smem(g: int, I: int, R: int, bm: int, bd: int,
+                        kc: int) -> int:
+    """Shared bytes of one compose_apply block (``compose_apply_smem_floats``
+    in the kernel): v padded to 4 columns, the u3 column tile, the block's
+    xg rows and kc rows of its weight tile."""
+    return 4 * (I * round4(R) + g * R * bd + bm * round4(g * I) + kc * bd)
+
+
+def _compose_apply_tiles(M: int, g: int, I: int, R: int,
+                         D: int) -> tuple[int, int, int, int]:
+    """Rows and output columns one block owns, (bm, bd), the rows of its
+    (g*I, bd) weight tile built at a time (kc), and its shared bytes.  bd
+    is D rounded up to 4, at most ``CA_COLS``; bm halves from ``CA_ROWS``
+    while the grid has fewer than ``CA_BLOCKS`` blocks, and while the
+    block with its whole weight tile passes 48 KB.  Where the whole tile
+    still does not fit in 48 KB it is built in chunks of kc rows there, or,
+    when not even ``CA_CHUNK_MIN`` rows fit beside the staged operands,
+    in the largest chunk that fits in 227 KB.  The blocks tile the (M, D)
+    output exactly, the last row and column tiles ragged."""
+    gI = g * I
+    bd = min(round4(D), CA_COLS)
+    n_cols = -(-D // bd)
+    bm = CA_ROWS
+    while bm > 1 and (-(-M // bm) * n_cols < CA_BLOCKS
+                      or _compose_apply_smem(g, I, R, bm, bd, gI)
+                      > SMEM_DEFAULT):
+        bm //= 2
+    kc = gI
+    staged = _compose_apply_smem(g, I, R, bm, bd, 0)
+    if staged + 4 * bd * gI > SMEM_DEFAULT:
+        fits_default = (staged + 4 * bd * min(gI, CA_CHUNK_MIN)
+                        <= SMEM_DEFAULT)
+        room = (SMEM_DEFAULT if fits_default else SMEM_MAX) - staged
+        kc = min(gI, room // (4 * bd))
+    if kc < 1:
+        raise ValueError(f"compose_apply: v ({I}, {R}), one row of xg and "
+                         "one weight row do not fit in shared memory")
+    return bm, bd, kc, _compose_apply_smem(g, I, R, bm, bd, kc)
+
+
+def compose_apply_kernel(xg: Tensor, v2: Tensor, u3: Tensor, *,
+                         with_t: bool = False):
     """Fused compose+apply: xg (M, g, I) x v2 (I, R) x u3 (g, R, D) ->
-    (M, D); each ``W_a = v2 @ u3[a]`` exists only in shared memory."""
+    (M, D); each ``W_a = v2 @ u3[a]`` exists only in shared memory.  With
+    ``with_t`` also returns t = xg·v2 (M, g, R), the residual of the
+    rank-space backward: the pair (y, t)."""
     if not use_kernel(xg):
-        return _compose_apply_math(xg, v2, u3)
+        return _compose_apply_math(xg, v2, u3, with_t)
     check_operands("compose_apply", xg=xg, v2=v2, u3=u3)
     M, g, I = xg.shape
     I2, R = v2.shape
@@ -272,28 +375,34 @@ def compose_apply_kernel(xg: Tensor, v2: Tensor, u3: Tensor) -> Tensor:
         raise ValueError(f"compose_apply: xg {tuple(xg.shape)}, v2 "
                          f"{tuple(v2.shape)}, u3 {tuple(u3.shape)} disagree")
     D = u3.shape[2]
-    dt = min(D, 256)
-    bm = max(1, min(M, 64, 1024 // dt))  # bm * dt <= 4 outputs x 256 threads
-    if (I * dt + bm * I) * 4 > 227 * 1024:
-        raise ValueError(f"compose_apply: an (I = {I}, {dt}) weight slice "
-                         "does not fit in shared memory")
+    bm, bd, kc, _ = _compose_apply_tiles(M, g, I, R, D)
     y = torch.empty((M, D), device=xg.device, dtype=xg.dtype)
-    launch("compose_apply", (xg, v2, u3, y), M, g, I, R, D, bm, dt)
-    return y
+    t = (torch.empty((M, g, R), device=xg.device, dtype=xg.dtype)
+         if with_t else None)
+    launch("compose_apply", (xg, v2, u3, y, t), M, g, I, R, D, bm, bd, kc)
+    return (y, t) if with_t else y
+
+
+def _compose_args(x2: Tensor, v2: Tensor, u: Tensor, p: int, mode: str):
+    """compose_apply's operands for a dense layer: xg (M, g, I), v2, u3."""
+    g = 1 if mode == "grow_out" else p
+    u3 = _u2_layout(u, p, mode).reshape(g, u.shape[-2], -1)
+    return (x2.reshape(x2.shape[0], g, -1).contiguous(), v2.contiguous(),
+            u3.contiguous())
 
 
 class _ComposeDense(torch.autograd.Function):
     """compose_apply kernel forward, the shared rank-space backward
-    (reference ``_compose_dense_fn``)."""
+    (reference ``_compose_dense_fn``).  Like ``_RankDense``, the kernel
+    hands back the residual t, and it is applied only when a graph is
+    recorded: without one, ``compose_dense_apply`` launches the kernel
+    alone."""
 
     @staticmethod
     def forward(ctx, x2, v2, u, p, mode):
-        g = 1 if mode == "grow_out" else p
-        xg = x2.reshape(x2.shape[0], g, -1)
-        u3 = _u2_layout(u, p, mode).reshape(g, u.shape[-2], -1)
-        y = compose_apply_kernel(xg.contiguous(), v2.contiguous(),
-                                 u3.contiguous())
-        ctx.save_for_backward(x2, v2, u, _rank_residual(xg, v2, mode))
+        y, t = compose_apply_kernel(*_compose_args(x2, v2, u, p, mode),
+                                    with_t=True)
+        ctx.save_for_backward(x2, v2, u, t[:, 0] if mode == "grow_out" else t)
         ctx.p, ctx.mode = p, mode
         return y
 
@@ -314,5 +423,9 @@ def compose_dense_apply(x: Tensor, basis: Tensor, reduced_coeff: Tensor,
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    y2 = _ComposeDense.apply(x2, basis[0], reduced_coeff, p, mode)
+    if _records_graph(x2, basis, reduced_coeff):
+        y2 = _ComposeDense.apply(x2, basis[0], reduced_coeff, p, mode)
+    else:
+        y2 = compose_apply_kernel(*_compose_args(x2, basis[0], reduced_coeff,
+                                                 p, mode))
     return y2.reshape(lead + (y2.shape[-1],))

@@ -334,7 +334,7 @@ def test_launchers_opt_into_large_shared_memory():
 def test_rank_apply_pair_matches_plain_and_residual(mode, p):
     """With ``with_t`` the wrapper hands back (y, t): y as the plain
     version computes it, t the rank-space residual the backward reads."""
-    from repro_torch.kernels.compose import _fwd_math, _rank_residual
+    from repro_torch.kernels.compose import _fwd_math
 
     x, v, u, g = _dense_inputs(mode, p, seed=30 + p, M=17, I=16)
     xg = _t(x).reshape(17, g, -1)
@@ -344,6 +344,228 @@ def test_rank_apply_pair_matches_plain_and_residual(mode, p):
                                atol=0)
     torch.testing.assert_close(rank_apply_kernel(xg, _t(v[0]), u2), y,
                                rtol=0, atol=0)
-    want_t = _rank_residual(xg, _t(v[0]), "square")
     assert t.shape == (17, g, 8)
-    _close(t.numpy(), want_t.numpy(), DENSE_TOL)
+    _close(t.numpy(), _reference_residual(xg, v[0]), DENSE_TOL)
+
+
+def _reference_residual(xg, v2):
+    """The residual t the reference's custom_vjp ``fwd`` saves
+    (``_compose_dense_fn`` and ``_rank_dense_fn``), from live jnp."""
+    return jnp.einsum("mgi,ir->mgr", jnp.asarray(np.asarray(xg)),
+                      jnp.asarray(v2))
+
+
+def _compose_apply_geometry_cases():
+    """(M, g, I, R, D): the CNN's head (grow_in, D = 10) at widths 1-3, the
+    calibration's head (32 rows, p = 2) and the composed transformer's
+    projections (d_base 16, ff 32, vocab 64) at p = 1-3, over M in {1,
+    16, 17, 256, 1000}; rank 6 on rows of 9 floats; a wide basis past 48
+    KB (I = 2048) and a weight tile built in chunks (g*I = 1536)."""
+    cases = set()
+    for M in (1, 16, 17, 32, 256, 1000):
+        for p in (1, 2, 3):
+            cases.add((M, p, 8, 8, 10))       # fc grow_in
+            cases.add((M, 1, 8, 8, 10 * p))   # grow_out
+            cases.add((M, p, 8, 8, 10 * p))   # square
+            for I, O in ((16, 16), (16, 32), (32, 16)):
+                cases.add((M, p, I, 8, O * p))
+            cases.add((M, p, 16, 8, 64))      # head grow_in
+    cases.add((16, 1, 2048, 8, 10))
+    cases.add((5, 3, 512, 8, 40))
+    cases.add((17, 3, 3, 6, 6))
+    return sorted(cases)
+
+
+@pytest.mark.parametrize("M,g,I,R,D", _compose_apply_geometry_cases())
+def test_compose_apply_tiles_cover_every_output_once(M, g, I, R, D):
+    """Each block's (rows, columns) rectangle covers every output exactly
+    once, each weight chunk's rows cover g*I exactly once, and the block
+    fits in shared memory: within 48 KB unless even the smallest chunk
+    does not fit there."""
+    from repro_torch.kernels import compose as cm
+
+    bm, bd, kc, smem = cm._compose_apply_tiles(M, g, I, R, D)
+    assert 1 <= bm <= cm.CA_ROWS and bd % 4 == 0 and 4 <= bd <= cm.CA_COLS
+    assert smem == cm._compose_apply_smem(g, I, R, bm, bd, kc) <= K.SMEM_MAX
+    staged = cm._compose_apply_smem(g, I, R, bm, bd, 0)
+    if smem > K.SMEM_DEFAULT:
+        assert staged + 4 * bd * min(g * I, cm.CA_CHUNK_MIN) > K.SMEM_DEFAULT
+    assert 1 <= kc <= g * I
+    if kc < g * I:  # chunks only where the whole tile does not fit
+        assert staged + 4 * bd * g * I > K.SMEM_DEFAULT
+    rows_seen = np.zeros(g * I, np.int64)
+    for k0 in range(0, g * I, kc):
+        rows_seen[k0:k0 + min(kc, g * I - k0)] += 1
+    assert (rows_seen == 1).all()
+    seen = np.zeros((M, D), np.int64)
+    for bx in range(-(-M // bm)):
+        for by in range(-(-D // bd)):
+            m0, d0 = bx * bm, by * bd
+            rows, cols = min(bm, M - m0), min(bd, D - d0)
+            assert rows >= 1 and cols >= 1
+            seen[m0:m0 + rows, d0:d0 + cols] += 1
+    assert (seen == 1).all()
+    if (M, g, I, D) == (16, 3, 8, 10):  # the fc head: 1 block before
+        assert -(-M // bm) * -(-D // bd) >= 8
+    if (M, g, I, D) == (256, 3, 16, 64):  # the wide timed shape
+        assert -(-M // bm) * -(-D // bd) >= 128
+    if (g, I) == (1, 2048):
+        assert K.SMEM_DEFAULT < smem and kc == g * I
+    if (g, I) == (3, 512):
+        assert smem <= K.SMEM_DEFAULT and kc < g * I
+
+
+def _compose_geometry_cases():
+    """(C, ksq, I, R, m, O): the CNN's compose calls (conv1, conv2/conv3,
+    fc) at p = 1-3, the fc layer's ragged m*O (10, 20, 30), the cohort
+    stack up to C = 10, the composed transformer's projections (p = 1-3),
+    rank 6, a rank in the thousands and m*O past one column tile."""
+    cases = set()
+    for p in (1, 2, 3):
+        for C in (1, 4, 10):
+            cases.add((C, 9, 3, 8, p, 8))
+            cases.add((C, 9, 8, 8, p * p, 8))
+            cases.add((C, 1, 8, 8, p, 10))
+        for I, O in ((16, 16), (16, 32), (32, 16)):
+            cases.add((1, 1, I, 8, p * p, O))
+        cases.add((1, 1, 16, 8, p, 64))
+    cases.add((1, 9, 3, 6, 3, 10))
+    cases.add((10, 4, 7, 6, 1, 5))
+    cases.add((1, 1, 4, 3000, 1, 8))
+    cases.add((2, 300, 5, 8, 7, 37))
+    return sorted(cases)
+
+
+@pytest.mark.parametrize("C,ksq,I,R,m,O", _compose_geometry_cases())
+def test_compose_tiles_cover_every_output_once(C, ksq, I, R, m, O):
+    """Each (client, row tile, column tile) block covers every output of
+    the (C, ksq*I, m*O) result exactly once, with at most 128 threads,
+    whether a thread owns four columns or one (the wrapper's choice where
+    O or R is not a multiple of 4, or O >= 32); each column's block b, as
+    the kernel derives it with its reciprocal of O, is j // O."""
+    from repro_torch.kernels import compose as cm
+
+    rows, MO = ksq * I, m * O
+    for cw in (4, 1):
+        by, cx = cm._compose_tiles(ksq * I, m, O, cw)
+        assert 1 <= by <= rows and 1 <= cx
+        assert cx <= (cm.CO_QUADS if cw == 4 else cm.CO_COLS)
+        assert by * cx <= cm.CO_THREADS
+        seen = np.zeros((C, rows, MO), np.int64)
+        n_rows, n_cols = -(-rows // by), -(-MO // (cw * cx))
+        for c in range(C):
+            for bx in range(n_rows):
+                for bj in range(n_cols):
+                    r0, j0 = bx * by, bj * cw * cx
+                    assert r0 < rows and j0 < MO
+                    seen[c, r0:r0 + by, j0:j0 + cw * cx] += 1
+        assert (seen == 1).all()
+    inv_o = -(-(1 << 32) // O)
+    j = np.arange(MO, dtype=np.uint64)
+    assert ((j * np.uint64(inv_o)) >> np.uint64(32) == j // O).all()
+    if (C, ksq, I, m, O) == (1, 9, 8, 9, 8):  # conv2: full blocks
+        by, cx = cm._compose_tiles(ksq * I, m, O)
+        assert by * cx == cm.CO_THREADS
+
+
+@pytest.mark.parametrize("ksq,I,R,m,O,offset,cw", [
+    (9, 8, 8, 9, 8, 0, 4),     # conv2: four columns a thread
+    (9, 3, 8, 3, 8, 0, 4),     # conv1
+    (1, 8, 8, 3, 10, 0, 1),    # fc: O = 10 rules out float4 rows
+    (1, 16, 8, 9, 32, 0, 1),   # path (e)'s up: O = 32, whole lines
+    (9, 3, 6, 3, 8, 0, 1),     # rank 6
+    (9, 8, 8, 9, 8, 1, 1)])    # a coefficient view off 16 bytes
+def test_compose_width_rule(ksq, I, R, m, O, offset, cw):
+    """The columns a compose thread owns: four where O and R are
+    multiples of 4, O < 32 and every operand is 16-byte aligned."""
+    from repro_torch.kernels import compose as cm
+
+    basis = torch.zeros((ksq, I, R))
+    coeff = torch.zeros(m * R * O + offset)[offset:].reshape(m, R, O)
+    out = torch.zeros((ksq, I, m * O))
+    assert cm._compose_width(basis, coeff, out) == cw
+
+
+def test_tiles_refuse_what_does_not_fit():
+    """compose_apply raises where v and one xg row pass 227 KB; compose
+    where its reciprocal of O would not give j // O exactly."""
+    from repro_torch.kernels import compose as cm
+
+    with pytest.raises(ValueError, match="shared memory"):
+        cm._compose_apply_tiles(16, 1, 8000, 8, 10)
+    with pytest.raises(ValueError, match="2\\^32"):
+        cm._compose_tiles(8, 1, 70000)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("p", [1, 3])
+def test_compose_apply_pair_matches_plain_and_residual(mode, p):
+    """With ``with_t`` compose_apply hands back (y, t): y as the plain
+    version and the Pallas kernel (interpret) compute it, t the
+    reference's residual ``einsum("mgi,ir->mgr")``."""
+    from repro_torch.kernels.compose import _compose_apply_math
+
+    x, v, u, g = _dense_inputs(mode, p, seed=40 + p, M=17, I=16)
+    xg = _t(x).reshape(17, g, -1)
+    u3 = _t(np.asarray(j_u2_layout(jnp.asarray(u), p, mode))).reshape(
+        g, 8, -1)
+    y, t = compose_apply_kernel(xg, _t(v[0]), u3, with_t=True)
+    torch.testing.assert_close(y, _compose_apply_math(xg, _t(v[0]), u3),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(compose_apply_kernel(xg, _t(v[0]), u3), y,
+                               rtol=0, atol=0)
+    want = compose_apply_pallas(jnp.asarray(xg.numpy()), jnp.asarray(v[0]),
+                                jnp.asarray(u3.numpy()), interpret=True)
+    _close(y.numpy(), want, DENSE_TOL)
+    assert t.shape == (17, g, 8)
+    _close(t.numpy(), _reference_residual(xg, v[0]), DENSE_TOL)
+
+
+def _check_dense_residual_routing(monkeypatch, kernel_name, dense_fn):
+    """The dense wrapper asks its kernel for no residual without a
+    recorded graph: under ``torch.no_grad()``, also on operands that
+    require grad, and in grad mode on operands that do not.  A recorded
+    forward asks the kernel for t (one call, ``with_t=True``) and saves it
+    for the backward, within ``DENSE_TOL`` of the reference's residual."""
+    from repro_torch.kernels import compose as cm
+
+    calls = []
+    kernel = getattr(cm, kernel_name)
+
+    def counting(*args, **kw):
+        calls.append(kw.get("with_t", False))
+        return kernel(*args, **kw)
+
+    monkeypatch.setattr(cm, kernel_name, counting)
+    x, v, u, _ = _dense_inputs("grow_in", 3, seed=50)
+    with torch.no_grad():
+        y0 = dense_fn(_t(x), _t(v), _t(u), 3, "grow_in")
+        targs = [_t(a).requires_grad_() for a in (x, v, u)]
+        y1 = dense_fn(*targs, 3, "grow_in")
+    y2 = dense_fn(_t(x), _t(v), _t(u), 3, "grow_in")
+    assert calls == [False, False, False]
+    assert y1.grad_fn is None and y2.grad_fn is None
+    calls.clear()
+    y = dense_fn(*targs, 3, "grow_in")
+    assert calls == [True]
+    for other in (y1, y2):
+        torch.testing.assert_close(other, y0, rtol=0, atol=0)
+    torch.testing.assert_close(y.detach(), y0, rtol=0, atol=0)
+    node = y.grad_fn.next_functions[0][0]  # the Function under the reshape
+    t = node.saved_tensors[3]
+    _close(t.numpy(), _reference_residual(_t(x).reshape(16, 3, -1), v[0]),
+           DENSE_TOL)
+
+
+def test_compose_dense_apply_no_grad_runs_no_residual(monkeypatch):
+    """compose_dense_apply launches compose_apply alone unless a graph is
+    recorded (``_check_dense_residual_routing``)."""
+    _check_dense_residual_routing(monkeypatch, "compose_apply_kernel",
+                                  compose_dense_apply)
+
+
+def test_rank_dense_apply_no_grad_runs_no_residual(monkeypatch):
+    """rank_dense_apply launches rank_apply alone unless a graph is
+    recorded (``_check_dense_residual_routing``)."""
+    _check_dense_residual_routing(monkeypatch, "rank_apply_kernel",
+                                  rank_dense_apply)
