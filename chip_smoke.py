@@ -56,7 +56,16 @@ Run from the root of a checkout.  It
    step-by-step ``serve_step``, then ``launch/serve.py``'s loop at its
    defaults; one superblock in f32 held against the CPU; and one
    ``loss_fn`` backward on the smoke config in f32, held against the
-   CPU's, with no forward-only kernel launched while it records;
+   CPU's, with no forward-only kernel launched while it records; (h) the
+   paper's scheme comparison under ``FLConfig``'s defaults (the
+   ``"collective"`` merge backend): fedavg, adp, heterofl, flanc, fedprox
+   and heroes for 3 rounds on the 10-client CNN setup with path (c)'s
+   pins, each held against the CPU, with merge milliseconds per round and
+   the to-accuracy metrics; flanc and heroes must launch compose and
+   conv_rank, the dense schemes nothing; (i) heroes and fedavg with
+   ``round_mode="semi_async"`` (4 events, the fastest 2 of 4 in flight,
+   at least one merging a stale client) and a sample-weighted heroes run
+   on 8 clients of unequal shards, checked as (h);
 4. traces one round of (c) with ``torch.profiler`` (device busy share,
    top kernels), and prints the calibration ``core.calibration.measure``
    takes with no pins and the per-layer impls ``auto`` then picks;
@@ -1282,92 +1291,128 @@ def check_ssd_rmsnorm(torch):
 # --------------------------------------------------------------------------
 
 PATHS = {
-    "a": ("heroes", dict(forward_impl="materialize"), {"compose"}),
-    "b": ("heroes", dict(forward_impl="rank_space"),
+    "a": ("heroes", dict(forward_impl="materialize", agg_backend="host"),
+          {"compose"}),
+    "b": ("heroes", dict(forward_impl="rank_space", agg_backend="host"),
           {"compose", "conv_rank", "rank_apply"}),
     "c": ("heroes", dict(forward_impl="auto", fused_compose_gain=0.5,
-                         conv_rank_overhead=1.0),
+                         conv_rank_overhead=1.0, agg_backend="host"),
           {"compose", "conv_rank", "compose_apply"}),
-    "d": ("fedavg", dict(forward_impl="materialize"), set()),
+    "d": ("fedavg", dict(forward_impl="materialize", agg_backend="host"),
+          set()),
 }
 # path (e): the composed transformer trains, then serves
 TEXT_RUNS = {
-    "heroes": dict(forward_impl="rank_space"),
-    "fedavg": dict(forward_impl="materialize"),
+    "heroes": dict(forward_impl="rank_space", agg_backend="host"),
+    "fedavg": dict(forward_impl="materialize", agg_backend="host"),
 }
 TEXT_EXPECT = {"decode_attention", "compose", "rank_apply"}
 ROUNDS = 3
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 8, 32
+# path (h): the paper's scheme comparison (Figs. 4-6) under FLConfig's
+# default merge backend (collective).  Every scheme takes path (c)'s
+# pinned calibration, so flanc's and heroes' kernel mix does not move
+# with the host and no run measures one; the dense schemes ignore it.
+SCHEMES = ("fedavg", "adp", "heterofl", "flanc", "fedprox", "heroes")
+SCHEME_KNOBS = dict(forward_impl="auto", fused_compose_gain=0.5,
+                    conv_rank_overhead=1.0)
+SCHEME_KERNELS = {"flanc": {"compose", "conv_rank"},
+                  "heroes": {"compose", "conv_rank"}}
+# the accuracy the to-accuracy metrics are read at: what 3 rounds of
+# this setup reach (examples/federated_training.py reads 0.5 after 30)
+TTA_TARGET = 0.2
+# path (i): semi-async events (4 each, the fastest 2 of 4 in flight per
+# event) and a sample-weighted sync run, on 8 clients, whose shards
+# differ in size (the 10-client setup's are equal, so its weights are
+# all 1): (scheme, knobs, events, clients)
+ASYNC_RUNS = (
+    ("heroes", dict(round_mode="semi_async", async_k=2), 4, 10),
+    ("fedavg", dict(round_mode="semi_async", async_k=2), 4, 10),
+    ("heroes", dict(sample_weighted=True), ROUNDS, 8),
+)
 
 
-def run_path(torch, setup, scheme, knobs, device):
-    """``ROUNDS`` rounds of ``scheme`` on the image (CNN, 10 clients) or
-    text (transformer, 8 clients) setup; returns (runner, seconds per
-    round, summary)."""
+def timed_merges(torch, runner, device) -> list:
+    """Wrap ``runner.aggregator.aggregate`` to append each call's host
+    seconds, synchronised before and after, to the returned list."""
+    merge = runner.aggregator.aggregate
+    secs = []
+
+    def timed(*args, **kw):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = merge(*args, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    runner.aggregator.aggregate = timed
+    return secs
+
+
+def run_path(torch, setup, scheme, knobs, device, rounds=ROUNDS,
+             clients=10):
+    """``rounds`` rounds of ``scheme`` on the image (CNN, ``clients``
+    clients) or text (transformer, 8 clients) setup, 4 clients per round;
+    returns (runner, seconds per round, summary, merge seconds per
+    round)."""
     from repro_torch.fl import (FLConfig, build_image_setup, build_runner,
                                 build_text_setup, summarize)
 
     if setup == "image":
-        model, px, py, tb = build_image_setup(num_clients=10, device=device)
-        cfg = FLConfig(num_clients=10, clients_per_round=4,
-                       agg_backend="host", eval_every=1, **knobs)
+        model, px, py, tb = build_image_setup(num_clients=clients,
+                                              device=device)
+        cfg = FLConfig(num_clients=clients, clients_per_round=4,
+                       eval_every=1, **knobs)
     else:
         model, px, py, tb = build_text_setup(
             num_clients=8, max_width=3, seed=0, model_name="transformer",
             device=device)
         cfg = FLConfig(num_clients=8, clients_per_round=4, batch_size=8,
-                       agg_backend="host", eval_every=1, **knobs)
+                       eval_every=1, **knobs)
     runner = build_runner(scheme, model, px, py, tb, cfg=cfg, device=device)
+    merges = timed_merges(torch, runner, device)
     secs = []
-    for _ in range(ROUNDS):
+    for _ in range(rounds):
         t0 = time.perf_counter()
         runner.run_round()
         if device != "cpu":
             torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    return runner, secs, summarize(runner.history)
+    return runner, secs, summarize(runner.history), merges
 
 
-def train_path(torch, label, setup, scheme, knobs, expect):
-    """Drive one training run on the card with the launch counts set to 0
-    just before it, check it, and hold it against the same run on the
-    CPU.  Returns (runner, launch counts)."""
-    from repro_torch.convert import to_numpy
+def check_run(torch, label, runner) -> None:
+    """Finite accuracy every round, finite loss and params."""
     from repro_torch.core.estimator import tree_leaves
-    from repro_torch.kernels import LAUNCHES, reset_launches
 
-    import numpy as np
-
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    runner, secs, summ = run_path(torch, setup, scheme, knobs, DEVICE)
-    counts = dict(LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() - base
-    hist = runner.history
-    accs = [h.accuracy for h in hist]
-    loss = runner.bound_state.loss0
-    print(f"  ({label}) {scheme} {knobs}: seconds per round "
-          f"{[round(s, 4) for s in secs]} mean {sum(secs) / ROUNDS:.4f}; "
-          f"peak memory above the run's start {peak} B")
-    print(f"      summarize {json.dumps(summ)}")
-    print(f"      accuracy per round {accs}; loss0 {loss}; "
-          f"launches {counts}")
+    accs = [h.accuracy for h in runner.history]
     check(all(a is not None and math.isfinite(a) for a in accs),
           f"({label}) non-finite accuracy")
-    check(math.isfinite(loss), f"({label}) non-finite loss")
+    check(math.isfinite(runner.bound_state.loss0),
+          f"({label}) non-finite loss")
     check(all(bool(torch.isfinite(t).all())
               for t in tree_leaves(runner.params)),
           f"({label}) non-finite params")
-    for k in expect:
-        check(counts[k] > 0, f"({label}) never launched {k}")
 
-    # the same run on the CPU: plain versions, same data and weights
-    cpu, _, _ = run_path(torch, setup, scheme, knobs, "cpu")
+
+def vs_cpu(torch, label, runner, cpu) -> float:
+    """Hold a card run against the same run on the CPU (plain versions,
+    same data and weights): schedule equal, accuracy within 2 test
+    samples, params within 1e-3.  Returns the largest param difference."""
+    from repro_torch.convert import to_numpy
+    from repro_torch.core.estimator import tree_leaves
+
+    import numpy as np
+
     n_test = int(cpu.test_batch["labels"].shape[0])
-    for a, b in zip(hist, cpu.history):
-        check((a.traffic_bytes, a.makespan, a.mean_tau) ==
-              (b.traffic_bytes, b.makespan, b.mean_tau),
+    check(len(runner.history) == len(cpu.history),
+          f"({label}) round count differs from CPU")
+    for a, b in zip(runner.history, cpu.history):
+        check((a.traffic_bytes, a.makespan, a.mean_tau, a.stale) ==
+              (b.traffic_bytes, b.makespan, b.mean_tau, b.stale),
               f"({label}) round {a.round} schedule differs from CPU")
         check(abs(a.accuracy - b.accuracy) <= 2.0 / n_test,
               f"({label}) round {a.round} accuracy differs from CPU")
@@ -1378,7 +1423,111 @@ def train_path(torch, label, setup, scheme, knobs, expect):
           f"{[h.accuracy for h in cpu.history]}, max param diff "
           f"{diff:.3e}")
     check(diff <= 1e-3, f"({label}) params differ from the CPU run")
+    return diff
+
+
+def train_path(torch, label, setup, scheme, knobs, expect):
+    """Drive one training run on the card with the launch counts set to 0
+    just before it, check it, and hold it against the same run on the
+    CPU.  Returns (runner, launch counts)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    runner, secs, summ, _ = run_path(torch, setup, scheme, knobs, DEVICE)
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    accs = [h.accuracy for h in runner.history]
+    print(f"  ({label}) {scheme} {knobs}: seconds per round "
+          f"{[round(s, 4) for s in secs]} mean {sum(secs) / ROUNDS:.4f}; "
+          f"peak memory above the run's start {peak} B")
+    print(f"      summarize {json.dumps(summ)}")
+    print(f"      accuracy per round {accs}; loss0 "
+          f"{runner.bound_state.loss0}; launches {counts}")
+    check_run(torch, label, runner)
+    for k in expect:
+        check(counts[k] > 0, f"({label}) never launched {k}")
+    cpu, _, _, _ = run_path(torch, setup, scheme, knobs, "cpu")
+    vs_cpu(torch, label, runner, cpu)
     return runner, counts
+
+
+def merge_path(torch, label, scheme, knobs, rounds, expect, clients=10):
+    """One CNN run of path (h) or (i) on the card under FLConfig's default
+    merge backend, launch counts set to 0 just before it, held against
+    the same run on the CPU.  Returns (launch counts, record)."""
+    from repro_torch.fl import (FLConfig, time_to_accuracy,
+                                traffic_to_accuracy)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    check(FLConfig().agg_backend == "collective",
+          "FLConfig's default merge backend is not collective")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    runner, secs, summ, merges = run_path(torch, "image", scheme, knobs,
+                                          DEVICE, rounds, clients)
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    hist = runner.history
+    rec = {
+        "s_per_round": secs, "merge_ms": [1e3 * t for t in merges],
+        "peak_bytes": peak, "stale": [h.stale for h in hist],
+        "accuracy": [h.accuracy for h in hist],
+        "time_to_accuracy": time_to_accuracy(hist, TTA_TARGET),
+        "traffic_to_accuracy": traffic_to_accuracy(hist, TTA_TARGET),
+        "launches": {k: n for k, n in counts.items() if n},
+        "sample_counts": [runner.data.num_samples(n)
+                          for n in range(clients)],
+    }
+    print(f"  ({label}) {scheme} {knobs}: {json.dumps(rec)}")
+    print(f"      summarize {json.dumps(summ)}")
+    check_run(torch, label, runner)
+    if expect:
+        for k in expect:
+            check(counts[k] > 0, f"({label}) never launched {k}")
+    else:
+        check(not any(counts.values()),
+              f"({label}) a dense scheme launched a kernel: {counts}")
+    cpu, _, _, _ = run_path(torch, "image", scheme, knobs, "cpu", rounds,
+                            clients)
+    rec["max_param_diff_cpu"] = vs_cpu(torch, label, runner, cpu)
+    return counts, rec
+
+
+def schemes_path(torch) -> tuple:
+    """Path (h): every scheme of the paper's comparison, then path (i):
+    semi-async and sample-weighted runs.  Returns (counts by path,
+    records)."""
+    from repro_torch.kernels import KERNELS
+
+    print(f"  (h) the scheme comparison, default merge backend, {ROUNDS} "
+          f"rounds each; to-accuracy metrics at {TTA_TARGET}")
+    by_path = {"h": {k: 0 for k in KERNELS}, "i": {k: 0 for k in KERNELS}}
+    recs = {"h": {}, "i": {}}
+    for scheme in SCHEMES:
+        counts, recs["h"][scheme] = merge_path(
+            torch, f"h {scheme}", scheme, SCHEME_KNOBS, ROUNDS,
+            SCHEME_KERNELS.get(scheme, set()))
+        for k, n in counts.items():
+            by_path["h"][k] += n
+    print("  (i) semi-async events and sample weights")
+    for scheme, knobs, rounds, clients in ASYNC_RUNS:
+        label = f"i {scheme} {'async' if 'round_mode' in knobs else 'sw'}"
+        counts, rec = merge_path(torch, label, scheme,
+                                 dict(SCHEME_KNOBS, **knobs), rounds,
+                                 SCHEME_KERNELS.get(scheme, set()), clients)
+        if "round_mode" in knobs:
+            check(any(s > 0 for s in rec["stale"]),
+                  f"({label}) no event merged a stale client")
+        else:
+            check(len(set(rec["sample_counts"])) > 1,
+                  f"({label}) every shard has one size: all weights 1")
+        recs["i"][label] = rec
+        for k, n in counts.items():
+            by_path["i"][k] += n
+    return by_path, recs
 
 
 def serve_path(torch, model, params):
@@ -1733,8 +1882,8 @@ def zoo_grad(torch):
 def main_path(torch, rt):
     from repro_torch.kernels import KERNELS, LAUNCHES, reset_launches
 
-    print(f"phase 3: main paths, {ROUNDS} rounds each, 4 clients per round, "
-          "host merge")
+    print(f"phase 3: main paths, {ROUNDS} rounds each, 4 clients per round; "
+          "host merge on (a)-(e), FLConfig's default on (h), (i)")
     launches = {k: 0 for k in KERNELS}
     by_path = {}
     for label, (scheme, knobs, expect) in PATHS.items():
@@ -1774,12 +1923,17 @@ def main_path(torch, rt):
     by_path["g"], zoo_stats = zoo_path(torch)
     zoo_stats["grad"] = zoo_grad(torch)
 
+    # (h) the scheme comparison under FLConfig's defaults, (i) semi-async
+    # and sample weights
+    counts, scheme_recs = schemes_path(torch)
+    by_path.update(counts)
+
     for counts in by_path.values():
         for k, n in counts.items():
             launches[k] += n
     for k in KERNELS:
         check(launches[k] > 0, f"kernel {k} never launched on the main path")
-    return launches, by_path, zoo_stats
+    return launches, by_path, zoo_stats, scheme_recs
 
 
 def trace_round(torch, label: str = "c") -> None:
@@ -1793,8 +1947,8 @@ def trace_round(torch, label: str = "c") -> None:
 
     scheme, knobs, _ = PATHS[label]
     model, px, py, tb = build_image_setup(num_clients=10, device=DEVICE)
-    cfg = FLConfig(num_clients=10, clients_per_round=4, agg_backend="host",
-                   eval_every=1, **knobs)
+    cfg = FLConfig(num_clients=10, clients_per_round=4, eval_every=1,
+                   **knobs)
     runner = build_runner(scheme, model, px, py, tb, cfg=cfg, device=DEVICE)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1849,8 +2003,9 @@ def main() -> int:
     records = check_kernels(torch)
     records.update(check_attention(torch))
     records.update(check_ssd_rmsnorm(torch))
-    launches, by_path, zoo_stats = main_path(torch, rt)
+    launches, by_path, zoo_stats, scheme_recs = main_path(torch, rt)
     print(f"path (g) {json.dumps(zoo_stats)}")
+    print(f"paths (h), (i) {json.dumps(scheme_recs)}")
     trace_round(torch)
     print(f"calibration {json.dumps(calibration_record(torch))}")
 

@@ -3,6 +3,8 @@
 from repro_torch.core.aggregation import (  # noqa: F401
     aggregate_basis,
     aggregate_coefficient,
+    blend,
+    zero_pad,
 )
 from repro_torch.core.composition import (  # noqa: F401
     CompositionSpec,

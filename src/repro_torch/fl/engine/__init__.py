@@ -7,26 +7,34 @@ bundles.  ``build_engine`` is the main entry point; ``run_scheme`` in
 """
 
 from repro_torch.fl.engine.aggregators import (DenseMeanAggregator,
-                                               HeroesAggregator)
+                                               FlancAggregator,
+                                               HeroesAggregator,
+                                               MaskedDenseAggregator)
 from repro_torch.fl.engine.base import (Aggregator, AssignmentPolicy,
                                         LocalTrainer, ParticipationScheduler,
                                         PayloadModel, RoundLoop)
-from repro_torch.fl.engine.loops import SyncRoundLoop
+from repro_torch.fl.engine.loops import SemiAsyncRoundLoop, SyncRoundLoop
 from repro_torch.fl.engine.payload import DensePayload, FactorizedPayload
 from repro_torch.fl.engine.policies import (FullWidthAssignment,
-                                            HeroesAssignment)
+                                            HeroesAssignment,
+                                            TierWidthAssignment, tier_width)
 from repro_torch.fl.engine.registry import (SCHEMES, SchemeBundle,
                                             build_engine, register_scheme)
 from repro_torch.fl.engine.runner import EngineRunner
-from repro_torch.fl.engine.trainers import SequentialTrainer
-from repro_torch.fl.types import SchedState, ServerState
+from repro_torch.fl.engine.trainers import ProximalTrainer, SequentialTrainer
+from repro_torch.fl.types import InFlight, SchedState, ServerState
 
 __all__ = [
     "Aggregator", "AssignmentPolicy", "LocalTrainer",
     "ParticipationScheduler", "PayloadModel", "RoundLoop",
-    "DenseMeanAggregator", "HeroesAggregator",
-    "SyncRoundLoop", "DensePayload", "FactorizedPayload",
-    "FullWidthAssignment", "HeroesAssignment",
+    "DenseMeanAggregator", "FlancAggregator", "HeroesAggregator",
+    "MaskedDenseAggregator",
+    "SemiAsyncRoundLoop", "SyncRoundLoop",
+    "DensePayload", "FactorizedPayload",
+    "FullWidthAssignment", "HeroesAssignment", "TierWidthAssignment",
+    "tier_width",
     "SCHEMES", "SchemeBundle", "build_engine", "register_scheme",
-    "EngineRunner", "SchedState", "ServerState", "SequentialTrainer",
+    "EngineRunner",
+    "InFlight", "SchedState", "ServerState",
+    "ProximalTrainer", "SequentialTrainer",
 ]

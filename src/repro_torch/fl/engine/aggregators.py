@@ -2,23 +2,43 @@
 
 The global model is ``state.params`` (tensors on the run's device);
 ``init_global``/``aggregate`` return updated
-:class:`~repro_torch.fl.types.ServerState` values.  The merges are the JAX
-package's host rules (``agg_backend="host"``): per-client loops over the
-cohort in dispatch order.
+:class:`~repro_torch.fl.types.ServerState` values.  With per-client
+``weights`` (semi-async staleness discounts, sample-count weights) every
+client contribution is first blended toward the *current* global state::
+
+    contrib_n = w_n * update_n + (1 - w_n) * global
+
+so a fully fresh client (w=1) merges exactly as in the synchronous rule
+and an infinitely stale one (w=0) is a no-op.
+
+The merges are the JAX package's host rules: per-client loops over the
+cohort in dispatch order.  Both ``agg_backend`` values run them: on one
+device the reference's ``"collective"`` backend gives the same state bit
+for bit, and its stacked form waits for the multi-device merge (ROADMAP
+queue A step 9), where a ``psum`` gives it work these loops cannot do.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import aggregation, convergence
+from repro_torch.core.aggregation import blend, zero_pad
 from repro_torch.core.estimator import tree_map
 from repro_torch.fl.engine.base import Aggregator, Assignment
 from repro_torch.fl.types import ServerState
+
+
+def weight_of(weights: Optional[Dict[int, float]], n: int) -> Optional[float]:
+    """Client ``n``'s blend weight: None for an unweighted merge, 1.0 for
+    a client the weights leave out."""
+    if weights is None:
+        return None
+    return float(weights.get(n, 1.0))
 
 
 def _mean_bound(state: ServerState, results, lr: float,
@@ -43,7 +63,7 @@ def _mean_bound(state: ServerState, results, lr: float,
 
 
 class DenseMeanAggregator(Aggregator):
-    """FedAvg: plain parameter mean over the cohort."""
+    """FedAvg/ADP: plain parameter mean over the cohort."""
 
     def init_global(self, state: ServerState) -> ServerState:
         eng = self.eng
@@ -54,13 +74,17 @@ class DenseMeanAggregator(Aggregator):
                       assignment: Assignment) -> Any:
         return state.params
 
-    def aggregate(self, state, results, assigns) -> ServerState:
-        params = tree_map(lambda *xs: torch.stack(xs).mean(0),
-                          *[r.params for r in results.values()])
+    def aggregate(self, state, results, assigns, weights=None) -> ServerState:
         return dataclasses.replace(
-            state, params=params,
+            state, params=self._merge(state, results, weights),
             bound_state=_mean_bound(state, results, self.eng.cfg.lr,
                                     clip=False))
+
+    def _merge(self, state, results, weights):
+        trees = [tree_map(lambda u, g, w=weight_of(weights, n):
+                          blend(u, w, g), r.params, state.params)
+                 for n, r in results.items()]
+        return tree_map(lambda *xs: torch.stack(xs).mean(0), *trees)
 
     def evaluate(self, state: ServerState) -> float:
         eng = self.eng
@@ -69,6 +93,95 @@ class DenseMeanAggregator(Aggregator):
             state.params, ew)
         return eng.acc_streaming(
             lambda batch: eng.model.forward(params, ew, batch))
+
+
+class MaskedDenseAggregator(DenseMeanAggregator):
+    """HeteroFL: element-wise mean over the clients covering each region."""
+
+    def client_params(self, state: ServerState, n: int,
+                      assignment: Assignment) -> Any:
+        return self.eng.model.slice_dense(state.params, assignment["width"])
+
+    def _merge(self, state, results, weights):
+        new = {}
+        for name, full in state.params.items():
+            acc = torch.zeros_like(full)
+            cnt = torch.zeros_like(full)
+            for n, r in results.items():
+                w = r.params[name]
+                if weights is not None:
+                    region = full[tuple(slice(0, s) for s in w.shape)]
+                    w = blend(w, weight_of(weights, n), region)
+                acc = acc + zero_pad(w, full.shape)
+                cnt = cnt + zero_pad(torch.ones_like(w), full.shape)
+            new[name] = torch.where(cnt > 0, acc / torch.clamp(cnt, min=1),
+                                    full)
+        return new
+
+
+class FlancAggregator(Aggregator):
+    """Original NC: shared basis average + per-width coefficient average.
+
+    ``state.params`` is ``{"basis": {layer: basis}, "coeffs": {width p:
+    {layer: coeff}}}`` — width p owns its own copy of the first
+    ``blocks_for_width(p)`` blocks (original Flanc: no sharing).
+    """
+
+    def init_global(self, state: ServerState) -> ServerState:
+        eng = self.eng
+        full = eng.model.init_factorized(eng.cfg.seed, eng.device)
+        basis = {name: full[name]["basis"] for name in full}
+        coeffs = {
+            p: {name: full[name]["coeff"][
+                :eng.model.specs[name].blocks_for_width(p)].clone()
+                for name in full}
+            for p in range(1, eng.P + 1)
+        }
+        return dataclasses.replace(state,
+                                   params={"basis": basis, "coeffs": coeffs})
+
+    def client_params(self, state: ServerState, n: int,
+                      assignment: Assignment) -> Any:
+        return self._width_params(state.params, assignment["width"])
+
+    def _width_params(self, params, p: int):
+        return {name: {"basis": params["basis"][name],
+                       "coeff": params["coeffs"][p][name]}
+                for name in params["basis"]}
+
+    def aggregate(self, state, results, assigns, weights=None) -> ServerState:
+        basis, coeffs = state.params["basis"], state.params["coeffs"]
+
+        def contrib(n, name, key, prev):
+            return blend(results[n].params[name][key],
+                         weight_of(weights, n), prev)
+
+        new_basis = {
+            name: torch.stack([contrib(n, name, "basis", basis[name])
+                               for n in results]).mean(0)
+            for name in basis
+        }
+        by_width: Dict[int, list] = {}
+        for n in results:
+            by_width.setdefault(assigns[n]["width"], []).append(n)
+        new_coeffs = dict(coeffs)
+        for p, ns in by_width.items():
+            new_coeffs[p] = {
+                name: torch.stack([contrib(n, name, "coeff", coeffs[p][name])
+                                   for n in ns]).mean(0)
+                for name in basis
+            }
+        return dataclasses.replace(
+            state, params={"basis": new_basis, "coeffs": new_coeffs})
+
+    def evaluate(self, state: ServerState) -> float:
+        eng = self.eng
+        ew = eng.eval_width
+        params = self._width_params(state.params, ew)
+        with torch.no_grad():
+            w = eng.model.compose_all(params, ew)
+        return eng.acc_streaming(
+            lambda batch: eng.model.forward(w, ew, batch))
 
 
 class HeroesAggregator(Aggregator):
@@ -85,22 +198,26 @@ class HeroesAggregator(Aggregator):
             state.params, assignment["width"],
             assignment["hidden_ids"], assignment["anchored_ids"])
 
-    def aggregate(self, state, results, assigns) -> ServerState:
-        eng = self.eng
-        params = {}
-        for name, spec in eng.model.specs.items():
+    def aggregate(self, state, results, assigns, weights=None) -> ServerState:
+        ws = None if weights is None else [weight_of(weights, n)
+                                           for n in results]
+        new = {}
+        for name, spec in self.eng.model.specs.items():
             ids_key = "hidden_ids" if spec.mode == "square" else "anchored_ids"
-            params[name] = {
+            new[name] = {
                 "basis": aggregation.aggregate_basis(
-                    [r.params[name]["basis"] for r in results.values()]),
+                    [r.params[name]["basis"] for r in results.values()],
+                    weights=ws, prev=state.params[name]["basis"]),
                 "coeff": aggregation.aggregate_coefficient(
                     state.params[name]["coeff"],
                     [r.params[name]["coeff"] for r in results.values()],
-                    [np.asarray(assigns[n][ids_key]) for n in results]),
+                    [np.asarray(assigns[n][ids_key]) for n in results],
+                    weights=ws),
             }
         return dataclasses.replace(
-            state, params=params,
-            bound_state=_mean_bound(state, results, eng.cfg.lr, clip=True))
+            state, params=new,
+            bound_state=_mean_bound(state, results, self.eng.cfg.lr,
+                                    clip=True))
 
     def evaluate(self, state: ServerState) -> float:
         # the width-``eval_width`` sub-model built from the first blocks

@@ -19,7 +19,7 @@ contract below; components never stash round state on themselves.
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Any, Dict, Sequence, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Optional, Sequence, Tuple
 
 from repro_torch.fl.client import ClientResult
 from repro_torch.fl.types import RoundLog, ServerState
@@ -83,7 +83,11 @@ class Aggregator(Component):
         state: ServerState,
         results: Dict[int, ClientResult],
         assigns: Dict[int, Assignment],
+        weights: Optional[Dict[int, float]] = None,
     ) -> ServerState:
+        """Merge the cohort's results into a new state.  ``weights`` (None
+        for an unweighted merge) blends each client's update toward the
+        current global model as ``w * update + (1 - w) * global``."""
         raise NotImplementedError
 
     def evaluate(self, state: ServerState) -> float:
@@ -110,7 +114,9 @@ class RoundLoop(Component):
 
 class ParticipationScheduler(Component):
     """Samples one round's cohort: distinct client ids, at most ``k``,
-    drawn from ``state.rng``."""
+    none in ``exclude`` (the semi-async loop's in-flight clients), drawn
+    from ``state.rng``."""
 
-    def sample(self, state: ServerState, k: int) -> list:
+    def sample(self, state: ServerState, k: int,
+               exclude=frozenset()) -> list:
         raise NotImplementedError

@@ -9,10 +9,19 @@ from repro_torch.fl.engine.base import Assignment, PayloadModel
 
 
 class DensePayload(PayloadModel):
-    """Materialised weights: the full width-P model (FedAvg)."""
+    """Materialised weights.
+
+    ``sliced=False`` ships the full width-P model regardless of the
+    assignment (FedAvg/ADP/FedProx); ``sliced=True`` ships the width-p
+    sub-model (HeteroFL).
+    """
+
+    def __init__(self, sliced: bool = False):
+        self.sliced = sliced
 
     def bytes(self, assignment: Assignment) -> float:
-        return self.eng.model.dense_bytes(self.eng.P)
+        width = assignment["width"] if self.sliced else self.eng.P
+        return self.eng.model.dense_bytes(width)
 
 
 class FactorizedPayload(PayloadModel):

@@ -2,7 +2,10 @@
 
 These encode the per-scheme differences of paper Sec. VI-B:
 
-  FullWidthAssignment   FedAvg — everyone at width P, identical tau
+  FullWidthAssignment   FedAvg / ADP — everyone at width P, identical tau
+                        (optionally the adaptive tau* of Eq. 26)
+  TierWidthAssignment   HeteroFL / Flanc — width by hardware tier,
+                        fixed tau
   HeroesAssignment      Alg. 1 — greedy width growth, pacesetter tau*,
                         variance-minimising tau, least-trained blocks
 
@@ -20,9 +23,11 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core import convergence
 from repro_torch.core.composition import select_blocks
 from repro_torch.core.scheduler import HeroesScheduler, SchedulerConfig
 from repro_torch.fl.engine.base import Assignment, AssignmentPolicy
+from repro_torch.fl.heterogeneity import HeterogeneityModel
 from repro_torch.fl.types import SchedState, ServerState
 
 # auto-mu_max probes at most this many clients (exact below, an evenly
@@ -30,14 +35,38 @@ from repro_torch.fl.types import SchedState, ServerState
 _MU_PROBE = 1024
 
 
+def tier_width(het: HeterogeneityModel, n: int, max_width: int) -> int:
+    """Static width by hardware tier (HeteroFL / Flanc assignment rule)."""
+    order = {"laptop": max_width, "agx_xavier": max(max_width - 1, 1),
+             "xavier_nx": max(max_width - 2, 1), "tx2": 1}
+    return min(order[het.clients[n].tier], max_width)
+
+
 class FullWidthAssignment(AssignmentPolicy):
     """Everyone trains the full-width model with one shared tau."""
+
+    def __init__(self, adaptive_tau: bool = False):
+        self.adaptive_tau = adaptive_tau
 
     def assign(self, state: ServerState, clients: Sequence[int],
                ) -> Tuple[ServerState, Dict[int, Assignment]]:
         eng = self.eng
-        return state, {n: {"width": eng.P, "tau": eng.cfg.tau_fixed}
-                       for n in clients}
+        tau = eng.cfg.tau_fixed
+        if self.adaptive_tau and state.round > 0:
+            t = convergence.tau_star(state.bound_state,
+                                     max(200 - state.round, 1))
+            tau = int(np.clip(round(t), 1, eng.cfg.tau_max))
+        return state, {n: {"width": eng.P, "tau": tau} for n in clients}
+
+
+class TierWidthAssignment(AssignmentPolicy):
+    """Width by hardware tier, fixed identical tau."""
+
+    def assign(self, state: ServerState, clients: Sequence[int],
+               ) -> Tuple[ServerState, Dict[int, Assignment]]:
+        eng = self.eng
+        return state, {n: {"width": tier_width(eng.het, n, eng.P),
+                           "tau": eng.cfg.tau_fixed} for n in clients}
 
 
 class HeroesAssignment(AssignmentPolicy):

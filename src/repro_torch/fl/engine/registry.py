@@ -3,11 +3,12 @@
 ``@register_scheme("name")`` registers a factory returning a
 :class:`SchemeBundle`; ``build_engine`` instantiates the bundle into an
 :class:`~repro_torch.fl.engine.runner.EngineRunner`, picking the trainer
-and round loop from ``FLConfig`` (``cfg.trainer`` / ``cfg.round_mode``).
+and round loop from ``FLConfig`` (``cfg.trainer`` / ``cfg.round_mode``)
+unless the bundle owns its trainer (FedProx).
 
-This port registers ``heroes`` and its baseline ``fedavg``.  The other
-schemes of the JAX package, the cohort trainer and the semi-async loop
-raise ``NotImplementedError`` naming the ROADMAP step that brings them.
+This port registers the paper's five schemes (Sec. VI-B) and FedProx.
+The JAX package's batched cohort trainer raises ``NotImplementedError``
+naming the ROADMAP step that brings it.
 """
 
 from __future__ import annotations
@@ -17,22 +18,22 @@ from typing import Callable, Dict, Optional
 
 from repro_torch.fl.engine.aggregators import (Aggregator,
                                                DenseMeanAggregator,
-                                               HeroesAggregator)
+                                               FlancAggregator,
+                                               HeroesAggregator,
+                                               MaskedDenseAggregator)
 from repro_torch.fl.engine.base import (AssignmentPolicy, LocalTrainer,
                                         PayloadModel, RoundLoop)
-from repro_torch.fl.engine.loops import SyncRoundLoop
+from repro_torch.fl.engine.loops import SemiAsyncRoundLoop, SyncRoundLoop
 from repro_torch.fl.engine.payload import DensePayload, FactorizedPayload
 from repro_torch.fl.engine.policies import (FullWidthAssignment,
-                                            HeroesAssignment)
+                                            HeroesAssignment,
+                                            TierWidthAssignment)
 from repro_torch.fl.engine.runner import EngineRunner
-from repro_torch.fl.engine.trainers import SequentialTrainer
+from repro_torch.fl.engine.trainers import ProximalTrainer, SequentialTrainer
 from repro_torch.fl.types import FLConfig
 
 # what later slices bring in, with the ROADMAP queue A step
-LATER_SCHEMES = {name: "ROADMAP queue A step 7"
-                 for name in ("adp", "heterofl", "flanc", "fedprox")}
 LATER_TRAINERS = {"cohort": "ROADMAP queue A step 7"}
-LATER_ROUND_MODES = {"semi_async": "ROADMAP queue A step 7"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +46,9 @@ class SchemeBundle:
     aggregator: Callable[[], Aggregator]
     factorized: bool  # clients train (basis, coeff) factors vs dense weights
     estimate: Callable[[FLConfig], bool]  # ship (L, sigma^2, G^2) estimates?
+    # Optional scheme-owned local solver (FedProx's proximal SGD).  When
+    # set it overrides ``cfg.trainer``.
+    trainer: Optional[Callable[[], LocalTrainer]] = None
 
 
 SCHEMES: Dict[str, Callable[[], SchemeBundle]] = {}
@@ -66,11 +70,12 @@ TRAINERS: Dict[str, Callable[[], LocalTrainer]] = {
 
 ROUND_MODES: Dict[str, Callable[[], RoundLoop]] = {
     "sync": SyncRoundLoop,
+    "semi_async": SemiAsyncRoundLoop,
 }
 
 
-def _lookup(table, later, key, what):
-    if key in later and key not in table:
+def _lookup(table, key, what, later=None):
+    if later and key in later:
         raise NotImplementedError(f"{what}={key!r} is not ported yet "
                                   f"({later[key]})")
     if key not in table:
@@ -83,10 +88,13 @@ def build_engine(scheme: str, model, parts_x, parts_y, test_batch, het,
                  device=None) -> EngineRunner:
     """Instantiate a registered scheme into a ready-to-run engine on
     ``device`` (the CUDA device by default)."""
-    bundle = _lookup(SCHEMES, LATER_SCHEMES, scheme, "scheme")()
-    trainer = _lookup(TRAINERS, LATER_TRAINERS, cfg.trainer, "trainer")()
-    loop = _lookup(ROUND_MODES, LATER_ROUND_MODES, cfg.round_mode,
-                   "round_mode")()
+    bundle = _lookup(SCHEMES, scheme, "scheme")()
+    if bundle.trainer is not None:
+        trainer = bundle.trainer()
+    else:
+        trainer = _lookup(TRAINERS, cfg.trainer, "trainer",
+                          LATER_TRAINERS)()
+    loop = _lookup(ROUND_MODES, cfg.round_mode, "round_mode")()
     if eval_width is None:
         eval_width = next(iter(model.specs.values())).max_width
     return EngineRunner(
@@ -103,15 +111,71 @@ def build_engine(scheme: str, model, parts_x, parts_y, test_batch, het,
     )
 
 
+# --------------------------------------------------------------------------
+# The paper's five schemes as policy bundles (Sec. VI-B), and FedProx
+# --------------------------------------------------------------------------
+
+
 @register_scheme("fedavg")
 def _fedavg() -> SchemeBundle:
     return SchemeBundle(
         name="fedavg",
-        assignment=FullWidthAssignment,
-        payload=DensePayload,
+        assignment=lambda: FullWidthAssignment(adaptive_tau=False),
+        payload=lambda: DensePayload(sliced=False),
         aggregator=DenseMeanAggregator,
         factorized=False,
         estimate=lambda cfg: False,
+    )
+
+
+@register_scheme("adp")
+def _adp() -> SchemeBundle:
+    return SchemeBundle(
+        name="adp",
+        assignment=lambda: FullWidthAssignment(adaptive_tau=True),
+        payload=lambda: DensePayload(sliced=False),
+        aggregator=DenseMeanAggregator,
+        factorized=False,
+        estimate=lambda cfg: True,
+    )
+
+
+@register_scheme("heterofl")
+def _heterofl() -> SchemeBundle:
+    return SchemeBundle(
+        name="heterofl",
+        assignment=TierWidthAssignment,
+        payload=lambda: DensePayload(sliced=True),
+        aggregator=MaskedDenseAggregator,
+        factorized=False,
+        estimate=lambda cfg: False,
+    )
+
+
+@register_scheme("flanc")
+def _flanc() -> SchemeBundle:
+    return SchemeBundle(
+        name="flanc",
+        assignment=TierWidthAssignment,
+        payload=FactorizedPayload,
+        aggregator=FlancAggregator,
+        factorized=True,
+        estimate=lambda cfg: False,
+    )
+
+
+@register_scheme("fedprox")
+def _fedprox() -> SchemeBundle:
+    """FedProx (Li et al.): FedAvg's assignment, payload and merge with a
+    proximal local solver; ``FLConfig.prox_mu`` sets its coefficient."""
+    return SchemeBundle(
+        name="fedprox",
+        assignment=lambda: FullWidthAssignment(adaptive_tau=False),
+        payload=lambda: DensePayload(sliced=False),
+        aggregator=DenseMeanAggregator,
+        factorized=False,
+        estimate=lambda cfg: False,
+        trainer=ProximalTrainer,
     )
 
 

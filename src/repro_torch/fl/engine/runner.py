@@ -33,16 +33,14 @@ from repro_torch.fl.types import FLConfig, RoundLog, ServerState
 def check_ported(cfg: FLConfig) -> None:
     """Raise ``NotImplementedError`` for knob values this port does not
     run yet, naming the ROADMAP step (queue A) that brings each in."""
-    later = []
-    if cfg.agg_backend == "collective":
-        later.append("agg_backend='collective' (step 9); pass "
-                     "agg_backend='host'")
-    elif cfg.agg_backend != "host":
+    if cfg.agg_backend not in ("collective", "host"):
         raise ValueError(f"unknown agg_backend {cfg.agg_backend!r}")
+    later = []
+    if cfg.agg_backend == "collective" and cfg.agg_devices > 1:
+        later.append(f"agg_devices={cfg.agg_devices}: a merge across "
+                     "devices (step 9)")
     if cfg.edge_groups > 1 or cfg.shard_server_state:
         later.append("edge_groups / shard_server_state (step 9)")
-    if cfg.sample_weighted:
-        later.append("sample_weighted (step 7)")
     if cfg.checkpoint_every > 0 or cfg.checkpoint_dir:
         later.append("checkpointing (step 8)")
     if cfg.telemetry != "off":
@@ -110,10 +108,11 @@ class EngineRunner:
         return list(self.state.history)
 
     # --- shared helpers ---------------------------------------------------
-    def sample_clients(self, state: ServerState, k: int) -> List[int]:
-        """One round's cohort via the participation scheduler; records
-        participation in ``state.participation``."""
-        clients = self.sampler.sample(state, k)
+    def sample_clients(self, state: ServerState, k: int,
+                       exclude=frozenset()) -> List[int]:
+        """One round's cohort via the participation scheduler, none of it
+        in ``exclude``; records participation in ``state.participation``."""
+        clients = self.sampler.sample(state, k, exclude)
         for n in clients:
             state.participation[int(n)] = state.round
         return clients

@@ -124,3 +124,22 @@ def summarize(history: List[RoundLog]) -> Dict[str, float]:
         "mean_tau": float(np.mean([h.mean_tau for h in history])),
     }
 
+
+def time_to_accuracy(history: List[RoundLog],
+                     target: float) -> Optional[float]:
+    """Virtual wall time at which ``target`` accuracy was first reached,
+    or ``None`` (also on an empty history)."""
+    for h in history or []:
+        if h.accuracy is not None and h.accuracy >= target:
+            return h.wall_time
+    return None
+
+
+def traffic_to_accuracy(history: List[RoundLog],
+                        target: float) -> Optional[float]:
+    """Cumulative traffic at which ``target`` accuracy was first reached,
+    or ``None`` (also on an empty history)."""
+    for h in history or []:
+        if h.accuracy is not None and h.accuracy >= target:
+            return h.traffic_bytes
+    return None

@@ -7,7 +7,8 @@ is the explicit round state that ``RoundLoop.run_round(state) ->
 :mod:`repro_torch.fl.engine`) so policy modules can share the data model
 without import cycles.  ``FLConfig`` keeps the JAX package's knobs and
 defaults; the engine raises ``NotImplementedError`` for values this port
-does not run yet (see ``repro_torch.fl.engine.registry``).
+does not run yet (``repro_torch.fl.engine.runner.check_ported`` and the
+registry's ``LATER_TRAINERS``).
 """
 
 from __future__ import annotations
@@ -108,24 +109,33 @@ class FLConfig:
     # Local-training backend: "sequential" (one local_train per client).
     # "cohort" (stacked clients in one batched step) is not ported yet.
     trainer: str = "sequential"
-    # Round event loop: "sync" (paper Eq. 19 makespan round).
-    # "semi_async" is not ported yet; its two knobs below are kept.
+    # Round event loop: "sync" (paper Eq. 19 makespan round) or
+    # "semi_async" (aggregate the fastest async_k of the clients in
+    # flight; 0 => clients_per_round // 2; stragglers merge later with
+    # weight staleness_decay ** staleness).
     round_mode: str = "sync"
     async_k: int = 0
     staleness_decay: float = 0.5
-    # FedProx proximal coefficient (the fedprox scheme, not ported yet).
+    # FedProx proximal coefficient (the fedprox scheme's local solver:
+    # every SGD step adds mu * (w - w_global); 0 gives FedAvg's step).
     prox_mu: float = 0.01
     # Evaluation streams the test set in slices of this many samples;
     # <= 0 evaluates the full test batch in one forward.
     eval_batch_size: int = 0
-    # Aggregation backend: "host" (the per-client merge loops) runs here;
-    # "collective" (the default, one stacked merge per round) is not
-    # ported yet, so callers pass agg_backend="host".
+    # Aggregation backend: "collective" (the default) or "host".  The JAX
+    # package merges the stacked cohort in one pass on the collective
+    # backend and with per-client loops on the host one, bitwise equal on
+    # one device; the port runs the loops for both.  agg_devices caps the
+    # JAX package's merge mesh (0 => all local devices); the port merges
+    # on the run's device and raises for agg_devices > 1.
     agg_backend: str = "collective"
     agg_devices: int = 0
     trainer_mesh_devices: int = 0
-    # Weight every client's merge contribution by its shard size (not
-    # ported yet: True raises).
+    # Sample-count-weighted aggregation: weight every client's merge
+    # contribution by its shard size (K * s_n / sum(s) through the
+    # aggregators' blend weights), exact for the global-mean rules
+    # (FedAvg/ADP/basis means); partitioned rules (Heroes blocks,
+    # HeteroFL regions, Flanc widths) see an extrapolated weighting.
     sample_weighted: bool = False
     # Factorized (Heroes-style) client compute path:
     #   "auto"        per (layer, width, batch): rank-space application
