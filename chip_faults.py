@@ -17,7 +17,9 @@ padding's, the first rank_apply case for its column tiles', the first
 compose_apply case for its column tiles', its first case built in chunks
 for the chunks', compose's first case with m*O not a multiple of 4 for
 its scalar tail's, its first case with a client axis for the client
-offset's, the first bf16 flash case for the two faults of the bf16 flash
+offset's, the first client-batched case of conv_rank, rank_apply and
+compose_apply with more than one client for their client offsets', the
+first bf16 flash case for the two faults of the bf16 flash
 kernel, the first
 decode case for the merge's, the first bf16 ssd_chunk case for the bf16
 SSD kernels', the first (f32) rmsnorm case for the one-pass rmsnorm's.
@@ -67,6 +69,19 @@ FAULTS = {
         "compose.cu", r"\(static_cast<long long>\(c\) \* m \+ b\)",
         "(static_cast<long long>(c > 0 ? c - 1 : 0) * m + b)", 1,
         "compose C=4", "check_kernels"),
+    "conv_rank: every client reads client 0's basis": (
+        "conv_rank.cu",
+        r"basis \+= static_cast<long long>\(client\) \* K \* K \* I \* R;",
+        "basis += 0 * static_cast<long long>(client) * K * K * I * R;", 1,
+        "conv_rank cohort C=3", "check_kernels"),
+    "rank_apply: every client reads client 0's basis": (
+        "rank_apply.cu", r"v \+= client \* I \* R;",
+        "v += 0 * client * I * R;", 1,
+        "rank_apply cohort C=3", "check_kernels"),
+    "compose_apply: every client reads client 0's basis": (
+        "compose_apply.cu", r"v \+= client \* I \* R;",
+        "v += 0 * client * I * R;", 1,
+        "compose_apply cohort C=3", "check_kernels"),
     "flash: (m, l) correction skipped on the second KV tile": (
         "flash_attention.cu", r"corr\[h\] = fast_exp2\(m\[mt\]\[h\] - mx\);",
         "corr[h] = t == t_begin + 1 ? 1.f : fast_exp2(m[mt][h] - mx);", 1,

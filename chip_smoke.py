@@ -18,7 +18,12 @@ Run from the root of a checkout.  It
    weight tile in chunks; the (y, t) pairs of rank_apply and
    compose_apply), forward and gradient through each autograd Function,
    and the fused head's no-grad forward (one compose_apply launch, no
-   GEMM beside it) and the t its recorded forward saves; the
+   GEMM beside it) and the t its recorded forward saves; conv_rank,
+   rank_apply and compose_apply on a leading client axis C = 1, 3, 4, 10
+   at every CNN layer, mode and width, ragged tiles and path (e)'s widest
+   call (the y, t pairs too), and each composition Function under
+   ``torch.func.vmap`` over 3 and 10 clients, forward and gradient,
+   launching its kernel once per call with and without a graph; the
    two attention kernels in f32 and bf16, element-wise, at the
    transformer path's shapes, the reference's sweep shapes, head dims 80
    and 256 over several KV tiles, a query group of 8 over uneven key
@@ -34,7 +39,8 @@ Run from the root of a checkout.  It
    rank_apply also at path (e)'s widest call, compose also at the fc
    layer, path (e)'s up projection and a 10-client cohort stack,
    compose_apply also at the calibration's head and a wide grow_in shape
-   no path runs it at) beside
+   no path runs it at; conv_rank, rank_apply and compose_apply also on
+   cohorts of 4 and 10 clients at the conv2 and fc shapes) beside
    the device time of an empty launch, each call's host cost
    (``call_ms``), and, for the attention, rmsnorm and ssd_chunk
    kernels, at one realistic shape each over ``BIG_ITERS`` eager calls
@@ -65,9 +71,20 @@ Run from the root of a checkout.  It
    conv_rank, the dense schemes nothing; (i) heroes and fedavg with
    ``round_mode="semi_async"`` (4 events, the fastest 2 of 4 in flight,
    at least one merging a stale client) and a sample-weighted heroes run
-   on 8 clients of unequal shards, checked as (h);
+   on 8 clients of unequal shards, checked as (h); (j) the cohort trainer
+   (``trainer="cohort"``): heroes materialize, heroes pinned auto and
+   fedavg with 4 clients a round, pinned-auto heroes with all 10, and the
+   composed transformer's heroes rank_space, each beside the same run
+   with the sequential trainer on the card (fedavg's whole history and
+   heroes' first ``train_all`` held to it) and held against the CPU; each
+   composition kernel's training launches must equal one per layer per
+   forward of each cohort group (its largest τ, 2 loss forwards and 4
+   gradient evaluations for schemes that ship estimates), fewer than the
+   sequential trainer's where a group holds several clients;
 4. traces one round of (c) with ``torch.profiler`` (device busy share,
-   top kernels), and prints the calibration ``core.calibration.measure``
+   top kernels), with the sequential trainer and 4 clients and with the
+   cohort trainer and 10, and prints the calibration
+   ``core.calibration.measure``
    takes with no pins and the per-layer impls ``auto`` then picks;
 5. prints the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -536,6 +553,8 @@ def check_kernels(torch):
         err(torch, got, ref.conv_rank_ref(x, v, u, p, mode, stride),
             CONV_TOL, f"conv_rank {mode} p={p} s={stride} vs compose+conv")
 
+    cohort = check_cohort_kernels(torch, rn, maxerr)
+
     print("phase 2: gradients through the autograd Functions")
     for p in (1, 3):
         v, u = rn(9, 8, 8), rn(p * p, 8, 8)
@@ -579,9 +598,198 @@ def check_kernels(torch):
     records = rank_kernel_times(torch, rn)
     records.update(composition_times(torch, rn))
     records["compose_apply"]["no_grad"] = no_grad
+    for name, rows in cohort_times(torch, rn).items():
+        records[name]["cohort"] = rows
+    print(f"  launches of each vmapped call: {json.dumps(cohort)}")
     for name, rec in records.items():
         rec["max_abs_err"] = maxerr[name]
     return records
+
+
+# client counts the client-batched kernels are held at in phase 2: one
+# client, the smoke's 4-client rounds (3 and 4 clients a group) and a
+# whole-fleet round of 10
+COHORT_CS = (1, 3, 4, 10)
+# ... and timed at
+COHORT_TIMED_CS = (4, 10)
+
+
+def _stacked(rn, C, *shapes, scale=0.5):
+    return [rn(C, *s, scale=scale) for s in shapes]
+
+
+def check_cohort_kernels(torch, rn, maxerr) -> dict:
+    """Phase 2 of the client-batched conv_rank, rank_apply and
+    compose_apply: each launch on a leading client axis C in
+    ``COHORT_CS`` against the plain version on the same operands, at
+    every CNN layer, mode and width (conv1 grow_out, conv2/conv3 square
+    at stride 2, a grow_in conv; the head in all three modes), at ragged
+    row and column tiles and path (e)'s widest dense call, with the (y, t)
+    pairs; then each public Function under ``torch.func.vmap`` over C
+    clients, forward and gradient, against ``vmap`` of the reference
+    oracle, launching its kernel once per call whatever C (with and
+    without a graph).  Returns the vmapped calls' launches."""
+    from repro_torch.kernels import LAUNCHES, ref, reset_launches
+    from repro_torch.kernels.compose import (_compose_apply_math, _fwd_math,
+                                             _u2_layout, compose,
+                                             compose_apply_kernel,
+                                             compose_dense_apply,
+                                             rank_apply_kernel,
+                                             rank_dense_apply)
+    from repro_torch.kernels.conv_rank import (_fused_math, _u2_conv_layout,
+                                               conv_rank_apply,
+                                               conv_rank_kernel)
+
+    print("phase 2: client-batched kernels (leading client axis C)")
+    for C in COHORT_CS:
+        for p in (1, 2, 3):
+            for label, mode, I, hw, stride in (
+                    ("conv1", "grow_out", 3, 8, 1),
+                    ("conv2", "square", 8, 8, 2),
+                    ("conv3", "square", 8, 4, 2),
+                    ("grow_in", "grow_in", 8, 8, 1)):
+                if label == "grow_in" and C != 3:
+                    continue
+                g = 1 if mode == "grow_out" else p
+                m = p * p if mode == "square" else p
+                x, v, u = _stacked(rn, C, (16, hw, hw, g * I), (9, I, 8),
+                                   (m, 8, 8))
+                u2 = _u2_conv_layout(u, p, mode).contiguous()
+                maxerr["conv_rank"] = max(maxerr["conv_rank"], err(
+                    torch, conv_rank_kernel(x, v, u2, p=p, mode=mode,
+                                            stride=stride),
+                    _fused_math(x, v, u2, p, mode, stride), CONV_TOL,
+                    f"conv_rank cohort C={C} {label} {mode} p={p} "
+                    f"s={stride} x{tuple(x.shape)}"))
+    # (C, M, p, I, D, mode): the head's modes at every width (D = 10
+    # grow_in, 8p otherwise), ragged rows (M 17) and columns (D 6), and
+    # path (e)'s up projection
+    dense = [(C, 16, p, 8, 8 * p if mode != "grow_in" else 10, mode)
+             for C in COHORT_CS for mode in ("grow_in", "square", "grow_out")
+             for p in (1, 2, 3)]
+    dense += [(3, 17, 3, 8, 6, "grow_in"), (4, 256, 3, 16, 96, "square")]
+    for C, M, p, I, D, mode in dense:
+        g = 1 if mode == "grow_out" else p
+        m = p * p if mode == "square" else p
+        O = D // (p if mode != "grow_in" else 1)
+        xg, v, u = _stacked(rn, C, (M, g, I), (I, 8), (m, 8, O))
+        xg = xg * 2
+        u2 = _u2_layout(u, p, mode).contiguous()
+        u3 = u2.reshape(C, g, 8, -1).contiguous()
+        what = f"C={C} {mode} p={p} xg{tuple(xg.shape)} D={D}"
+        maxerr["rank_apply"] = max(maxerr["rank_apply"], err(
+            torch, rank_apply_kernel(xg, v, u2), _fwd_math(xg, v, u2),
+            DENSE_TOL, f"rank_apply cohort {what}"))
+        maxerr["compose_apply"] = max(maxerr["compose_apply"], err(
+            torch, compose_apply_kernel(xg, v, u3),
+            _compose_apply_math(xg, v, u3), DENSE_TOL,
+            f"compose_apply cohort {what}"))
+        if C == 3 and M == 17:
+            for name, kernel, plain, w in (
+                    ("rank_apply", rank_apply_kernel, _fwd_math, u2),
+                    ("compose_apply", compose_apply_kernel,
+                     _compose_apply_math, u3)):
+                y, t = kernel(xg, v, w, with_t=True)
+                y0, t0 = plain(xg, v, w, with_t=True)
+                err(torch, y, y0, DENSE_TOL, f"{name} cohort {what} with t: y")
+                maxerr[name] = max(maxerr[name], err(
+                    torch, t, t0, DENSE_TOL,
+                    f"{name} cohort {what} with t: t"))
+
+    print("phase 2: the Functions under torch.func.vmap over clients")
+    vmap = torch.func.vmap
+    launches = {}
+    for C in (3, 10):
+        for label, name, fn, ref_fn, args, tol in (
+                ("conv2 square p=3", "conv_rank",
+                 lambda a, b, c: conv_rank_apply(a, b, c, 3, "square",
+                                                 stride=2),
+                 lambda a, b, c: ref.conv_rank_ref(a, b, c, 3, "square", 2),
+                 _stacked(rn, C, (16, 8, 8, 24), (9, 8, 8), (9, 8, 8)),
+                 CONV_GRAD_TOL),
+                ("conv1 grow_out p=2", "conv_rank",
+                 lambda a, b, c: conv_rank_apply(a, b, c, 2, "grow_out"),
+                 lambda a, b, c: ref.conv_rank_ref(a, b, c, 2, "grow_out",
+                                                   1),
+                 _stacked(rn, C, (16, 8, 8, 3), (9, 3, 8), (2, 8, 8)),
+                 CONV_GRAD_TOL),
+                ("fc grow_in p=3", "rank_apply",
+                 lambda a, b, c: rank_dense_apply(a, b, c, 3, "grow_in"),
+                 lambda a, b, c: ref.compose_apply_ref(a, b, c, 3,
+                                                       "grow_in"),
+                 _stacked(rn, C, (16, 24), (1, 8, 8), (3, 8, 10)), GRAD_TOL),
+                ("fc grow_in p=3", "compose_apply",
+                 lambda a, b, c: compose_dense_apply(a, b, c, 3, "grow_in"),
+                 lambda a, b, c: ref.compose_apply_ref(a, b, c, 3,
+                                                       "grow_in"),
+                 _stacked(rn, C, (16, 24), (1, 8, 8), (3, 8, 10)), GRAD_TOL),
+                ("conv2 p=3", "compose", compose, ref.compose_ref,
+                 _stacked(rn, C, (9, 8, 8), (9, 8, 8)), GRAD_TOL)):
+            what = f"vmap C={C} {name} {label}"
+            with torch.no_grad():
+                reset_launches()
+                y = vmap(fn)(*args)
+                got = dict(LAUNCHES)
+            maxerr[name] = max(maxerr[name], err(
+                torch, y, vmap(ref_fn)(*args),
+                CONV_TOL if name == "conv_rank" else DENSE_TOL,
+                f"{what} no_grad"))
+            check(got[name] == 1 and sum(got.values()) == 1,
+                  f"{what}: no-grad launches {got}, not one {name}")
+            reset_launches()
+            grad_check(torch, vmap(fn), vmap(ref_fn), args, tol, what)
+            check(LAUNCHES[name] == 1,
+                  f"{what}: recorded launches {dict(LAUNCHES)}, not one "
+                  f"{name}")
+            launches[what] = LAUNCHES[name]
+    return launches
+
+
+def cohort_times(torch, rn) -> dict:
+    """Timing records of the client-batched conv_rank, rank_apply and
+    compose_apply at C in ``COHORT_TIMED_CS`` at the CNN's conv2 (square,
+    p = 3, stride 2) and fc head (grow_in, p = 3) shapes, through the
+    wrappers' public calls, beside the plain version and the batched
+    3-operand ``einsum`` (the library call computing the dense kernels'
+    function; no single call computes conv_rank's)."""
+    from repro_torch.kernels.compose import (_compose_apply_math, _fwd_math,
+                                             compose_apply_kernel,
+                                             rank_apply_kernel)
+    from repro_torch.kernels.conv_rank import _fused_math, conv_rank_kernel
+
+    f32 = 4
+    out = {"conv_rank": [], "rank_apply": [], "compose_apply": []}
+    for C in COHORT_TIMED_CS:
+        x, v, u2 = _stacked(rn, C, (16, 8, 8, 24), (9, 8, 8), (24, 24))
+        shape = (f"cohort C={C} conv2 square p=3: x {tuple(x.shape)} s=2 -> "
+                 f"({C},16,4,4,24)")
+        out["conv_rank"].append(time_kernel(
+            torch, "conv_rank", f"cohort C={C} conv2", shape,
+            lambda x=x, v=v, u2=u2: conv_rank_kernel(x, v, u2, p=3,
+                                                     mode="square", stride=2),
+            lambda x=x, v=v, u2=u2: _fused_math(x, v, u2, 3, "square", 2),
+            None, f32 * (x.numel() + v.numel() + u2.numel()
+                         + C * 16 * 4 * 4 * 24),
+            2 * C * 16 * 4 * 4 * (3 * 9 * 8 * 8 + 24 * 24), PEAK_F32_FLOPS,
+            False))
+        xg, v, u3 = _stacked(rn, C, (16, 3, 8), (8, 8), (3, 8, 10))
+        u2 = u3.reshape(C, 24, 10)
+        shape = (f"cohort C={C} fc grow_in p=3: xg {tuple(xg.shape)} -> "
+                 f"({C},16,10)")
+        nbytes = f32 * (xg.numel() + v.numel() + u3.numel() + C * 16 * 10)
+        for name, kernel, plain, w, flops in (
+                ("rank_apply", rank_apply_kernel, _fwd_math, u2,
+                 2 * C * (16 * 3 * 8 * 8 + 16 * 24 * 10)),
+                ("compose_apply", compose_apply_kernel, _compose_apply_math,
+                 u3, 2 * C * (3 * 8 * 8 * 10 + 16 * 24 * 10))):
+            out[name].append(time_kernel(
+                torch, name, f"cohort C={C} fc", shape,
+                lambda k=kernel, xg=xg, v=v, w=w: k(xg, v, w),
+                lambda pl=plain, xg=xg, v=v, w=w: pl(xg, v, w),
+                lambda xg=xg, v=v, u3=u3: torch.einsum(
+                    "cmai,cir,card->cmd", xg, v, u3),
+                nbytes, flops, PEAK_F32_FLOPS, False))
+    return out
 
 
 # conv_rank's timed shapes (p = 3, batch 16): the CNN's two convs on its
@@ -1353,27 +1561,30 @@ def timed_merges(torch, runner, device) -> list:
 
 
 def run_path(torch, setup, scheme, knobs, device, rounds=ROUNDS,
-             clients=10):
+             clients=10, per_round=4, hook=None):
     """``rounds`` rounds of ``scheme`` on the image (CNN, ``clients``
-    clients) or text (transformer, 8 clients) setup, 4 clients per round;
-    returns (runner, seconds per round, summary, merge seconds per
-    round)."""
+    clients) or text (transformer, 8 clients) setup, ``per_round``
+    clients per round; ``hook(runner)``, if given, runs before the first
+    round.  Returns (runner, seconds per round, summary, merge seconds
+    per round)."""
     from repro_torch.fl import (FLConfig, build_image_setup, build_runner,
                                 build_text_setup, summarize)
 
     if setup == "image":
         model, px, py, tb = build_image_setup(num_clients=clients,
                                               device=device)
-        cfg = FLConfig(num_clients=clients, clients_per_round=4,
+        cfg = FLConfig(num_clients=clients, clients_per_round=per_round,
                        eval_every=1, **knobs)
     else:
         model, px, py, tb = build_text_setup(
             num_clients=8, max_width=3, seed=0, model_name="transformer",
             device=device)
-        cfg = FLConfig(num_clients=8, clients_per_round=4, batch_size=8,
-                       eval_every=1, **knobs)
+        cfg = FLConfig(num_clients=8, clients_per_round=per_round,
+                       batch_size=8, eval_every=1, **knobs)
     runner = build_runner(scheme, model, px, py, tb, cfg=cfg, device=device)
     merges = timed_merges(torch, runner, device)
+    if hook is not None:
+        hook(runner)
     secs = []
     for _ in range(rounds):
         t0 = time.perf_counter()
@@ -1528,6 +1739,224 @@ def schemes_path(torch) -> tuple:
         for k, n in counts.items():
             by_path["i"][k] += n
     return by_path, recs
+
+
+# path (j): the cohort trainer (trainer="cohort"), 3 rounds on the
+# 10-client CNN setup and the composed transformer's text setup:
+# (label, setup, scheme, knobs, clients a round)
+COHORT_RUNS = (
+    ("heroes materialize", "image", "heroes",
+     dict(forward_impl="materialize", agg_backend="host"), 4),
+    ("heroes auto", "image", "heroes", dict(PATHS["c"][1]), 4),
+    ("fedavg", "image", "fedavg",
+     dict(forward_impl="materialize", agg_backend="host"), 4),
+    ("heroes auto, 10 a round", "image", "heroes", dict(PATHS["c"][1]), 10),
+    ("transformer heroes rank_space", "text", "heroes",
+     dict(TEXT_RUNS["heroes"]), 4),
+)
+COMPOSITION = ("compose", "conv_rank", "rank_apply", "compose_apply")
+# cohort vs sequential on the card, heroes' first train_all: the JAX
+# package's own tolerances (tests/test_engine.py)
+COHORT_PARAM_TOL = (1e-5, 1e-4)  # (atol, rtol)
+COHORT_LOSS_TOL = 1e-4
+COHORT_EST_TOL = (1e-3, 1e-2)
+
+
+def layer_kernels(runner, width: int, batch: int) -> dict:
+    """The composition kernel each layer's forward launches at ``width``
+    and training batch ``batch``, as ``prepare_weights`` picks its impl:
+    compose for a materialised layer, conv_rank or rank_apply in rank
+    space (an embedding's rank path is a gather: none), compose_apply
+    for ``fused_compose``.  Counts of layers per kernel."""
+    from repro_torch.core.calibration import for_dispatch
+
+    model, cfg = runner.model, runner.cfg
+    if not runner.factorized:
+        return {}
+    shape = (batch,) + tuple(runner.data.parts_x[0].shape[1:])
+    impls = model.layer_impls(width, batch, cfg.forward_impl, shape,
+                              for_dispatch(cfg, runner.device),
+                              runner.device)
+    out = {}
+    for name, impl in impls.items():
+        kind = model.layers[name].kind
+        kernel = {"materialize": "compose",
+                  "fused_compose": "compose_apply",
+                  "rank_space": {"conv": "conv_rank", "dense": "rank_apply",
+                                 "embed": None}[kind]}[impl]
+        if kernel:
+            out[kernel] = out.get(kernel, 0) + 1
+    return out
+
+
+def expected_training_launches(runner, rounds_assigns, cohort: bool) -> dict:
+    """The composition launches the training of these rounds takes: each
+    forward launches every layer's kernel once (backwards launch none),
+    and a client or, under the cohort trainer, a whole group (one width,
+    one effective batch) takes τ forwards (τ_pad, the group's largest),
+    the loss before and after (2) and, for schemes that ship estimates,
+    4 gradient evaluations."""
+    per = 2 + (4 if runner.estimate else 0)
+    out = {k: 0 for k in COMPOSITION}
+    for assigns in rounds_assigns:
+        groups = {}
+        for n, a in assigns.items():
+            b = min(runner.cfg.batch_size, runner.data.num_samples(n))
+            key = (a["width"], b) if cohort else (a["width"], b, n)
+            groups.setdefault(key, []).append(max(a["tau"], 1))
+        for key, taus in groups.items():
+            for k, layers in layer_kernels(runner, key[0], key[1]).items():
+                out[k] += (max(taus) + per) * layers
+    return out
+
+
+def record_training(runner):
+    """Wrap the runner's trainer and evaluation: returns a dict that
+    collects each round's assignments, the first round's client results
+    and the launches its evaluations took."""
+    from repro_torch.kernels import LAUNCHES
+
+    rec = {"assigns": [], "first": None,
+           "eval": {k: 0 for k in COMPOSITION}}
+    train_all, evaluate = runner.trainer.train_all, runner.aggregator.evaluate
+
+    def train(state, assigns):
+        rec["assigns"].append({n: dict(a) for n, a in assigns.items()})
+        results = train_all(state, assigns)
+        if rec["first"] is None:
+            rec["first"] = results
+        return results
+
+    def ev(*args, **kw):
+        before = dict(LAUNCHES)
+        out = evaluate(*args, **kw)
+        for k in COMPOSITION:
+            rec["eval"][k] += LAUNCHES[k] - before[k]
+        return out
+
+    runner.trainer.train_all = train
+    runner.aggregator.evaluate = ev
+    return rec
+
+
+def first_results_close(torch, label, got, want) -> float:
+    """The cohort run's first ``train_all`` against the sequential run's
+    on the card: params, losses and estimates at the JAX package's
+    tolerances.  Returns the largest param difference."""
+    from repro_torch.core.estimator import tree_leaves
+
+    check(list(got) == list(want), f"({label}) first round's clients differ")
+    worst = 0.0
+    atol, rtol = COHORT_PARAM_TOL
+    for n, a in want.items():
+        b = got[n]
+        for la, lb in zip(tree_leaves(a.params), tree_leaves(b.params)):
+            d = (lb - la).abs()
+            worst = max(worst, float(d.max()))
+            check(bool((d <= atol + rtol * la.abs()).all()),
+                  f"({label}) client {n} params differ from sequential")
+        check(abs(a.loss_before - b.loss_before) < COHORT_LOSS_TOL
+              and abs(a.loss_after - b.loss_after) < COHORT_LOSS_TOL,
+              f"({label}) client {n} losses differ from sequential")
+        check(a.estimates.keys() == b.estimates.keys(),
+              f"({label}) client {n} estimate keys differ")
+        for k, v in a.estimates.items():
+            check(abs(b.estimates[k] - v) <= COHORT_EST_TOL[0]
+                  + COHORT_EST_TOL[1] * abs(v),
+                  f"({label}) client {n} estimate {k} differs from "
+                  "sequential")
+    print(f"      first train_all vs the sequential trainer's on the card: "
+          f"max param diff {worst:.3e}, losses and estimates within "
+          "tolerance")
+    return worst
+
+
+def cohort_path(torch) -> tuple:
+    """Path (j): each ``COHORT_RUNS`` run with ``trainer="cohort"`` on
+    the card, launch counts set to 0 just before it; the same run with
+    the sequential trainer on the card, and with the cohort trainer on
+    the CPU.  Each composition kernel's training launches (the run's less
+    its evaluations') must equal ``expected_training_launches``, and be
+    fewer than the sequential trainer takes for the same assignments
+    wherever a group holds more than one client.  Held against the CPU
+    run (``vs_cpu``) and against the sequential card run: fedavg's whole
+    history, heroes' first ``train_all``.  Returns (launch counts,
+    records)."""
+    from repro_torch.convert import to_numpy
+    from repro_torch.core.estimator import tree_leaves
+    from repro_torch.kernels import KERNELS, LAUNCHES, reset_launches
+
+    import numpy as np
+
+    counts_j = {k: 0 for k in KERNELS}
+    recs = {}
+    for label, setup, scheme, knobs, per_round in COHORT_RUNS:
+        label = f"j {label}"
+        runs = {}
+        for trainer in ("sequential", "cohort"):
+            hooked = {}
+            reset_launches()
+            runner, secs, summ, _ = run_path(
+                torch, setup, scheme, dict(knobs, trainer=trainer), DEVICE,
+                per_round=per_round,
+                hook=lambda r: hooked.update(rec=record_training(r)))
+            counts = dict(LAUNCHES)
+            runs[trainer] = (runner, secs, summ, counts, hooked["rec"])
+        runner, secs, summ, counts, rec = runs["cohort"]
+        seq_runner, seq_secs, _, seq_counts, seq_rec = runs["sequential"]
+        for k, n in counts.items():
+            counts_j[k] += n
+        train = {k: counts[k] - rec["eval"][k] for k in COMPOSITION}
+        seq_train = {k: seq_counts[k] - seq_rec["eval"][k]
+                     for k in COMPOSITION}
+        want = expected_training_launches(runner, rec["assigns"], True)
+        per_client = expected_training_launches(runner, rec["assigns"],
+                                                False)
+        seq_want = expected_training_launches(seq_runner, seq_rec["assigns"],
+                                              False)
+        sizes = [len({(a["width"], min(runner.cfg.batch_size,
+                                       runner.data.num_samples(n)))
+                      for n, a in assigns.items()})
+                 for assigns in rec["assigns"]]
+        shared = any(n_groups < len(assigns) for n_groups, assigns
+                     in zip(sizes, rec["assigns"]))
+        r = {"s_per_round": secs, "sequential_s_per_round": seq_secs,
+             "launches": {k: n for k, n in counts.items() if n},
+             "sequential_launches": {k: n for k, n in seq_counts.items()
+                                     if n},
+             "training_launches": train, "expected": want,
+             "sequential_training_launches": seq_train,
+             "sequential_expected": seq_want,
+             "per_client_on_these_assignments": per_client,
+             "groups_per_round": sizes,
+             "clients_per_round": [len(a) for a in rec["assigns"]],
+             "accuracy": [h.accuracy for h in runner.history]}
+        print(f"  ({label}) {scheme} {knobs}, {per_round} a round: "
+              f"{json.dumps(r)}")
+        print(f"      summarize {json.dumps(summ)}")
+        check_run(torch, label, runner)
+        check(train == want, f"({label}) training launches {train}, the "
+              f"groups take {want}: the vmap rules do not batch")
+        check(seq_train == seq_want,
+              f"({label}) sequential training launches {seq_train}, "
+              f"expected {seq_want}")
+        cut = sum(train.values()) < sum(per_client.values())
+        check(all(train[k] <= per_client[k] for k in COMPOSITION)
+              and (cut or not shared or not any(per_client.values())),
+              f"({label}) the groups did not cut the launches: {train} "
+              f"against {per_client} a client at a time")
+        if scheme == "fedavg":
+            r["max_param_diff_sequential"] = vs_cpu(
+                torch, f"{label} vs sequential", runner, seq_runner)
+        else:
+            r["first_round_diff_sequential"] = first_results_close(
+                torch, label, rec["first"], seq_rec["first"])
+        cpu, _, _, _ = run_path(torch, setup, scheme,
+                                dict(knobs, trainer="cohort"), "cpu",
+                                per_round=per_round)
+        r["max_param_diff_cpu"] = vs_cpu(torch, label, runner, cpu)
+        recs[label] = r
+    return counts_j, recs
 
 
 def serve_path(torch, model, params):
@@ -1928,6 +2357,12 @@ def main_path(torch, rt):
     counts, scheme_recs = schemes_path(torch)
     by_path.update(counts)
 
+    # (j) the cohort trainer
+    print(f"  (j) the cohort trainer, {ROUNDS} rounds each, beside the "
+          "sequential trainer")
+    by_path["j"], cohort_recs = cohort_path(torch)
+    scheme_recs["j"] = cohort_recs
+
     for counts in by_path.values():
         for k, n in counts.items():
             launches[k] += n
@@ -1936,19 +2371,21 @@ def main_path(torch, rt):
     return launches, by_path, zoo_stats, scheme_recs
 
 
-def trace_round(torch, label: str = "c") -> None:
-    """Phase 4: one round of path ``label`` (a fresh runner, so round 1 at
-    τ=10, with libraries already warm) under ``torch.profiler``: the
-    round's wall time, the device's busy time (sum of kernel self times),
-    their ratio, and the kernels that took the most device time."""
+def trace_round(torch, label: str = "c", trainer: str = "sequential",
+                per_round: int = 4) -> None:
+    """Phase 4: one round of path (c)'s run (a fresh runner, so round 1
+    at τ=10, with libraries already warm) under ``torch.profiler``, with
+    ``trainer`` and ``per_round`` clients a round: the round's wall time,
+    the device's busy time (sum of kernel self times), their ratio, and
+    the kernels that took the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.fl import FLConfig, build_image_setup, build_runner
 
-    scheme, knobs, _ = PATHS[label]
+    scheme, knobs, _ = PATHS["c"]
     model, px, py, tb = build_image_setup(num_clients=10, device=DEVICE)
-    cfg = FLConfig(num_clients=10, clients_per_round=4, eval_every=1,
-                   **knobs)
+    cfg = FLConfig(num_clients=10, clients_per_round=per_round,
+                   eval_every=1, trainer=trainer, **knobs)
     runner = build_runner(scheme, model, px, py, tb, cfg=cfg, device=DEVICE)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1963,7 +2400,8 @@ def trace_round(torch, label: str = "c") -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in device)
     launches = sum(e.count for e in device)
-    print(f"phase 4: traced round 1 of ({label}): wall {wall:.4f} s, device "
+    print(f"phase 4: traced round 1 of ({label}), {trainer} trainer, "
+          f"{per_round} clients: wall {wall:.4f} s, device "
           f"busy {busy_us / 1e3:.3f} ms ({100 * busy_us / 1e6 / wall:.2f}% of "
           f"the wall), {launches} device kernels")
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:8]:
@@ -2005,8 +2443,9 @@ def main() -> int:
     records.update(check_ssd_rmsnorm(torch))
     launches, by_path, zoo_stats, scheme_recs = main_path(torch, rt)
     print(f"path (g) {json.dumps(zoo_stats)}")
-    print(f"paths (h), (i) {json.dumps(scheme_recs)}")
+    print(f"paths (h), (i), (j) {json.dumps(scheme_recs)}")
     trace_round(torch)
+    trace_round(torch, "j", trainer="cohort", per_round=10)
     print(f"calibration {json.dumps(calibration_record(torch))}")
 
     kernels = []
@@ -2025,7 +2464,7 @@ def main() -> int:
         })
         for extra in ("two_call_ms", "more_shapes", "at_scale", "path_g",
                       "ops_model_layout", "decode", "launch_floor_ms",
-                      "no_grad"):
+                      "no_grad", "cohort"):
             if extra in rec:
                 kernels[-1][extra] = rec[extra]
     print(json.dumps({"kernels": kernels}))

@@ -11,9 +11,10 @@ leading index: selection is a gather, block-wise aggregation (Eq. 5) a
 segment mean.  A ``p``-width model takes the ``p^2`` least-trained blocks,
 composes them with the basis and reshapes to ``k^2 x pI x pO`` (Fig. 1).
 
-``compose`` routes through the CUDA kernel of
-:mod:`repro_torch.kernels.compose` for tensors on the card and through the
-einsum on the CPU.  Training operates directly on the factors.
+``compose`` routes through the autograd Function of
+:mod:`repro_torch.kernels.compose`: its CUDA kernel for tensors on the
+card, its plain version on the CPU, and one launch for a cohort under
+``torch.func.vmap``.  Training operates directly on the factors.
 """
 
 from __future__ import annotations
@@ -23,8 +24,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-
-from repro_torch.kernels import use_kernel
 
 Tensor = torch.Tensor
 
@@ -141,10 +140,10 @@ def compose(basis: Tensor, reduced_coeff: Tensor, p: int,
     Args:
       basis: ``(ksq, I, R)``; reduced_coeff: ``(m, R, O)`` gathered blocks.
       p: target width.
-      backend: ``"einsum"`` (reference), ``"kernel"`` (the
-        :mod:`repro_torch.kernels.compose` autograd Function: the CUDA
-        kernel on the card, its plain version on the CPU), or ``None`` —
-        the kernel for tensors on the card, einsum on the CPU.
+      backend: ``"einsum"`` (reference) or ``"kernel"`` (the default,
+        also for None: the :mod:`repro_torch.kernels.compose` autograd
+        Function, the CUDA kernel on the card, its plain version on the
+        CPU).
 
     Returns the ``spec.weight_shape(p)`` weight.  For "square" the
     intermediate ``(ksq, I, p^2·O)`` is viewed as ``(ksq, I, p, p·O)`` and
@@ -153,9 +152,7 @@ def compose(basis: Tensor, reduced_coeff: Tensor, p: int,
     m = spec.blocks_for_width(p)
     if reduced_coeff.shape[0] != m:
         raise ValueError(f"expected {m} blocks, got {reduced_coeff.shape[0]}")
-    if backend is None:
-        backend = "kernel" if use_kernel(basis) else "einsum"
-    if backend == "kernel":
+    if backend in (None, "kernel"):
         from repro_torch.kernels.compose import compose as compose_fn
 
         flat = compose_fn(basis, reduced_coeff)  # (ksq, I, m*O)

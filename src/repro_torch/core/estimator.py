@@ -67,18 +67,28 @@ def estimate_grad_sq(stoch_grads: Sequence[Tree]) -> torch.Tensor:
     return torch.stack([tree_sq_norm(g) for g in stoch_grads]).mean()
 
 
+def estimates_from_grads(stoch_grads: Sequence[Tree], grad_after: Tree,
+                         params_after: Tree, params_before: Tree) -> dict:
+    """The (L, sigma^2, G^2) triple from its four gradient evaluations:
+    ``stoch_grads`` at ``params_before`` on the estimate batches (their
+    mean approximates the full gradient), ``grad_after`` at
+    ``params_after`` on the first of them.  Per-client under
+    ``torch.func.vmap`` over stacked trees (the cohort trainer)."""
+    full = tree_map(lambda *xs: torch.stack(xs).mean(0), *stoch_grads)
+    return {
+        "L": estimate_smoothness(grad_after, stoch_grads[0], params_after,
+                                 params_before),
+        "sigma_sq": estimate_noise_sq(stoch_grads, full),
+        "grad_sq": estimate_grad_sq(stoch_grads),
+    }
+
+
 def client_estimates(grad_fn: Callable[[Tree, Any], Tree],
                      params_before: Tree, params_after: Tree,
                      batches: Sequence[Any]) -> dict:
     """The (L, sigma^2, G^2) triple; the full gradient is approximated by
     the mean over ``batches``."""
     stoch = [grad_fn(params_before, b) for b in batches]
-    full = tree_map(lambda *xs: torch.stack(xs).mean(0), *stoch)
     grad_after = grad_fn(params_after, batches[0])
-    return {
-        "L": estimate_smoothness(grad_after, stoch[0], params_after,
-                                 params_before),
-        "sigma_sq": estimate_noise_sq(stoch, full),
-        "grad_sq": estimate_grad_sq(stoch),
-    }
-
+    return estimates_from_grads(stoch, grad_after, params_after,
+                                params_before)

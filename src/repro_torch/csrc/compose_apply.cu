@@ -3,7 +3,9 @@
 //   W_a[i, d] = sum_r v[i, r] * u3[a, r, d]
 //   y[m, d]   = sum_a sum_i xg[m, a, i] * W_a[i, d]
 //   xg (M, g, I), v (I, R), u3 (g, R, D) -> y (M, D), f32; optionally t
-//   (M, g, R) = xg . v too, the residual of the rank-space backward
+//   (M, g, R) = xg . v too, the residual of the rank-space backward; for
+//   each client of a cohort, every operand with a leading client axis C,
+//   in one launch (the unbatched call is C = 1)
 //
 // Replaces: src/repro/kernels/compose.py, compose_apply_pallas (body
 // _compose_apply_kernel), which builds each group's weight slice W_a in
@@ -18,9 +20,11 @@
 // Design (that of rank_apply.cu, with the TPU kernel's association): the
 // grid tiles rows (bm <= 16) and output columns (bd <= 32, a multiple of
 // 4), chosen by the wrapper (compose.py _compose_apply_tiles) so that a
-// call launches about 128 blocks where M allows.  A block stages its xg
-// rows, all of v and its u3 column tile in shared memory with one round
-// of cp.async copies, builds its (g*I, bd) tile of the composed weight
+// call launches about 128 blocks where M allows, counted over the
+// cohort's clients (grid z: one client, its operands offset by its
+// strides).  A block stages its xg rows, all of v and its u3 column tile
+// in shared memory with one round of cp.async copies, builds its
+// (g*I, bd) tile of the composed weight
 // W = [W_0; ...; W_{g-1}] there (four columns an item, an R-long chain
 // in r order), then each thread adds x . W into four outputs (one float4
 // accumulator, a g*I-long chain), the tail past D not stored.  Where the
@@ -67,6 +71,13 @@ __global__ void __launch_bounds__(COMPOSE_APPLY_THREADS)
   const int gI = g * I;
   const int gI4 = round4(gI);
   const int kc = FIXED ? G * II : kc_;
+  // this block's client: its rows, basis, coefficients and outputs
+  const long long client = blockIdx.z;
+  xg += client * M * gI;
+  v += client * I * R;
+  u3 += client * g * R * D;
+  y += client * M * D;
+  if (t_out != nullptr) t_out += client * M * g * R;
   float* vs = reinterpret_cast<float*>(smem4);  // (I, R4)
   float* us = vs + I * R4;                      // (g*R, bd), row a*R + r
   float* xs = us + g * R * bd;                  // (bm, gI4)
@@ -154,14 +165,14 @@ __global__ void __launch_bounds__(COMPOSE_APPLY_THREADS)
 
 template <int G, int II, int RQC>
 static int launch_compose_apply(const void* xg, const void* v, const void* u3,
-                                void* y, void* t_out, int M, int g, int I,
-                                int R, int D, int bm, int bd, int kc,
+                                void* y, void* t_out, int C, int M, int g,
+                                int I, int R, int D, int bm, int bd, int kc,
                                 cudaStream_t stream) {
   const size_t smem =
       compose_apply_smem_floats(g, I, R, bm, bd, kc) * sizeof(float);
   cudaError_t err = allow_dynamic_smem(compose_apply_kernel<G, II, RQC>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + bm - 1) / bm, (D + bd - 1) / bd);
+  const dim3 grid((M + bm - 1) / bm, (D + bd - 1) / bd, C);
   compose_apply_kernel<G, II, RQC>
       <<<grid, COMPOSE_APPLY_THREADS, smem, stream>>>(
           static_cast<const float*>(xg), static_cast<const float*>(v),
@@ -174,12 +185,12 @@ static int launch_compose_apply(const void* xg, const void* v, const void* u3,
 // and the calibration's), the weight in one chunk; every other shape
 // generic.
 extern "C" int compose_apply_f32(const void* xg, const void* v,
-                                 const void* u3, void* y, void* t_out, int M,
-                                 int g, int I, int R, int D, int bm, int bd,
-                                 int kc, void* stream) {
-  if (M == 0 || D == 0) return static_cast<int>(cudaSuccess);
-  if (bm < 1 || bm * CA_QUADS > COMPOSE_APPLY_THREADS || bd % 4 != 0 ||
-      bd > 4 * CA_QUADS || kc < 1)
+                                 const void* u3, void* y, void* t_out, int C,
+                                 int M, int g, int I, int R, int D, int bm,
+                                 int bd, int kc, void* stream) {
+  if (C == 0 || M == 0 || D == 0) return static_cast<int>(cudaSuccess);
+  if (C > 65535 || bm < 1 || bm * CA_QUADS > COMPOSE_APPLY_THREADS ||
+      bd % 4 != 0 || bd > 4 * CA_QUADS || kc < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto go = launch_compose_apply<0, 0, 0>;
   if (R == 8 && kc == g * I) {
@@ -187,6 +198,6 @@ extern "C" int compose_apply_f32(const void* xg, const void* v,
     if (g == 2 && I == 8) go = launch_compose_apply<2, 8, 2>;
     if (g == 3 && I == 8) go = launch_compose_apply<3, 8, 2>;
   }
-  return go(xg, v, u3, y, t_out, M, g, I, R, D, bm, bd, kc,
+  return go(xg, v, u3, y, t_out, C, M, g, I, R, D, bm, bd, kc,
             static_cast<cudaStream_t>(stream));
 }

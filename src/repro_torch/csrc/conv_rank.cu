@@ -5,6 +5,8 @@
 //                                          * basis[ky*k + kx, i, r]
 //   y[n, ho, wo, d]       = sum_q t[n, ho, wo, q] * u2[q, d]
 //   x (N, H, W, g*I) NHWC, basis (k*k, I, R), u2 (g*R, D) -> y (N, Ho, Wo, D)
+//   for each client c of a cohort: x (C, N, ...), basis (C, ...), u2
+//   (C, ...) and y (C, N, ...), one launch (the unbatched call is C = 1)
 //
 // xpad is x under XLA's "SAME" padding: Ho = ceil(H / s), total padding
 // max((Ho - 1) * s + k - H, 0), low side total // 2 (conv_rank.py
@@ -36,6 +38,11 @@
 //   that a call launches about 128 blocks or more where the images allow
 //   (128 at the timed conv2 shape), 256 threads each.  Each block
 //   restages the basis and u2 (4.6 KB at p = 3) from L2.
+// - A cohort is one grid: the C*N images of the clients line up along
+//   blockIdx.x, and a block offsets the basis and u2 to its image's
+//   client (c = image / N).  The tiles are sized over all C*N images, so
+//   a 10-client cohort launches ~128 larger blocks, not ten times as
+//   many tiny ones.
 // - One round trip: the basis, u2 and the input window of the rectangle
 //   (zero outside the image) go into shared memory together as cp.async
 //   copies (16 bytes where C % 4 == 0 and the rows are aligned, 4 bytes
@@ -81,8 +88,9 @@ __global__ void __launch_bounds__(CONV_RANK_THREADS)
     conv_rank_kernel(const float* __restrict__ x,
                      const float* __restrict__ basis,
                      const float* __restrict__ u2, float* __restrict__ y,
-                     int H, int W, int g_, int I_, int R, int D, int stride,
-                     int Ho, int Wo, int pad_h, int pad_w, int th, int tw) {
+                     int N, int H, int W, int g_, int I_, int R, int D,
+                     int stride, int Ho, int Wo, int pad_h, int pad_w,
+                     int th, int tw) {
   extern __shared__ float4 smem4[];
   const int g = G ? G : g_;
   const int I = II ? II : I_;
@@ -101,8 +109,11 @@ __global__ void __launch_bounds__(CONV_RANK_THREADS)
   // the block's rectangle of output pixels
   const int tiles_w = (Wo + tw - 1) / tw;
   const int tiles_h = (Ho + th - 1) / th;
-  const int n = blockIdx.x / (tiles_w * tiles_h);
+  const int n = blockIdx.x / (tiles_w * tiles_h);  // image over the cohort
   const int tile = blockIdx.x - n * tiles_w * tiles_h;
+  const int client = n / N;  // the image's client: its basis and u2
+  basis += static_cast<long long>(client) * K * K * I * R;
+  u2 += static_cast<long long>(client) * g * R * D;
   const int ho0 = (tile / tiles_w) * th;
   const int wo0 = (tile % tiles_w) * tw;
   const int rows = min(th, Ho - ho0);
@@ -204,7 +215,7 @@ __global__ void __launch_bounds__(CONV_RANK_THREADS)
 
 template <int G, int II, int RQC, int DQC>
 static int launch_conv_rank(const void* x, const void* basis, const void* u2,
-                            void* y, int N, int H, int W, int g, int I,
+                            void* y, int C, int N, int H, int W, int g, int I,
                             int R, int D, int stride, int Ho, int Wo,
                             int pad_h, int pad_w, int th, int tw,
                             cudaStream_t stream) {
@@ -213,25 +224,25 @@ static int launch_conv_rank(const void* x, const void* basis, const void* u2,
   cudaError_t err =
       allow_dynamic_smem(conv_rank_kernel<G, II, RQC, DQC>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = static_cast<long long>(N) * ((Ho + th - 1) / th) *
-                           ((Wo + tw - 1) / tw);
+  const long long blocks = static_cast<long long>(C) * N *
+                           ((Ho + th - 1) / th) * ((Wo + tw - 1) / tw);
   conv_rank_kernel<G, II, RQC, DQC>
       <<<static_cast<unsigned>(blocks), CONV_RANK_THREADS, smem, stream>>>(
           static_cast<const float*>(x), static_cast<const float*>(basis),
-          static_cast<const float*>(u2), static_cast<float*>(y), H, W, g, I,
-          R, D, stride, Ho, Wo, pad_h, pad_w, th, tw);
+          static_cast<const float*>(u2), static_cast<float*>(y), N, H, W, g,
+          I, R, D, stride, Ho, Wo, pad_h, pad_w, th, tw);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Instances by shape: the CNN's convs at rank 8 (conv1: one group of 3
 // channels; conv2/conv3: 1-3 groups of 8), every other shape generic.
 extern "C" int conv_rank_f32(const void* x, const void* basis, const void* u2,
-                             void* y, int N, int H, int W, int g, int I,
-                             int R, int D, int k, int stride, int Ho, int Wo,
-                             int pad_h, int pad_w, int th, int tw,
+                             void* y, int C, int N, int H, int W, int g,
+                             int I, int R, int D, int k, int stride, int Ho,
+                             int Wo, int pad_h, int pad_w, int th, int tw,
                              void* stream) {
   if (k != K) return static_cast<int>(cudaErrorInvalidValue);
-  if (N == 0 || Ho == 0 || Wo == 0 || D == 0)
+  if (C == 0 || N == 0 || Ho == 0 || Wo == 0 || D == 0)
     return static_cast<int>(cudaSuccess);
   auto go = launch_conv_rank<0, 0, 0, 0>;
   if (R == 8 && D == 8) {
@@ -248,6 +259,6 @@ extern "C" int conv_rank_f32(const void* x, const void* basis, const void* u2,
     if (g == 1 && I == 3) go = launch_conv_rank<1, 3, 2, 6>;
     if (g == 3 && I == 8) go = launch_conv_rank<3, 8, 2, 6>;
   }
-  return go(x, basis, u2, y, N, H, W, g, I, R, D, stride, Ho, Wo, pad_h,
+  return go(x, basis, u2, y, C, N, H, W, g, I, R, D, stride, Ho, Wo, pad_h,
             pad_w, th, tw, static_cast<cudaStream_t>(stream));
 }

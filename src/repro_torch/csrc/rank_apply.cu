@@ -3,7 +3,9 @@
 //   t[m, a*R + r] = sum_i xg[m, a, i] * v[i, r]
 //   y[m, d]       = sum_q t[m, q] * u2[q, d]
 //   xg (M, g, I), v (I, R), u2 (g*R, D) -> y (M, D), f32; optionally t
-//   (M, g, R) too, the residual of the rank-space backward
+//   (M, g, R) too, the residual of the rank-space backward; for each
+//   client of a cohort, every operand with a leading client axis C, in
+//   one launch (the unbatched call is C = 1)
 //
 // Replaces: src/repro/kernels/compose.py, rank_apply_pallas (body
 // _rank_apply_kernel), which keeps the (bm, g*R) rank intermediate in
@@ -20,9 +22,11 @@
 //
 // Design: the grid tiles rows (bm) and output columns (bd, a multiple of
 // 4), chosen by the wrapper (compose.py _rank_apply_tiles) so that a call
-// launches about 128 blocks where M allows; small M still spreads over
-// several blocks.  A block stages its xg rows, all of v and its u2 column
-// tile in shared memory with one round of cp.async copies (16 bytes where
+// launches about 128 blocks where M allows, counted over the cohort's
+// clients (grid z: one client, its operands offset by its strides);
+// small M still spreads over several blocks.  A block stages its xg
+// rows, all of v and its u2 column tile in shared memory with one round
+// of cp.async copies (16 bytes where
 // the rows are 16-byte multiples, 4 bytes otherwise, as for the head's
 // D = 10), computes its rows' rank tile t (each thread four r at once,
 // an I-long chain) into shared memory, then four outputs a thread (a
@@ -62,6 +66,13 @@ __global__ void __launch_bounds__(RANK_APPLY_THREADS)
   extern __shared__ float4 smem4[];
   const int g = G ? G : g_;
   const int I = II ? II : I_;
+  // this block's client: its rows, basis, coefficients and outputs
+  const long long client = blockIdx.z;
+  xg += client * M * g * I;
+  v += client * I * R;
+  u2 += client * g * R * D;
+  y += client * M * D;
+  if (t_out != nullptr) t_out += client * M * g * R;
   const int R4 = RQC ? 4 * RQC : round4(R);
   const int gR4 = g * R4;
   const int gI4 = round4(g * I);
@@ -140,13 +151,13 @@ __global__ void __launch_bounds__(RANK_APPLY_THREADS)
 
 template <int G, int II, int RQC>
 static int launch_rank_apply(const void* xg, const void* v, const void* u2,
-                             void* y, void* t_out, int M, int g, int I,
+                             void* y, void* t_out, int C, int M, int g, int I,
                              int R, int D, int bm, int bd,
                              cudaStream_t stream) {
   const size_t smem = rank_apply_smem_floats(g, I, R, bm, bd) * sizeof(float);
   cudaError_t err = allow_dynamic_smem(rank_apply_kernel<G, II, RQC>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + bm - 1) / bm, (D + bd - 1) / bd);
+  const dim3 grid((M + bm - 1) / bm, (D + bd - 1) / bd, C);
   rank_apply_kernel<G, II, RQC><<<grid, RANK_APPLY_THREADS, smem, stream>>>(
       static_cast<const float*>(xg), static_cast<const float*>(v),
       static_cast<const float*>(u2), static_cast<float*>(y),
@@ -158,9 +169,11 @@ static int launch_rank_apply(const void* xg, const void* v, const void* u2,
 // 32 inputs (the composed transformer's layers); every other shape
 // generic.
 extern "C" int rank_apply_f32(const void* xg, const void* v, const void* u2,
-                              void* y, void* t_out, int M, int g, int I,
-                              int R, int D, int bm, int bd, void* stream) {
-  if (M == 0 || D == 0) return static_cast<int>(cudaSuccess);
+                              void* y, void* t_out, int C, int M, int g,
+                              int I, int R, int D, int bm, int bd,
+                              void* stream) {
+  if (C == 0 || M == 0 || D == 0) return static_cast<int>(cudaSuccess);
+  if (C > 65535) return static_cast<int>(cudaErrorInvalidValue);
   auto go = launch_rank_apply<0, 0, 0>;
   if (R == 8 && g == 1 && I == 8) go = launch_rank_apply<1, 8, 2>;
   if (R == 8 && g == 2 && I == 8) go = launch_rank_apply<2, 8, 2>;
@@ -171,6 +184,6 @@ extern "C" int rank_apply_f32(const void* xg, const void* v, const void* u2,
   if (R == 8 && g == 1 && I == 32) go = launch_rank_apply<1, 32, 2>;
   if (R == 8 && g == 2 && I == 32) go = launch_rank_apply<2, 32, 2>;
   if (R == 8 && g == 3 && I == 32) go = launch_rank_apply<3, 32, 2>;
-  return go(xg, v, u2, y, t_out, M, g, I, R, D, bm, bd,
+  return go(xg, v, u2, y, t_out, C, M, g, I, R, D, bm, bd,
             static_cast<cudaStream_t>(stream));
 }

@@ -7,12 +7,18 @@ index vectors and gathers only the minibatches a round touches.
 package: client ``n`` in round ``r`` draws from
 ``np.random.default_rng((seed, r, n))`` — ``tau`` training-batch index
 draws of size ``batch``, then 3 estimate-batch draws — so the port sees
-the reference's exact minibatches.
+the reference's exact minibatches.  The cohort trainer stages a group's
+host batches on the loader's prefetch thread (:meth:`ClientDataLoader.
+prefetch`), stacked on a client axis (:func:`stack_client_shards`) and
+packed for one host-to-device copy (:func:`pack_arrays`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import queue
+import threading
+from typing import (Any, Callable, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -61,22 +67,75 @@ def make_shards(x: np.ndarray, y: np.ndarray, parts):
 
 
 def round_batch_indices(seed: int, rnd: int, n: int, num_samples: int,
-                        tau: int, batch_size: int, estimate: bool
+                        tau: int, batch_size: int, estimate: bool,
+                        tau_pad: Optional[int] = None
                         ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """The engine's host RNG contract, in one place.
 
-    Returns ``(idx, est_idx)``: ``idx`` of shape ``(tau, batch_size)`` and
-    ``est_idx`` of shape ``(3, batch_size)`` or None.  Draw order matches
-    ``local_train``: tau training draws, then 3 estimate draws.
+    Returns ``(idx, est_idx)``: ``idx`` of shape ``(tau_pad or tau,
+    batch_size)`` (padding steps repeat the last real batch; the cohort
+    step masks them) and ``est_idx`` of shape ``(3, batch_size)`` or
+    None.  Draw order matches ``local_train``: tau training draws, then 3
+    estimate draws, whatever the padding.
     """
     rng = np.random.default_rng((seed, rnd, n))
     idx = np.stack([rng.integers(0, num_samples, batch_size)
                     for _ in range(tau)])
+    pad = (tau_pad or tau) - tau
+    if pad > 0:
+        idx = np.concatenate([idx, np.broadcast_to(idx[-1],
+                                                   (pad, batch_size))])
     est_idx = None
     if estimate:
         est_idx = np.stack([rng.integers(0, num_samples, batch_size)
                             for _ in range(3)])
     return idx, est_idx
+
+
+def stack_client_shards(per_client: Sequence[np.ndarray],
+                        step_leading: bool = False) -> np.ndarray:
+    """Stack per-client batch arrays along a new client axis, as the JAX
+    package's ``stack_client_shards`` does for one device (one chunk):
+    ``(C, steps, ...)``, or with ``step_leading`` ``(steps, C, ...)``, the
+    layout the cohort step reads a step from.  Per-device chunks wait for
+    the cohort trainer across GPUs (ROADMAP queue A step 9)."""
+    stk = np.stack(per_client)
+    return np.moveaxis(stk, 0, 1) if step_leading else stk
+
+
+def pack_arrays(arrays: Sequence[np.ndarray]):
+    """Host arrays as one byte buffer, each at an 8-byte aligned offset,
+    and the layout :func:`unpack_tensors` reads them back by: so a group
+    of batches crosses to the device in one copy."""
+    layout, parts, off = [], [], 0
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        pad = -off % 8
+        if pad:
+            parts.append(np.zeros(pad, np.uint8))
+            off += pad
+        parts.append(a.reshape(-1).view(np.uint8))
+        layout.append((off, a.nbytes, a.dtype, a.shape))
+        off += a.nbytes
+    buf = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+    return buf, layout
+
+
+def unpack_tensors(buf: torch.Tensor, layout) -> List[torch.Tensor]:
+    """The arrays of :func:`pack_arrays` as views into ``buf`` (a uint8
+    tensor of its bytes, on any device)."""
+    out = []
+    for off, nbytes, dtype, shape in layout:
+        t = buf[off:off + nbytes].view(_TORCH_DTYPES[np.dtype(dtype)])
+        out.append(t.reshape(shape))
+    return out
+
+
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.float64): torch.float64,
+                 np.dtype(np.int32): torch.int32,
+                 np.dtype(np.int64): torch.int64,
+                 np.dtype(np.uint8): torch.uint8}
 
 
 def to_batch(input_key: str, x: np.ndarray, y: np.ndarray,
@@ -86,9 +145,15 @@ def to_batch(input_key: str, x: np.ndarray, y: np.ndarray,
             "labels": torch.as_tensor(y, dtype=torch.long, device=device)}
 
 
+# host items the prefetch thread stages ahead of the consumer at most
+PREFETCH_DEPTH = 2
+
+
 class ClientDataLoader:
     """Per-client minibatch streams over (possibly lazy) shards, handing
-    out tensors on ``device``."""
+    out tensors on ``device`` (:meth:`gather`) or host arrays
+    (:meth:`draw_round`), and staging host work ahead of the device on a
+    background thread (:meth:`prefetch`)."""
 
     def __init__(self, parts_x: Sequence, parts_y: Sequence, device,
                  input_key: str = "x"):
@@ -97,6 +162,11 @@ class ClientDataLoader:
         self.parts_x, self.parts_y = parts_x, parts_y
         self.device = torch.device(device)
         self.input_key = input_key
+        # live prefetch workers: (stop event, thread) pairs, so close()
+        # can release them even when a round body died before its
+        # generator's cleanup ran
+        self._workers: list = []
+        self._workers_lock = threading.Lock()
 
     @property
     def num_clients(self) -> int:
@@ -111,12 +181,88 @@ class ClientDataLoader:
                         self.parts_y[n][idx], self.device)
 
     def draw_round(self, n: int, *, seed: int, rnd: int, tau: int,
-                   batch_size: int, estimate: bool):
-        """(tau training batches, 3 estimate batches or None) for one
-        client-round under the RNG contract."""
+                   batch_size: int, estimate: bool,
+                   tau_pad: Optional[int] = None):
+        """(xs, ys, est) host arrays for one client-round under the RNG
+        contract: ``xs``/``ys`` lead with the (padded) step axis, ``est``
+        is the ``(3, batch, ...)`` estimate-batch pair or None."""
         idx, est_idx = round_batch_indices(
-            seed, rnd, n, self.num_samples(n), tau, batch_size, estimate)
-        steps = [self.gather(n, i) for i in idx]
-        est = None if est_idx is None else [self.gather(n, i)
-                                            for i in est_idx]
-        return steps, est
+            seed, rnd, n, self.num_samples(n), tau, batch_size, estimate,
+            tau_pad)
+        x, y = self.parts_x[n], self.parts_y[n]
+        est = None if est_idx is None else (x[est_idx], y[est_idx])
+        return x[idx], y[idx], est
+
+    def close(self) -> None:
+        """Release every background prefetch worker this loader started
+        (safe to call again)."""
+        with self._workers_lock:
+            workers, self._workers = self._workers, []
+        for stop, _ in workers:
+            stop.set()
+        for _, t in workers:
+            t.join(timeout=5.0)
+
+    def prefetch(self, items: Iterable[Any],
+                 fn: Callable[[Any], Any]) -> Iterator[Any]:
+        """Yield ``fn(item)`` in order, computing up to ``PREFETCH_DEPTH``
+        items ahead on a background thread.
+
+        ``fn`` must be host-only (numpy): it runs off the main thread so
+        the device step of one group overlaps the gathers of the next.
+        The worker is released when the consumer finishes, raises or
+        closes the generator.
+        """
+        items = list(items)
+        if len(items) <= 1:  # nothing to overlap
+            for it in items:
+                yield fn(it)
+            return
+        q: "queue.Queue" = queue.Queue(maxsize=PREFETCH_DEPTH)
+        stop = threading.Event()
+        end, fail = object(), object()
+
+        def put(obj) -> bool:
+            """Bounded put that gives up when the consumer is gone."""
+            while not stop.is_set():
+                try:
+                    q.put(obj, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for it in items:
+                    if stop.is_set() or not put(fn(it)):
+                        return
+                put(end)
+            except BaseException as e:  # raised again in the consumer
+                put((fail, e))
+
+        t = threading.Thread(target=worker, daemon=True,
+                             name="client-data-prefetch")
+        with self._workers_lock:
+            self._workers.append((stop, t))
+        t.start()
+        try:
+            while True:
+                got = q.get()
+                if got is end:
+                    break
+                if isinstance(got, tuple) and len(got) == 2 \
+                        and got[0] is fail:
+                    raise got[1]
+                yield got
+        finally:
+            stop.set()
+            while not q.empty():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join(timeout=5.0)
+            with self._workers_lock:
+                self._workers = [(s, th) for s, th in self._workers
+                                 if th is not t and th.is_alive()]

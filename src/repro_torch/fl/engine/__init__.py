@@ -21,7 +21,8 @@ from repro_torch.fl.engine.policies import (FullWidthAssignment,
 from repro_torch.fl.engine.registry import (SCHEMES, SchemeBundle,
                                             build_engine, register_scheme)
 from repro_torch.fl.engine.runner import EngineRunner
-from repro_torch.fl.engine.trainers import ProximalTrainer, SequentialTrainer
+from repro_torch.fl.engine.trainers import (CohortTrainer, ProximalTrainer,
+                                            SequentialTrainer)
 from repro_torch.fl.types import InFlight, SchedState, ServerState
 
 __all__ = [
@@ -36,5 +37,5 @@ __all__ = [
     "SCHEMES", "SchemeBundle", "build_engine", "register_scheme",
     "EngineRunner",
     "InFlight", "SchedState", "ServerState",
-    "ProximalTrainer", "SequentialTrainer",
+    "CohortTrainer", "ProximalTrainer", "SequentialTrainer",
 ]

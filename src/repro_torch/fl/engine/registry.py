@@ -6,9 +6,8 @@
 and round loop from ``FLConfig`` (``cfg.trainer`` / ``cfg.round_mode``)
 unless the bundle owns its trainer (FedProx).
 
-This port registers the paper's five schemes (Sec. VI-B) and FedProx.
-The JAX package's batched cohort trainer raises ``NotImplementedError``
-naming the ROADMAP step that brings it.
+This port registers the paper's five schemes (Sec. VI-B) and FedProx,
+and both trainers: ``"sequential"`` and the batched ``"cohort"``.
 """
 
 from __future__ import annotations
@@ -29,11 +28,9 @@ from repro_torch.fl.engine.policies import (FullWidthAssignment,
                                             HeroesAssignment,
                                             TierWidthAssignment)
 from repro_torch.fl.engine.runner import EngineRunner
-from repro_torch.fl.engine.trainers import ProximalTrainer, SequentialTrainer
+from repro_torch.fl.engine.trainers import (CohortTrainer, ProximalTrainer,
+                                            SequentialTrainer)
 from repro_torch.fl.types import FLConfig
-
-# what later slices bring in, with the ROADMAP queue A step
-LATER_TRAINERS = {"cohort": "ROADMAP queue A step 7"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +63,7 @@ def register_scheme(name: str):
 
 TRAINERS: Dict[str, Callable[[], LocalTrainer]] = {
     "sequential": SequentialTrainer,
+    "cohort": CohortTrainer,
 }
 
 ROUND_MODES: Dict[str, Callable[[], RoundLoop]] = {
@@ -74,10 +72,7 @@ ROUND_MODES: Dict[str, Callable[[], RoundLoop]] = {
 }
 
 
-def _lookup(table, key, what, later=None):
-    if later and key in later:
-        raise NotImplementedError(f"{what}={key!r} is not ported yet "
-                                  f"({later[key]})")
+def _lookup(table, key, what):
     if key not in table:
         raise ValueError(f"unknown {what} {key!r}; have {sorted(table)}")
     return table[key]
@@ -92,8 +87,7 @@ def build_engine(scheme: str, model, parts_x, parts_y, test_batch, het,
     if bundle.trainer is not None:
         trainer = bundle.trainer()
     else:
-        trainer = _lookup(TRAINERS, cfg.trainer, "trainer",
-                          LATER_TRAINERS)()
+        trainer = _lookup(TRAINERS, cfg.trainer, "trainer")()
     loop = _lookup(ROUND_MODES, cfg.round_mode, "round_mode")()
     if eval_width is None:
         eval_width = next(iter(model.specs.values())).max_width

@@ -39,6 +39,9 @@ def check_ported(cfg: FLConfig) -> None:
     if cfg.agg_backend == "collective" and cfg.agg_devices > 1:
         later.append(f"agg_devices={cfg.agg_devices}: a merge across "
                      "devices (step 9)")
+    if cfg.trainer_mesh_devices > 1:
+        later.append(f"trainer_mesh_devices={cfg.trainer_mesh_devices}: "
+                     "a cohort's clients trained across devices (step 9)")
     if cfg.edge_groups > 1 or cfg.shard_server_state:
         later.append("edge_groups / shard_server_state (step 9)")
     if cfg.checkpoint_every > 0 or cfg.checkpoint_dir:

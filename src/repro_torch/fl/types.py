@@ -106,8 +106,9 @@ class FLConfig:
     tau_max: int = 50
     estimate: bool = True
     # --- engine knobs (repro_torch.fl.engine) ----------------------------
-    # Local-training backend: "sequential" (one local_train per client).
-    # "cohort" (stacked clients in one batched step) is not ported yet.
+    # Local-training backend: "sequential" (one local_train per client)
+    # or "cohort" (each group of clients of one width and batch size
+    # stacked and trained in one batched step).
     trainer: str = "sequential"
     # Round event loop: "sync" (paper Eq. 19 makespan round) or
     # "semi_async" (aggregate the fastest async_k of the clients in
@@ -130,6 +131,9 @@ class FLConfig:
     # on the run's device and raises for agg_devices > 1.
     agg_backend: str = "collective"
     agg_devices: int = 0
+    # The JAX package's cohort mesh (the client axis sharded over that
+    # many devices; 0 => all local devices).  The port trains a cohort on
+    # the run's device and raises for trainer_mesh_devices > 1.
     trainer_mesh_devices: int = 0
     # Sample-count-weighted aggregation: weight every client's merge
     # contribution by its shard size (K * s_n / sum(s) through the

@@ -6,12 +6,18 @@ one shared library per source under ``repro_torch/_build/`` (git-ignored)
 and loaded with :mod:`ctypes`.  Nothing is built or imported from CUDA
 when this package is imported: the CPU tests import every module.
 
-  compose        the paper's composition product, optional client axis
+  compose        the paper's composition product
                  (:mod:`repro_torch.kernels.compose`)
   rank_apply     fused rank-space dense application (x.v).u2
   compose_apply  fused compose+apply, the weight built in shared memory
   conv_rank      fused conv rank path: basis conv + coefficient contraction
                  (:mod:`repro_torch.kernels.conv_rank`)
+
+These four take an optional leading client axis C (a cohort of clients
+in one launch).  Their autograd Functions take it always, and under
+``torch.func.vmap`` a :class:`ClientVmap` rule folds ``vmap``'s axis into
+it, so a cohort trained under ``vmap`` launches each kernel once per
+layer, whatever its client count.
   decode_attention  one query per row over a ragged KV cache, split over
                  the keys and shared by the query group, online softmax
                  (:mod:`repro_torch.kernels.decode_attention`)
@@ -53,9 +59,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C launcher name and argument types per source file
 _SIGNATURES = {
     "compose": ("compose_f32", [_P, _P, _P] + [_I] * 9 + [_P]),
-    "rank_apply": ("rank_apply_f32", [_P] * 5 + [_I] * 7 + [_P]),
-    "compose_apply": ("compose_apply_f32", [_P] * 5 + [_I] * 8 + [_P]),
-    "conv_rank": ("conv_rank_f32", [_P] * 4 + [_I] * 15 + [_P]),
+    "rank_apply": ("rank_apply_f32", [_P] * 5 + [_I] * 8 + [_P]),
+    "compose_apply": ("compose_apply_f32", [_P] * 5 + [_I] * 9 + [_P]),
+    "conv_rank": ("conv_rank_f32", [_P] * 4 + [_I] * 16 + [_P]),
     "decode_attention": ("decode_attention", [_P] * 7 + [_I] * 8 + [_P]),
     "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 8 + [_P]),
     "rmsnorm": ("rmsnorm", [_P] * 3 + [_I] * 3 + [_F, _P]),
@@ -209,6 +215,86 @@ def check_operands(name: str, dtypes=(torch.float32,),
                             f"{', '.join(str(d) for d in dtypes)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous")
+
+
+def has_storage(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor has storage a kernel can be handed: False for
+    the batched tensors ``torch.func.vmap`` passes a function (their
+    ``data_ptr()`` raises), which reach a kernel only through a
+    :class:`ClientVmap` rule."""
+    try:
+        for t in tensors:
+            t.data_ptr()
+    except RuntimeError:
+        return False
+    return True
+
+
+def on_clients(real, vmapped, tensors, rest=()):
+    """``real(*tensors, *rest)`` on client-batched operands with storage;
+    under ``torch.func.vmap`` (operands without storage) the
+    :class:`ClientVmap` ``vmapped``, whose rule folds ``vmap``'s axis into
+    the client axis and comes back here."""
+    if has_storage(*tensors):
+        return real(*tensors, *rest)
+    return vmapped.apply(*tensors, *rest)
+
+
+class ClientVmap(torch.autograd.Function):
+    """The ``torch.func.vmap`` entry of a composition primitive.
+
+    A subclass names ``real``, the primitive on operands that have
+    storage (its autograd Function, or the kernel alone without a graph),
+    which takes them with or without a leading client axis, and ``rank``,
+    the rank of its first operand without that axis.  The ``vmap`` rule
+    moves ``vmap``'s axis of each tensor operand to the front (expanding
+    an unbatched one), where it becomes the client axis, or is folded
+    into the client axis the call already carries (:func:`fold_clients`),
+    and applies ``real`` once: a cohort under ``vmap`` takes one kernel
+    launch.  It runs only under ``vmap``: operands with storage go to
+    ``real`` directly (:func:`on_clients`), which keeps the calls outside
+    ``vmap`` free of the host cost of ``setup_context``-style Functions
+    (an ``inspect.signature`` a call)."""
+
+    real = None
+    rank = 0
+
+    @staticmethod
+    def forward(*args):
+        raise RuntimeError("ClientVmap is applied only to batched operands "
+                           "under torch.func.vmap (see on_clients)")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @classmethod
+    def vmap(cls, info, in_dims, *args):
+        n = sum(isinstance(a, torch.Tensor) for a in args)  # tensors first
+        # the call carries its own client axis: fold vmap's into it
+        merge = args[0].dim() - (in_dims[0] is not None) > cls.rank
+        tensors = fold_clients(info.batch_size, in_dims[:n], args[:n], merge)
+        y = on_clients(cls.real, cls, tensors, args[n:])
+        return (unfold_clients(info.batch_size, y) if merge else y), 0
+
+
+def fold_clients(batch: int, in_dims, tensors, merge: bool) -> list:
+    """The tensor operands of a :class:`ClientVmap` rule with ``vmap``'s
+    axis in front: each tensor with that axis at ``in_dims[i]`` (or
+    without it, None: shared by every member, so expanded) comes back as
+    (batch, ...), or with ``merge`` (the operands carry a client axis C
+    already) as (batch * C, ...)."""
+    out = []
+    for t, d in zip(tensors, in_dims):
+        t = t.movedim(d, 0) if d is not None else t.expand(batch, *t.shape)
+        out.append(t.reshape((-1,) + t.shape[2:]) if merge else t)
+    return out
+
+
+def unfold_clients(batch: int, t: torch.Tensor) -> torch.Tensor:
+    """Inverse of a merging :func:`fold_clients` for an output:
+    (batch * C, ...) -> (batch, C, ...), ``vmap``'s axis at 0."""
+    return t.reshape((batch, -1) + t.shape[1:])
 
 
 def no_grad_guard(name: str, *tensors: torch.Tensor) -> None:

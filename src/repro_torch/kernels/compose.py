@@ -24,14 +24,18 @@ Three primitives back the factorized client compute:
 Each ``*_kernel`` wrapper launches its CUDA kernel for a tensor on a CUDA
 device and takes its plain PyTorch version (in this module, or
 :func:`repro_torch.kernels.ref.compose_ref`) only for a tensor on the CPU.
+Each also takes a leading client axis on every operand (one launch for a
+cohort), which is how the primitives under ``torch.func.vmap`` over
+clients launch once (:class:`repro_torch.kernels.ClientVmap`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (SMEM_DEFAULT, SMEM_MAX, check_operands,
-                                 launch, round4, use_kernel)
+from repro_torch.kernels import (SMEM_DEFAULT, SMEM_MAX, ClientVmap,
+                                 check_operands, launch, on_clients, round4,
+                                 use_kernel)
 from repro_torch.kernels.ref import compose_ref
 
 Tensor = torch.Tensor
@@ -106,8 +110,9 @@ def compose_kernel(basis: Tensor, coeff: Tensor) -> Tensor:
 
 
 class _Compose(torch.autograd.Function):
-    """Kernel forward, einsum backward (reference ``_compose_vjp_fn``):
-    ``dv = g·uᵀ`` and ``du = vᵀ·g`` contract through R only."""
+    """Kernel forward, einsum backward (reference ``_compose_vjp_fn``), on
+    basis (ksq, I, R), coeff (m, R, O), or the two with a leading client
+    axis: ``dv = g·uᵀ`` and ``du = vᵀ·g`` contract through R only."""
 
     @staticmethod
     def forward(ctx, basis, coeff):
@@ -119,19 +124,23 @@ class _Compose(torch.autograd.Function):
         basis, coeff = ctx.saved_tensors
         m, O = coeff.shape[-3], coeff.shape[-1]
         g = g.reshape(g.shape[:-1] + (m, O))  # (..., ksq, I, m, O)
-        if basis.dim() == 4:
-            dv = torch.einsum("ckimo,cmro->ckir", g, coeff)
-            du = torch.einsum("ckir,ckimo->cmro", basis, g)
-        else:
-            dv = torch.einsum("kimo,mro->kir", g, coeff)
-            du = torch.einsum("kir,kimo->mro", basis, g)
+        dv = torch.einsum("...kimo,...mro->...kir", g, coeff)
+        du = torch.einsum("...kir,...kimo->...mro", basis, g)
         return dv, du
+
+
+class _ComposeVmap(ClientVmap):
+    """``_Compose`` under ``torch.func.vmap``: one launch for the cohort."""
+
+    real = staticmethod(_Compose.apply)
+    rank = 3  # basis (ksq, I, R)
 
 
 def compose(basis: Tensor, coeff: Tensor) -> Tensor:
     """Differentiable :func:`compose_kernel`: (ksq, I, R) x (m, R, O) ->
-    (ksq, I, m*O), optionally with a leading client axis."""
-    return _Compose.apply(basis, coeff)
+    (ksq, I, m*O), optionally with a leading client axis; under
+    ``torch.func.vmap`` over clients, one launch for the cohort."""
+    return on_clients(_Compose.apply, _ComposeVmap, (basis, coeff))
 
 
 # ---------------------------------------------------------------------------
@@ -140,23 +149,27 @@ def compose(basis: Tensor, coeff: Tensor) -> Tensor:
 
 
 def _u2_layout(u: Tensor, p: int, mode: str) -> Tensor:
-    """Coefficient blocks as the (g*R, D) matrix the fused kernels eat."""
-    R, O = u.shape[-2], u.shape[-1]
+    """Coefficient blocks (..., m, R, O) as the (..., g*R, D) matrix the
+    fused kernels eat (any leading client axes)."""
+    *lead, _, R, O = u.shape
     if mode == "grow_out":
-        return u.permute(1, 0, 2).reshape(R, p * O)
+        return u.transpose(-3, -2).reshape(*lead, R, p * O)
     if mode == "grow_in":
-        return u.reshape(p * R, O)
-    u4 = u.reshape(p, p, R, O)
-    return u4.permute(0, 2, 1, 3).reshape(p * R, p * O)
+        return u.reshape(*lead, p * R, O)
+    u4 = u.reshape(*lead, p, p, R, O)
+    return u4.transpose(-3, -2).reshape(*lead, p * R, p * O)
 
 
 def _fwd_math(xg: Tensor, v2: Tensor, u2: Tensor,
               with_t: bool = False):
-    """Plain version of the rank_apply kernel: t = xg·v (M, g, R), then
-    t reshaped to (M, g*R) ·u2; with ``with_t`` the pair (y, t)."""
-    M, g, I = xg.shape
-    t = (xg.reshape(M * g, I) @ v2).reshape(M, g, v2.shape[1])
-    y = t.reshape(M, -1) @ u2
+    """Plain version of the rank_apply kernel, on its operands xg
+    (M, g, I), v2 (I, R), u2 (g*R, D), each with the same leading client
+    axis or none: t = xg·v (M, g, R), then t reshaped to (M, g*R) ·u2;
+    with ``with_t`` the pair (y, t)."""
+    lead, (M, g, I) = xg.shape[:-3], xg.shape[-3:]
+    t = (xg.reshape(lead + (M * g, I)) @ v2).reshape(
+        lead + (M, g, v2.shape[-1]))
+    y = t.reshape(lead + (M, -1)) @ u2
     return (y, t) if with_t else y
 
 
@@ -174,17 +187,18 @@ def _rank_apply_smem(g: int, I: int, R: int, bm: int, bd: int) -> int:
     return 4 * (I * R4 + g * R4 * bd + bm * round4(g * I) + bm * g * R4)
 
 
-def _rank_apply_tiles(M: int, g: int, I: int, R: int,
-                      D: int) -> tuple[int, int, int]:
+def _rank_apply_tiles(M: int, g: int, I: int, R: int, D: int,
+                      C: int = 1) -> tuple[int, int, int]:
     """Rows and output columns one block owns, (bm, bd), and its shared
     bytes.  bd is D rounded up to 4, at most ``RA_COLS``; bm halves from
-    ``RA_ROWS`` while the grid has fewer than ``RA_BLOCKS`` blocks, and
-    while the block passes 48 KB.  The blocks tile the (M, D) output
-    exactly, the last row and column tiles ragged."""
+    ``RA_ROWS`` while the grid has fewer than ``RA_BLOCKS`` blocks over
+    all ``C`` clients, and while the block passes 48 KB.  The blocks tile
+    each client's (M, D) output exactly, the last row and column tiles
+    ragged."""
     bd = min(round4(D), RA_COLS)
     n_cols = -(-D // bd)
     bm = RA_ROWS
-    while bm > 1 and (-(-M // bm) * n_cols < RA_BLOCKS
+    while bm > 1 and (C * -(-M // bm) * n_cols < RA_BLOCKS
                       or _rank_apply_smem(g, I, R, bm, bd) > SMEM_DEFAULT):
         bm //= 2
     smem = _rank_apply_smem(g, I, R, bm, bd)
@@ -194,25 +208,39 @@ def _rank_apply_tiles(M: int, g: int, I: int, R: int,
     return bm, bd, smem
 
 
+def _dense_operands(name: str, xg: Tensor, v2: Tensor, w: Tensor,
+                    w_rank: int):
+    """Check a dense kernel's operands (xg (M, g, I), v2 (I, R) and its
+    coefficient ``w`` of rank ``w_rank``, each with the same leading
+    client axis or none) and return (C, M, g, I, R, D)."""
+    check_operands(name, xg=xg, v2=v2, w=w)
+    *lead, M, g, I = xg.shape
+    R, D = v2.shape[-1], w.shape[-1]
+    if (len(lead) > 1 or v2.shape != (*lead, I, R)
+            or w.shape != ((*lead, g * R, D) if w_rank == 2
+                           else (*lead, g, R, D))):
+        raise ValueError(f"{name}: xg {tuple(xg.shape)}, v2 "
+                         f"{tuple(v2.shape)}, {tuple(w.shape)} disagree")
+    return (lead[0] if lead else 1), M, g, I, R, D
+
+
 def rank_apply_kernel(xg: Tensor, v2: Tensor, u2: Tensor, *,
                       with_t: bool = False):
     """Fused two-stage contraction: xg (M, g, I) x v2 (I, R) x u2 (g*R, D)
     -> (M, D); the (M, g*R) rank intermediate stays in shared memory.
-    With ``with_t`` also returns it, as t (M, g, R): the pair (y, t)."""
+    With ``with_t`` also returns it, as t (M, g, R): the pair (y, t).
+    With a leading client axis C on all three operands (and the
+    results), one launch for the cohort; the unbatched call is its C = 1
+    case."""
     if not use_kernel(xg):
         return _fwd_math(xg, v2, u2, with_t)
-    check_operands("rank_apply", xg=xg, v2=v2, u2=u2)
-    M, g, I = xg.shape
-    I2, R = v2.shape
-    if I2 != I or u2.dim() != 2 or u2.shape[0] != g * R:
-        raise ValueError(f"rank_apply: xg {tuple(xg.shape)}, v2 "
-                         f"{tuple(v2.shape)}, u2 {tuple(u2.shape)} disagree")
-    D = u2.shape[1]
-    bm, bd, _ = _rank_apply_tiles(M, g, I, R, D)
-    y = torch.empty((M, D), device=xg.device, dtype=xg.dtype)
-    t = (torch.empty((M, g, R), device=xg.device, dtype=xg.dtype)
+    C, M, g, I, R, D = _dense_operands("rank_apply", xg, v2, u2, 2)
+    bm, bd, _ = _rank_apply_tiles(M, g, I, R, D, C)
+    lead = (C,) if xg.dim() == 4 else ()
+    y = torch.empty((*lead, M, D), device=xg.device, dtype=xg.dtype)
+    t = (torch.empty((*lead, M, g, R), device=xg.device, dtype=xg.dtype)
          if with_t else None)
-    launch("rank_apply", (xg, v2, u2, y, t), M, g, I, R, D, bm, bd)
+    launch("rank_apply", (xg, v2, u2, y, t), C, M, g, I, R, D, bm, bd)
     return (y, t) if with_t else y
 
 
@@ -220,54 +248,70 @@ def _rank_space_bwd(p: int, mode: str, x2: Tensor, v2: Tensor, u: Tensor,
                     t: Tensor, dy: Tensor):
     """Shared rank-space backward for ``rank_dense_apply`` and
     ``compose_dense_apply`` (same function, different forward
-    associations); every contraction routes through the R bottleneck."""
+    associations), on x2 (M, g*I), v2 (I, R), u (m, R, O), t and dy
+    (M, D), each with the same leading client axis or none; every
+    contraction routes through the R bottleneck."""
     R, O = u.shape[-2], u.shape[-1]
+    lead, M = x2.shape[:-2], x2.shape[-2]
     if mode == "grow_out":
-        dyr = dy.reshape(dy.shape[0], p, O)
-        dt = torch.einsum("mbo,bro->mr", dyr, u)
-        dx = dt @ v2.T
-        dv2 = x2.T @ dt
-        du = torch.einsum("mr,mbo->bro", t, dyr)
+        dyr = dy.reshape(lead + (M, p, O))
+        dt = torch.einsum("...mbo,...bro->...mr", dyr, u)
+        dx = dt @ v2.transpose(-1, -2)
+        dv2 = x2.transpose(-1, -2) @ dt
+        du = torch.einsum("...mr,...mbo->...bro", t, dyr)
         return dx, dv2, du
-    xr = x2.reshape(x2.shape[0], p, -1)
+    xr = x2.reshape(lead + (M, p, -1))
     if mode == "grow_in":
-        dt = torch.einsum("mo,aro->mar", dy, u)
-        du = torch.einsum("mar,mo->aro", t, dy)
+        dt = torch.einsum("...mo,...aro->...mar", dy, u)
+        du = torch.einsum("...mar,...mo->...aro", t, dy)
     else:
-        u4 = u.reshape(p, p, R, O)
-        dyr = dy.reshape(dy.shape[0], p, O)
-        dt = torch.einsum("mbo,abro->mar", dyr, u4)
-        du = torch.einsum("mar,mbo->abro", t, dyr).reshape(p * p, R, O)
-    dx = torch.einsum("mar,ir->mai", dt, v2).reshape(x2.shape)
-    dv2 = torch.einsum("mai,mar->ir", xr, dt)
+        u4 = u.reshape(lead + (p, p, R, O))
+        dyr = dy.reshape(lead + (M, p, O))
+        dt = torch.einsum("...mbo,...abro->...mar", dyr, u4)
+        du = torch.einsum("...mar,...mbo->...abro", t, dyr).reshape(
+            lead + (p * p, R, O))
+    dx = torch.einsum("...mar,...ir->...mai", dt, v2).reshape(x2.shape)
+    dv2 = torch.einsum("...mai,...mar->...ir", xr, dt)
     return dx, dv2, du
 
 
 def _records_graph(*tensors: Tensor) -> bool:
     """Whether autograd records a graph through these operands: grad mode
     on and one of them requiring grad (inside a ``Function.forward`` grad
-    mode is off, so the dense wrappers ask before they apply one)."""
+    mode is off, so the dense wrappers ask before they apply one).  Under
+    ``torch.func.vmap`` a batched operand reports no grad, so the question
+    waits for the :class:`ClientVmap` rule, which asks it of the real
+    operands."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _rank_args(x2: Tensor, v2: Tensor, u: Tensor, p: int, mode: str):
-    """rank_apply's operands for a dense layer: xg (M, g, I), v2, u2."""
+    """rank_apply's operands for a dense layer: xg (M, g, I), v2, u2, each
+    with the leading client axis of x2 (M, g*I) or none."""
     g = 1 if mode == "grow_out" else p
-    return (x2.reshape(x2.shape[0], g, -1).contiguous(), v2.contiguous(),
+    *lead, M, _ = x2.shape
+    return (x2.reshape(*lead, M, g, -1).contiguous(), v2.contiguous(),
             _u2_layout(u, p, mode).contiguous())
 
 
-class _RankDense(torch.autograd.Function):
-    """rank_apply kernel forward, rank-space backward (reference
-    ``_rank_dense_fn``); the kernel hands back the residual t it computed
-    on the way, so the forward runs no second contraction for it.  Applied
-    only when a graph is recorded: without one, ``rank_dense_apply``
-    launches the kernel alone."""
+class _DenseFunction(torch.autograd.Function):
+    """The two fused dense primitives' common autograd wiring, on x2
+    (M, g*I), v2 (I, R), u (m, R, O), or the three with a leading client
+    axis: the subclass's ``_kernel`` forward, the shared rank-space
+    backward.  The kernel hands back the residual t it computed on the
+    way, so the forward runs no second contraction for it.  Applied only
+    when a graph is recorded (:func:`_dense_real`): without one, the
+    kernel launches alone."""
 
     @staticmethod
-    def forward(ctx, x2, v2, u, p, mode):
-        y, t = rank_apply_kernel(*_rank_args(x2, v2, u, p, mode), with_t=True)
-        ctx.save_for_backward(x2, v2, u, t[:, 0] if mode == "grow_out" else t)
+    def _kernel(x2, v2, u, p, mode, with_t):
+        raise NotImplementedError
+
+    @classmethod
+    def forward(cls, ctx, x2, v2, u, p, mode):
+        y, t = cls._kernel(x2, v2, u, p, mode, True)
+        ctx.save_for_backward(x2, v2, u,
+                              t[..., 0, :] if mode == "grow_out" else t)
         ctx.p, ctx.mode = p, mode
         return y
 
@@ -277,22 +321,55 @@ class _RankDense(torch.autograd.Function):
         return dx, dv2, du, None, None
 
 
+def _dense_real(x2: Tensor, v2: Tensor, u: Tensor, p: int, mode: str,
+                fn) -> Tensor:
+    """``fn`` (a :class:`_DenseFunction`) on operands with storage where a
+    graph is recorded, else its kernel alone."""
+    if _records_graph(x2, v2, u):
+        return fn.apply(x2, v2, u, p, mode)
+    return fn._kernel(x2, v2, u, p, mode, False)
+
+
+def _dense_apply(fn, vmapped, x: Tensor, basis: Tensor,
+                 reduced_coeff: Tensor, p: int, mode: str) -> Tensor:
+    """A dense layer x (..., g*I) -> (..., D) through ``fn`` (``vmapped``
+    under vmap)."""
+    y = on_clients(_dense_real, vmapped,
+                   (x.reshape(-1, x.shape[-1]), basis[0], reduced_coeff),
+                   (p, mode, fn))
+    return y.reshape(x.shape[:-1] + (y.shape[-1],))
+
+
+class _RankDense(_DenseFunction):
+    """rank_apply kernel forward, rank-space backward (reference
+    ``_rank_dense_fn``)."""
+
+    @staticmethod
+    def _kernel(x2, v2, u, p, mode, with_t):
+        return rank_apply_kernel(*_rank_args(x2, v2, u, p, mode),
+                                 with_t=with_t)
+
+
+class _RankDenseVmap(ClientVmap):
+    """``rank_dense_apply`` under ``torch.func.vmap``: one launch for the
+    cohort, with or without a graph."""
+
+    real = staticmethod(_dense_real)
+    rank = 2  # x2 (M, g*I)
+
+
 def rank_dense_apply(x: Tensor, basis: Tensor, reduced_coeff: Tensor, p: int,
                      mode: str = "square") -> Tensor:
     """Rank-space dense application with a rank-space backward.
 
     x (..., pI_total), basis (1, I, R), reduced_coeff (m, R, O) gathered
     blocks -> (..., pO_total): what ``x @ compose(...)`` returns, up to
-    float re-association, without building the p-width weight.
+    float re-association, without building the p-width weight.  Without
+    a recorded graph the kernel launches alone; under ``torch.func.vmap``
+    over clients, once for the cohort.
     """
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if _records_graph(x2, basis, reduced_coeff):
-        y2 = _RankDense.apply(x2, basis[0], reduced_coeff, p, mode)
-    else:
-        y2 = rank_apply_kernel(*_rank_args(x2, basis[0], reduced_coeff, p,
-                                           mode))
-    return y2.reshape(lead + (y2.shape[-1],))
+    return _dense_apply(_RankDense, _RankDenseVmap, x, basis, reduced_coeff,
+                        p, mode)
 
 
 # ---------------------------------------------------------------------------
@@ -302,15 +379,18 @@ def rank_dense_apply(x: Tensor, basis: Tensor, reduced_coeff: Tensor, p: int,
 
 def _compose_apply_math(xg: Tensor, v2: Tensor, u3: Tensor,
                         with_t: bool = False):
-    """Plain version of the compose_apply kernel: per-group weights as one
-    batched einsum, then one grouped contraction; with ``with_t`` also
-    t = xg·v (M, g, R), the pair (y, t)."""
-    w = torch.einsum("ir,arj->aij", v2, u3)
-    y = torch.einsum("nai,aij->nj", xg, w)
+    """Plain version of the compose_apply kernel, on its operands xg
+    (M, g, I), v2 (I, R), u3 (g, R, D), each with the same leading client
+    axis or none: per-group weights as one batched einsum, then one
+    grouped contraction; with ``with_t`` also t = xg·v (M, g, R), the
+    pair (y, t)."""
+    w = torch.einsum("...ir,...arj->...aij", v2, u3)
+    y = torch.einsum("...nai,...aij->...nj", xg, w)
     if not with_t:
         return y
-    M, g, I = xg.shape
-    return y, (xg.reshape(M * g, I) @ v2).reshape(M, g, v2.shape[1])
+    lead, (M, g, I) = xg.shape[:-3], xg.shape[-3:]
+    return y, (xg.reshape(lead + (M * g, I)) @ v2).reshape(
+        lead + (M, g, v2.shape[-1]))
 
 
 # launch geometry of the compose_apply kernel (csrc/compose_apply.cu)
@@ -328,13 +408,14 @@ def _compose_apply_smem(g: int, I: int, R: int, bm: int, bd: int,
     return 4 * (I * round4(R) + g * R * bd + bm * round4(g * I) + kc * bd)
 
 
-def _compose_apply_tiles(M: int, g: int, I: int, R: int,
-                         D: int) -> tuple[int, int, int, int]:
+def _compose_apply_tiles(M: int, g: int, I: int, R: int, D: int,
+                         C: int = 1) -> tuple[int, int, int, int]:
     """Rows and output columns one block owns, (bm, bd), the rows of its
     (g*I, bd) weight tile built at a time (kc), and its shared bytes.  bd
     is D rounded up to 4, at most ``CA_COLS``; bm halves from ``CA_ROWS``
-    while the grid has fewer than ``CA_BLOCKS`` blocks, and while the
-    block with its whole weight tile passes 48 KB.  Where the whole tile
+    while the grid has fewer than ``CA_BLOCKS`` blocks over all ``C``
+    clients, and while the block with its whole weight tile passes 48
+    KB.  Where the whole tile
     still does not fit in 48 KB it is built in chunks of kc rows there, or,
     when not even ``CA_CHUNK_MIN`` rows fit beside the staged operands,
     in the largest chunk that fits in 227 KB.  The blocks tile the (M, D)
@@ -343,7 +424,7 @@ def _compose_apply_tiles(M: int, g: int, I: int, R: int,
     bd = min(round4(D), CA_COLS)
     n_cols = -(-D // bd)
     bm = CA_ROWS
-    while bm > 1 and (-(-M // bm) * n_cols < CA_BLOCKS
+    while bm > 1 and (C * -(-M // bm) * n_cols < CA_BLOCKS
                       or _compose_apply_smem(g, I, R, bm, bd, gI)
                       > SMEM_DEFAULT):
         bm //= 2
@@ -365,51 +446,49 @@ def compose_apply_kernel(xg: Tensor, v2: Tensor, u3: Tensor, *,
     """Fused compose+apply: xg (M, g, I) x v2 (I, R) x u3 (g, R, D) ->
     (M, D); each ``W_a = v2 @ u3[a]`` exists only in shared memory.  With
     ``with_t`` also returns t = xg·v2 (M, g, R), the residual of the
-    rank-space backward: the pair (y, t)."""
+    rank-space backward: the pair (y, t).  With a leading client axis C
+    on all three operands (and the results), one launch for the cohort;
+    the unbatched call is its C = 1 case."""
     if not use_kernel(xg):
         return _compose_apply_math(xg, v2, u3, with_t)
-    check_operands("compose_apply", xg=xg, v2=v2, u3=u3)
-    M, g, I = xg.shape
-    I2, R = v2.shape
-    if I2 != I or u3.dim() != 3 or tuple(u3.shape[:2]) != (g, R):
-        raise ValueError(f"compose_apply: xg {tuple(xg.shape)}, v2 "
-                         f"{tuple(v2.shape)}, u3 {tuple(u3.shape)} disagree")
-    D = u3.shape[2]
-    bm, bd, kc, _ = _compose_apply_tiles(M, g, I, R, D)
-    y = torch.empty((M, D), device=xg.device, dtype=xg.dtype)
-    t = (torch.empty((M, g, R), device=xg.device, dtype=xg.dtype)
+    C, M, g, I, R, D = _dense_operands("compose_apply", xg, v2, u3, 3)
+    bm, bd, kc, _ = _compose_apply_tiles(M, g, I, R, D, C)
+    lead = (C,) if xg.dim() == 4 else ()
+    y = torch.empty((*lead, M, D), device=xg.device, dtype=xg.dtype)
+    t = (torch.empty((*lead, M, g, R), device=xg.device, dtype=xg.dtype)
          if with_t else None)
-    launch("compose_apply", (xg, v2, u3, y, t), M, g, I, R, D, bm, bd, kc)
+    launch("compose_apply", (xg, v2, u3, y, t), C, M, g, I, R, D, bm, bd,
+           kc)
     return (y, t) if with_t else y
 
 
 def _compose_args(x2: Tensor, v2: Tensor, u: Tensor, p: int, mode: str):
-    """compose_apply's operands for a dense layer: xg (M, g, I), v2, u3."""
+    """compose_apply's operands for a dense layer: xg (M, g, I), v2, u3
+    (g, R, D), each with the leading client axis of x2 (M, g*I) or
+    none."""
     g = 1 if mode == "grow_out" else p
-    u3 = _u2_layout(u, p, mode).reshape(g, u.shape[-2], -1)
-    return (x2.reshape(x2.shape[0], g, -1).contiguous(), v2.contiguous(),
+    *lead, M, _ = x2.shape
+    u3 = _u2_layout(u, p, mode).reshape(*lead, g, u.shape[-2], -1)
+    return (x2.reshape(*lead, M, g, -1).contiguous(), v2.contiguous(),
             u3.contiguous())
 
 
-class _ComposeDense(torch.autograd.Function):
+class _ComposeDense(_DenseFunction):
     """compose_apply kernel forward, the shared rank-space backward
-    (reference ``_compose_dense_fn``).  Like ``_RankDense``, the kernel
-    hands back the residual t, and it is applied only when a graph is
-    recorded: without one, ``compose_dense_apply`` launches the kernel
-    alone."""
+    (reference ``_compose_dense_fn``)."""
 
     @staticmethod
-    def forward(ctx, x2, v2, u, p, mode):
-        y, t = compose_apply_kernel(*_compose_args(x2, v2, u, p, mode),
-                                    with_t=True)
-        ctx.save_for_backward(x2, v2, u, t[:, 0] if mode == "grow_out" else t)
-        ctx.p, ctx.mode = p, mode
-        return y
+    def _kernel(x2, v2, u, p, mode, with_t):
+        return compose_apply_kernel(*_compose_args(x2, v2, u, p, mode),
+                                    with_t=with_t)
 
-    @staticmethod
-    def backward(ctx, dy):
-        dx, dv2, du = _rank_space_bwd(ctx.p, ctx.mode, *ctx.saved_tensors, dy)
-        return dx, dv2, du, None, None
+
+class _ComposeDenseVmap(ClientVmap):
+    """``compose_dense_apply`` under ``torch.func.vmap``: one launch for
+    the cohort, with or without a graph."""
+
+    real = staticmethod(_dense_real)
+    rank = 2  # x2 (M, g*I)
 
 
 def compose_dense_apply(x: Tensor, basis: Tensor, reduced_coeff: Tensor,
@@ -421,11 +500,5 @@ def compose_dense_apply(x: Tensor, basis: Tensor, reduced_coeff: Tensor,
     memory, and the backward is the shared rank-space one.  Used by
     ``auto`` dispatch when ``fused_compose_gain < 1``.
     """
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if _records_graph(x2, basis, reduced_coeff):
-        y2 = _ComposeDense.apply(x2, basis[0], reduced_coeff, p, mode)
-    else:
-        y2 = compose_apply_kernel(*_compose_args(x2, basis[0], reduced_coeff,
-                                                 p, mode))
-    return y2.reshape(lead + (y2.shape[-1],))
+    return _dense_apply(_ComposeDense, _ComposeDenseVmap, x, basis,
+                        reduced_coeff, p, mode)

@@ -1,0 +1,65 @@
+"""The port's cohort runs against the JAX package's cohort runs.
+
+``trainer="cohort"`` on both engines, from the reference's own initial
+weights and the same numpy streams, wired as ``test_torch_schemes.py``
+holds runs: round logs and assignments equal, accuracy within 2 test
+samples, estimates within ``EST_TOL`` relative, final parameters within
+1e-4.  The reference pads a group's client count and τ to powers of two
+(masked clones and masked steps, to bound its recompiles); the port
+trains the real clients for the group's largest τ, which leaves each
+real client's result the same.
+"""
+
+import dataclasses
+
+import jax
+import pytest
+
+from repro.fl import FLConfig as JConfig
+from repro.fl import build_image_setup as j_setup
+from repro.fl import build_runner as j_build
+from repro_torch.convert import from_jax_params
+from repro_torch.fl import FLConfig as TConfig
+from repro_torch.fl import build_image_setup as t_setup
+from repro_torch.fl import build_runner as t_build
+from repro_torch.fl.engine import CohortTrainer
+from test_torch_cohort import one_thread  # noqa: F401 (an autouse fixture)
+from test_torch_engine import EST_TOL, _record
+from test_torch_schemes import BASE, _check
+
+
+@pytest.fixture(scope="module")
+def image_setup():
+    return t_setup(num_clients=8, device="cpu")
+
+
+# the reference's own materialize and rank_space paths differ by 1.0e-3
+# relative in one client's (sigma^2, G^2) in round 3 of this setup
+# (test_torch_engine.py), so the materialize run holds them to 2e-3
+@pytest.mark.parametrize("scheme,impl,est_tol", [
+    ("heroes", "materialize", 2e-3),
+    ("heroes", "rank_space", EST_TOL),
+    ("heroes", "auto", EST_TOL),
+    ("fedavg", "materialize", EST_TOL),
+])
+def test_cohort_run_matches_reference_cohort_run(scheme, impl, est_tol,
+                                                  image_setup):
+    """3 rounds of 3 clients on 8, ``trainer="cohort"`` on both engines
+    from the reference's initial weights: round logs, assignments and
+    estimates as ``test_torch_schemes.py`` holds them, final params
+    within 1e-4."""
+    knobs = dict(agg_backend="host", trainer="cohort", forward_impl=impl)
+    jr = j_build(scheme, *j_setup(num_clients=8),
+                 cfg=JConfig(**BASE, **knobs))
+    init = jax.device_get(jr.params)
+    jlog = _record(jr)
+    jh = jr.run(3)
+    ref = (init, jlog, jh, jax.device_get(jr.params))
+    tr = t_build(scheme, *image_setup, device="cpu",
+                 cfg=TConfig(**BASE, **knobs))
+    assert isinstance(tr.trainer, CohortTrainer)
+    tr.state = dataclasses.replace(tr.state,
+                                   params=from_jax_params(init, "cpu"))
+    tlog = _record(tr)
+    tr.run(3)
+    _check(ref, (tr, tlog), image_setup, est_tol)

@@ -160,13 +160,13 @@ def test_setup_data_and_clock_match_reference():
             assert jh.iter_time(n, 1e9) == th.iter_time(n, 1e9)
             assert jh.upload_time(n, 4e4) == th.upload_time(n, 4e4)
     loader = ClientDataLoader(tx, ty, "cpu")
-    steps, est = loader.draw_round(3, seed=0, rnd=2, tau=4, batch_size=16,
-                                   estimate=True)
+    xs, ys, (xe, ye) = loader.draw_round(3, seed=0, rnd=2, tau=4,
+                                         batch_size=16, estimate=True)
     rng = np.random.default_rng((0, 2, 3))
-    for batch in steps + est:
+    for x, y in zip(np.concatenate([xs, xe]), np.concatenate([ys, ye])):
         idx = rng.integers(0, len(ty[3]), 16)
-        np.testing.assert_array_equal(batch["x"].numpy(), tx[3][idx])
-        np.testing.assert_array_equal(batch["labels"].numpy(), ty[3][idx])
+        np.testing.assert_array_equal(x, tx[3][idx])
+        np.testing.assert_array_equal(y, ty[3][idx])
 
 
 def test_config_keeps_reference_defaults():
@@ -174,7 +174,7 @@ def test_config_keeps_reference_defaults():
 
 
 @pytest.mark.parametrize("knob,match", [
-    (dict(trainer="cohort"), "trainer.*step 7"),
+    (dict(trainer_mesh_devices=2), "trainer_mesh_devices.*step 9"),
     (dict(checkpoint_every=1, checkpoint_dir="ckpt"), "checkpoint.*step 8"),
     (dict(telemetry="memory"), "telemetry.*step 9"),
     (dict(participation="availability"), "participation.*step 9"),
