@@ -24,6 +24,11 @@ Run from the root of a checkout.  It
    call (the y, t pairs too), and each composition Function under
    ``torch.func.vmap`` over 3 and 10 clients, forward and gradient,
    launching its kernel once per call with and without a graph; the
+   four at the shapes of paths (k) and (l) (the residual net's square
+   stride-1 convs and grow_out stem on 32x32 images, the RNN's wx and
+   out over 512 token rows, the composes of its wh, embedding and head;
+   also with a client axis C = 4), forward and gradient, and
+   ``decompose`` on the card against the CPU; the
    two attention kernels in f32 and bf16, element-wise, at the
    transformer path's shapes, the reference's sweep shapes, head dims 80
    and 256 over several KV tiles, a query group of 8 over uneven key
@@ -80,7 +85,21 @@ Run from the root of a checkout.  It
    composition kernel's training launches must equal one per layer per
    forward of each cohort group (its largest τ, 2 loss forwards and 4
    gradient evaluations for schemes that ship estimates), fewer than the
-   sequential trainer's where a group holds several clients;
+   sequential trainer's where a group holds several clients; (k) the
+   residual net on ``cifar10`` (``build_image_setup(model_name="resnet",
+   task="cifar10", num_clients=10)``, the loader's synthetic fallback at
+   32x32x3): heroes materialize, rank_space and pinned auto, and fedavg;
+   (l) the RNN on ``shakespeare`` (``build_text_setup(task=
+   "shakespeare", num_clients=10)``, the fallback's 16 speakers under
+   the natural partition): Fig. 9's fedavg, flanc and heroes
+   (rank_space) and heroes materialize; 3 rounds of 4 clients each, then
+   (k)'s pinned auto and (l)'s rank_space heroes with the cohort
+   trainer beside the sequential run; each run's composition launches
+   must equal the formula (one client at a time, or a group at a time),
+   each run is held against the CPU (the RNN's, whose local SGD
+   amplifies rounding, in its schedule, round 1 at the shipped weights
+   and the card's weights scored on the CPU), and
+   ``build_text_setup()`` must resolve the RNN;
 4. traces one round of (c) with ``torch.profiler`` (device busy share,
    top kernels), with the sequential trainer and 4 clients and with the
    cohort trainer and 10, and prints the calibration
@@ -554,6 +573,7 @@ def check_kernels(torch):
             CONV_TOL, f"conv_rank {mode} p={p} s={stride} vs compose+conv")
 
     cohort = check_cohort_kernels(torch, rn, maxerr)
+    check_slice_kernels(torch, rn, maxerr)
 
     print("phase 2: gradients through the autograd Functions")
     for p in (1, 3):
@@ -745,6 +765,123 @@ def check_cohort_kernels(torch, rn, maxerr) -> dict:
     return launches
 
 
+# the shapes paths (k) and (l) put the composition kernels on, at p = 3
+# and the training batch of 16: the residual net's square stride-1 convs
+# and its grow_out stem on 32x32 images (label, mode, I), x (16, 32, 32,
+# g*I) -> (16, 32, 32, 24); the RNN's input projection wx (square, 16 ->
+# 48) and head out (grow_in, 48 -> vocab 64) on its (16, 32, 48) hidden
+# states, M = 512 rows (label, mode, I, O); and the composes of its
+# recurrence weight wh, embedding and head (label, ksq, I, m, O)
+SLICE_CONV = (("(k) b1a square s=1", "square", 8),
+              ("(k) stem grow_out", "grow_out", 3))
+SLICE_DENSE = (("(l) wx square", "square", 16, 16),
+               ("(l) out grow_in", "grow_in", 16, 64))
+SLICE_COMPOSE = (("(l) wh", 1, 16, 9, 16), ("(l) embed", 1, 64, 3, 16),
+                 ("(l) out", 1, 16, 3, 64))
+# decompose solves a least-squares system in f32 (cuSOLVER's gels on the
+# card, LAPACK's on the CPU), as tests/test_torch_composition.py holds it
+DECOMPOSE_TOL = 1e-4
+
+
+def check_slice_kernels(torch, rn, maxerr) -> None:
+    """Phase 2 at the shapes paths (k) and (l) put the four composition
+    kernels on (``SLICE_CONV``, ``SLICE_DENSE``, ``SLICE_COMPOSE``):
+    each kernel against its plain version, with a client axis C = 4 as
+    the cohort runs launch them, the (y, t) pairs, and the gradient
+    through each autograd Function on the layer's own input layout (the
+    RNN's dense layers take (B, T, pI)); then ``decompose`` on the card
+    against the CPU, and ``compose(decompose(w))`` against w for a weight
+    in the basis's span."""
+    from repro_torch.core.composition import (CompositionSpec, compose,
+                                              decompose)
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.compose import (_compose_apply_math, _fwd_math,
+                                             _u2_layout, compose_apply_kernel,
+                                             compose_dense_apply,
+                                             compose_kernel,
+                                             rank_apply_kernel,
+                                             rank_dense_apply)
+    from repro_torch.kernels.compose import compose as compose_fn
+    from repro_torch.kernels.conv_rank import (_fused_math, _u2_conv_layout,
+                                               conv_rank_apply,
+                                               conv_rank_kernel)
+
+    print("phase 2: the shapes of paths (k) and (l)")
+    for label, mode, I in SLICE_CONV:
+        g, m = (1, 3) if mode == "grow_out" else (3, 9)
+        for C in (1, 4):
+            lead = (C,) if C > 1 else ()
+            x, v, u = (rn(*lead, 16, 32, 32, g * I, scale=1.0),
+                       rn(*lead, 9, I, 8), rn(*lead, m, 8, 8))
+            u2 = _u2_conv_layout(u, 3, mode).contiguous()
+            got = conv_rank_kernel(x, v, u2, p=3, mode=mode, stride=1)
+            maxerr["conv_rank"] = max(maxerr["conv_rank"], err(
+                torch, got, _fused_math(x, v, u2, 3, mode, 1), CONV_TOL,
+                f"conv_rank {label} C={C} x{tuple(x.shape)}"))
+            if C == 1:
+                err(torch, got, ref.conv_rank_ref(x, v, u, 3, mode, 1),
+                    CONV_TOL, f"conv_rank {label} vs compose+conv")
+                grad_check(
+                    torch,
+                    lambda a, b, c, md=mode: conv_rank_apply(a, b, c, 3, md),
+                    lambda a, b, c, md=mode: ref.conv_rank_ref(a, b, c, 3,
+                                                               md, 1),
+                    (x, v, u), CONV_GRAD_TOL, f"conv_rank {label}")
+    for label, mode, I, O in SLICE_DENSE:
+        m = 9 if mode == "square" else 3
+        for C in (1, 4):
+            lead = (C,) if C > 1 else ()
+            xg, v, u = (rn(*lead, 512, 3, I, scale=1.0), rn(*lead, I, 8),
+                        rn(*lead, m, 8, O))
+            u2 = _u2_layout(u, 3, mode).contiguous()
+            u3 = u2.reshape(*lead, 3, 8, -1).contiguous()
+            what = f"{label} C={C} xg{tuple(xg.shape)}"
+            for name, kernel, plain, w in (
+                    ("rank_apply", rank_apply_kernel, _fwd_math, u2),
+                    ("compose_apply", compose_apply_kernel,
+                     _compose_apply_math, u3)):
+                maxerr[name] = max(maxerr[name], err(
+                    torch, kernel(xg, v, w), plain(xg, v, w), DENSE_TOL,
+                    f"{name} {what}"))
+                y, t = kernel(xg, v, w, with_t=True)
+                y0, t0 = plain(xg, v, w, with_t=True)
+                err(torch, y, y0, DENSE_TOL, f"{name} {what} with t: y")
+                maxerr[name] = max(maxerr[name], err(
+                    torch, t, t0, DENSE_TOL, f"{name} {what} with t: t"))
+        x, vd, ud = rn(16, 32, 3 * I, scale=1.0), rn(1, I, 8), rn(m, 8, O)
+        for name, fn in (("rank_dense_apply", rank_dense_apply),
+                         ("compose_dense_apply", compose_dense_apply)):
+            grad_check(torch,
+                       lambda a, b, c, f=fn, md=mode: f(a, b, c, 3, md),
+                       lambda a, b, c, md=mode: ref.compose_apply_ref(
+                           a, b, c, 3, md),
+                       (x, vd, ud), GRAD_TOL,
+                       f"{name} {label} x{tuple(x.shape)}")
+    for label, ksq, I, m, O in SLICE_COMPOSE:
+        for C in (1, 4):
+            lead = (C,) if C > 1 else ()
+            v, u = rn(*lead, ksq, I, 8), rn(*lead, m, 8, O)
+            maxerr["compose"] = max(maxerr["compose"], err(
+                torch, compose_kernel(v, u), ref.compose_ref(v, u),
+                DENSE_TOL, f"compose {label} C={C} {tuple(v.shape)}x"
+                           f"{tuple(u.shape)}"))
+        grad_check(torch, compose_fn, ref.compose_ref, (v[0], u[0]),
+                   GRAD_TOL, f"compose {label}")
+
+    # decompose: the residual net's square conv, a weight off and in the
+    # basis's span
+    spec = CompositionSpec(3, 8, 8, 8, ksq=9)
+    v, u = rn(9, 8, 8), rn(9, 8, 8)
+    for what, w in (("off the span", rn(9, 24, 24)),
+                    ("in the span", compose(v, u, 3, spec))):
+        got = decompose(w, v, 3, spec)
+        err(torch, got, decompose(w.cpu(), v.cpu(), 3, spec).to(got.device),
+            DECOMPOSE_TOL, f"decompose {what}: card vs CPU")
+    err(torch, got, u, DECOMPOSE_TOL, "decompose in the span: blocks back")
+    err(torch, compose(v, got, 3, spec), w, DECOMPOSE_TOL,
+        "compose(decompose(w)) vs w")
+
+
 def cohort_times(torch, rn) -> dict:
     """Timing records of the client-batched conv_rank, rank_apply and
     compose_apply at C in ``COHORT_TIMED_CS`` at the CNN's conv2 (square,
@@ -798,12 +935,17 @@ def cohort_times(torch, rn) -> dict:
 # hw, stride); D = 24 each
 CONV_TIMED = (("conv2 square", "square", 3, 8, 8, 2),
               ("conv1 grow_out", "grow_out", 1, 3, 8, 1),
-              ("conv1 grow_out 32x32", "grow_out", 1, 3, 32, 1),
-              ("conv2 square 32x32", "square", 3, 8, 32, 2))
-# rank_apply's: the CNN's classifier head and path (e)'s MLP up
-# projection at p = 3: (label, M, g, I, D)
-RANK_TIMED = (("fc grow_in", 16, 3, 8, 10),
-              ("path (e) up square", 256, 3, 16, 96))
+              ("conv1 grow_out 32x32 = path (k) stem", "grow_out", 1, 3, 32,
+               1),
+              ("conv2 square 32x32", "square", 3, 8, 32, 2),
+              ("path (k) b1a square 32x32", "square", 3, 8, 32, 1))
+# rank_apply's: the CNN's classifier head, path (e)'s MLP up projection
+# and path (l)'s input projection wx and head out over its 16 x 32 token
+# rows, at p = 3: (label, mode, M, g, I, D)
+RANK_TIMED = (("fc grow_in", "grow_in", 16, 3, 8, 10),
+              ("path (e) up square", "square", 256, 3, 16, 96),
+              ("path (l) wx square", "square", 512, 3, 16, 48),
+              ("path (l) out grow_in", "grow_in", 512, 3, 16, 64))
 
 
 def rank_kernel_times(torch, rn) -> dict:
@@ -841,8 +983,7 @@ def rank_kernel_times(torch, rn) -> dict:
             PEAK_F32_FLOPS, False,
             two_call=lambda x=x, v=v, u=u, md=mode, s=stride:
                 ref.conv_rank_ref(x, v, u, 3, md, s)))
-    for label, M, g, I, D in RANK_TIMED:
-        mode = "grow_in" if D == 10 else "square"
+    for label, mode, M, g, I, D in RANK_TIMED:
         m = 9 if mode == "square" else 3
         xg, v, u = rn(M, g, I, scale=1.0), rn(I, 8), rn(m, 8, D // g
                                                        if m == 9 else D)
@@ -873,19 +1014,28 @@ COMPOSE_APPLY_EDGES = ((17, 3, 8, 8, 10), (1000, 3, 16, 8, 96),
                        (1, 2, 16, 8, 64), (17, 3, 3, 6, 6),
                        (16, 1, 2048, 8, 10), (5, 3, 512, 8, 40))
 # compose's timed shapes at p = 3: the CNN's conv2 and fc layer (m*O =
-# 30, not a multiple of 4), path (e)'s MLP up projection, and the cohort
-# stack of conv2 over 10 clients: (label, C, ksq, I, m, O), rank 8
+# 30, not a multiple of 4), path (e)'s MLP up projection, the cohort
+# stack of conv2 over 10 clients, and path (l)'s recurrence weight wh
+# (composed on every forward, whatever the impl), embedding and head:
+# (label, C, ksq, I, m, O), rank 8
 COMPOSE_TIMED = (("conv2", 1, 9, 8, 9, 8), ("fc", 1, 1, 8, 3, 10),
                  ("path (e) up", 1, 1, 16, 9, 32),
-                 ("cohort C=10 conv2", 10, 9, 8, 9, 8))
+                 ("cohort C=10 conv2", 10, 9, 8, 9, 8),
+                 ("path (l) wh", 1, 1, 16, 9, 16),
+                 ("path (l) embed", 1, 1, 64, 3, 16),
+                 ("path (l) out", 1, 1, 16, 3, 64))
 # compose_apply's: the CNN's head (grow_in, p = 3), the calibration's head
 # (core/calibration.py _DENSE_SHAPE: grow_in, p = 2, 32 rows) and a wide
 # shape that no path runs compose_apply at, path (e)'s head shape (grow_in,
 # p = 3, vocab 64; path (e) runs rank_apply there), on the generic
-# instance: (label, M, g, I, D), rank 8
+# instance, and path (l)'s wx and out over its 512 token rows (``auto``
+# takes rank_apply there, so compose_apply runs them only where a caller
+# fuses the layer): (label, M, g, I, D), rank 8
 COMPOSE_APPLY_TIMED = (("fc grow_in", 16, 3, 8, 10),
                        ("calibration grow_in p=2", 32, 2, 8, 10),
-                       ("wide grow_in, no path", 256, 3, 16, 64))
+                       ("wide grow_in, no path", 256, 3, 16, 64),
+                       ("path (l) wx square shape", 512, 3, 16, 48),
+                       ("path (l) out grow_in shape", 512, 3, 16, 64))
 # kernel names a GEMM or contraction launches, none of which the fused
 # head's no-grad forward may run
 CONTRACTION_NAMES = ("gemm", "einsum", "matmul", "bmm", "dot", "xmma",
@@ -1563,16 +1713,23 @@ def timed_merges(torch, runner, device) -> list:
 def run_path(torch, setup, scheme, knobs, device, rounds=ROUNDS,
              clients=10, per_round=4, hook=None):
     """``rounds`` rounds of ``scheme`` on the image (CNN, ``clients``
-    clients) or text (transformer, 8 clients) setup, ``per_round``
-    clients per round; ``hook(runner)``, if given, runs before the first
-    round.  Returns (runner, seconds per round, summary, merge seconds
-    per round)."""
+    clients), text (transformer, 8 clients), resnet (``cifar10``,
+    ``clients`` clients) or rnn (``shakespeare``, ``clients`` clients)
+    setup, ``per_round`` clients per round; ``hook(runner)``, if given,
+    runs before the first round.  Returns (runner, seconds per round,
+    summary, merge seconds per round)."""
     from repro_torch.fl import (FLConfig, build_image_setup, build_runner,
                                 build_text_setup, summarize)
 
-    if setup == "image":
-        model, px, py, tb = build_image_setup(num_clients=clients,
-                                              device=device)
+    if setup in ("image", "resnet", "rnn"):
+        if setup == "rnn":
+            model, px, py, tb = build_text_setup(
+                task="shakespeare", num_clients=clients, device=device)
+        else:
+            model, px, py, tb = build_image_setup(
+                num_clients=clients, device=device,
+                **(dict(model_name="resnet", task="cifar10")
+                   if setup == "resnet" else {}))
         cfg = FLConfig(num_clients=clients, clients_per_round=per_round,
                        eval_every=1, **knobs)
     else:
@@ -1839,22 +1996,25 @@ def record_training(runner):
     return rec
 
 
-def first_results_close(torch, label, got, want) -> float:
+def first_results_close(torch, label, got, want,
+                        param_tol=COHORT_PARAM_TOL) -> float:
     """The cohort run's first ``train_all`` against the sequential run's
-    on the card: params, losses and estimates at the JAX package's
-    tolerances.  Returns the largest param difference."""
+    on the card: params within ``param_tol`` (atol, rtol; the JAX
+    package's tolerances by default), losses and estimates at the JAX
+    package's tolerances.  Returns the largest param difference."""
     from repro_torch.core.estimator import tree_leaves
 
     check(list(got) == list(want), f"({label}) first round's clients differ")
     worst = 0.0
-    atol, rtol = COHORT_PARAM_TOL
+    atol, rtol = param_tol
     for n, a in want.items():
         b = got[n]
         for la, lb in zip(tree_leaves(a.params), tree_leaves(b.params)):
             d = (lb - la).abs()
             worst = max(worst, float(d.max()))
             check(bool((d <= atol + rtol * la.abs()).all()),
-                  f"({label}) client {n} params differ from sequential")
+                  f"({label}) client {n} params differ from sequential "
+                  f"(max {float(d.max()):.3e})")
         check(abs(a.loss_before - b.loss_before) < COHORT_LOSS_TOL
               and abs(a.loss_after - b.loss_after) < COHORT_LOSS_TOL,
               f"({label}) client {n} losses differ from sequential")
@@ -1957,6 +2117,220 @@ def cohort_path(torch) -> tuple:
         r["max_param_diff_cpu"] = vs_cpu(torch, label, runner, cpu)
         recs[label] = r
     return counts_j, recs
+
+
+# paths (k) and (l): the paper's other two experiments, the residual net
+# on cifar10 and the RNN on shakespeare (Fig. 9's text task: fedavg, flanc
+# and heroes), each on 10 clients, 3 rounds of 4, with the loaders'
+# synthetic fallbacks at their defaults (32x32x3 images, 2000 + 400; T 32,
+# vocab 64, 16 speakers, the natural partition) and the models at full
+# width (P = 3): (path, setup, scheme, knobs, kernels it must launch).
+# Heroes evaluates a composed model, so every heroes run launches compose
+SLICE_RUNS = (
+    ("k", "resnet", "heroes", dict(forward_impl="materialize",
+                                   agg_backend="host"), {"compose"}),
+    ("k", "resnet", "heroes", dict(forward_impl="rank_space",
+                                   agg_backend="host"),
+     {"compose", "conv_rank", "rank_apply"}),
+    ("k", "resnet", "heroes", dict(PATHS["c"][1]),
+     {"compose", "conv_rank", "compose_apply"}),
+    ("k", "resnet", "fedavg", dict(forward_impl="materialize",
+                                   agg_backend="host"), set()),
+    ("l", "rnn", "fedavg", dict(forward_impl="materialize",
+                                agg_backend="host"), set()),
+    ("l", "rnn", "flanc", dict(forward_impl="rank_space",
+                               agg_backend="host"),
+     {"compose", "rank_apply"}),
+    ("l", "rnn", "heroes", dict(forward_impl="rank_space",
+                                agg_backend="host"),
+     {"compose", "rank_apply"}),
+    ("l", "rnn", "heroes", dict(forward_impl="materialize",
+                                agg_backend="host"), {"compose"}),
+)
+# each path's cohort run, beside the sequential run of SLICE_RUNS at this
+# index: (k) heroes pinned auto, (l) heroes rank_space
+SLICE_COHORT = {"k": 2, "l": 6}
+# (k)'s cohort run against its sequential run on the card: the weights
+# after round 1 (10 steps) as vs_cpu holds a card run, within 1e-3, since
+# the residual net's card runs move from each other and from the CPU's
+# by up to ~5e-5 over its 32x32 convs' training (path (j)'s CNN: 1.5e-7);
+# losses and estimates as path (j) holds them
+SLICE_COHORT_PARAM_TOL = (1e-3, 0.0)
+# the RNN's local SGD amplifies float rounding: the JAX package's own run
+# from weights moved by 1e-7 relative is 3.6e-5 away after 2 steps and
+# 6e-2 after 10 (tests/test_torch_resnet_rnn.py), so a card run and a CPU
+# run of path (l) agree in what is evaluated at round 1's shipped weights,
+# not in the weights they train to
+AT_SHIPPED_WEIGHTS = ("loss_before", "sigma_sq", "grad_sq")
+
+
+def _plain_assigns(assigns) -> dict:
+    """One round's assignments with block ids as lists, comparable with
+    ``==``."""
+    return {int(n): {k: (None if v is None else [int(i) for i in v])
+                     if k.endswith("_ids") else v for k, v in a.items()}
+            for n, a in assigns.items()}
+
+
+def _est_close(a: float, b: float) -> bool:
+    return abs(a - b) <= COHORT_EST_TOL[0] + COHORT_EST_TOL[1] * abs(a)
+
+
+def shipped_close(label, got, want) -> None:
+    """Round 1's client results of two runs from the same shipped weights:
+    the same clients, and ``AT_SHIPPED_WEIGHTS`` within
+    ``COHORT_EST_TOL``."""
+    check(list(got) == list(want), f"({label}) first round's clients differ")
+    for n, a in want.items():
+        b = got[n]
+        vals = dict(a.estimates, loss_before=a.loss_before)
+        other = dict(b.estimates, loss_before=b.loss_before)
+        for k in AT_SHIPPED_WEIGHTS:
+            if k in vals:
+                check(_est_close(vals[k], other[k]),
+                      f"({label}) client {n} {k} {other[k]} against "
+                      f"{vals[k]}")
+
+
+def rnn_vs_cpu(torch, label, runner, rec, cpu, cpu_rec) -> float:
+    """Hold a path-(l) card run against the same run on the CPU: schedule
+    and round 1's assignments equal, round 1's results at the shipped
+    weights within tolerance (``shipped_close``), and the card's final
+    weights, evaluated on the CPU, give the card's final accuracy within 2
+    test samples.  Returns that accuracy difference."""
+    import dataclasses
+
+    from repro_torch.convert import from_jax_params, to_numpy
+
+    n_test = int(cpu.test_batch["labels"].shape[0])
+    check(len(runner.history) == len(cpu.history),
+          f"({label}) round count differs from CPU")
+    for a, b in zip(runner.history, cpu.history):
+        check((a.traffic_bytes, a.makespan, a.mean_tau, a.stale) ==
+              (b.traffic_bytes, b.makespan, b.mean_tau, b.stale),
+              f"({label}) round {a.round} schedule differs from CPU")
+    check(_plain_assigns(rec["assigns"][0])
+          == _plain_assigns(cpu_rec["assigns"][0]),
+          f"({label}) round 1's assignments differ from CPU")
+    shipped_close(f"{label} vs CPU", rec["first"], cpu_rec["first"])
+    acc = cpu.aggregator.evaluate(dataclasses.replace(
+        cpu.state, params=from_jax_params(to_numpy(runner.params), "cpu")))
+    diff = abs(acc - runner.history[-1].accuracy)
+    print(f"      vs the CPU run: schedule equal, round 1 at the shipped "
+          f"weights within tolerance; CPU accuracy "
+          f"{[h.accuracy for h in cpu.history]}; the card's weights on the "
+          f"CPU: accuracy {acc} (card {runner.history[-1].accuracy})")
+    check(diff <= 2.0 / n_test,
+          f"({label}) the card's weights score {acc} on the CPU")
+    return diff
+
+
+def slice_run(torch, label, setup, scheme, knobs, expect, trainer):
+    """One run of path (k) or (l) on the card with ``trainer``, launch
+    counts set to 0 just before it: each composition kernel's training
+    launches (the run's less its evaluations') must equal
+    ``expected_training_launches``, the run must launch ``expect`` (a
+    dense scheme nothing); then the same run on the CPU holds it
+    (``vs_cpu``, or ``rnn_vs_cpu`` on the RNN).  Returns (runner, its
+    record, launch counts, printed record)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    knobs = dict(knobs, trainer=trainer)
+    hooked = {}
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    runner, secs, summ, _ = run_path(
+        torch, setup, scheme, knobs, DEVICE,
+        hook=lambda r: hooked.update(rec=record_training(r)))
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    rec = hooked["rec"]
+    train = {k: counts[k] - rec["eval"][k] for k in COMPOSITION}
+    want = expected_training_launches(runner, rec["assigns"],
+                                      trainer == "cohort")
+    r = {"s_per_round": secs, "peak_bytes": peak,
+         "launches": {k: n for k, n in counts.items() if n},
+         "training_launches": train, "expected": want,
+         "eval_launches": rec["eval"],
+         "accuracy": [h.accuracy for h in runner.history],
+         "mean_tau": [h.mean_tau for h in runner.history]}
+    if trainer == "cohort":
+        r["groups_per_round"] = [
+            len({(a["width"], min(runner.cfg.batch_size,
+                                  runner.data.num_samples(n)))
+                 for n, a in assigns.items()})
+            for assigns in rec["assigns"]]
+    print(f"  ({label}) {scheme} {knobs}: {json.dumps(r)}")
+    print(f"      summarize {json.dumps(summ)}")
+    check_run(torch, label, runner)
+    check(train == want, f"({label}) training launches {train}, expected "
+          f"{want}")
+    if expect:
+        for k in expect:
+            check(counts[k] > 0, f"({label}) never launched {k}")
+    else:
+        check(not any(counts.values()),
+              f"({label}) a dense scheme launched a kernel: {counts}")
+    hooked_cpu = {}
+    cpu, _, _, _ = run_path(
+        torch, setup, scheme, knobs, "cpu",
+        hook=lambda c: hooked_cpu.update(rec=record_training(c)))
+    if setup == "rnn":
+        r["card_weights_cpu_accuracy_diff"] = rnn_vs_cpu(
+            torch, label, runner, rec, cpu, hooked_cpu["rec"])
+    else:
+        r["max_param_diff_cpu"] = vs_cpu(torch, label, runner, cpu)
+    return runner, rec, counts, r
+
+
+def slice_path(torch) -> tuple:
+    """Paths (k) and (l): every ``SLICE_RUNS`` run with the sequential
+    trainer, then each path's ``SLICE_COHORT`` run with the cohort
+    trainer, held against its sequential run on the card (round 1's
+    results: all of them on the residual net, ``AT_SHIPPED_WEIGHTS`` on
+    the RNN) and against the CPU; and ``build_text_setup()`` with no model
+    name resolves the RNN.  Returns (launch counts by path, records)."""
+    from repro_torch.fl import build_text_setup
+    from repro_torch.kernels import KERNELS
+
+    model = build_text_setup(device=DEVICE)[0]
+    check(model.name == "rnn",
+          f"build_text_setup()'s default model is {model.name}")
+    print(f"  build_text_setup() resolves {model.name!r} "
+          f"(vocab {model.num_classes})")
+    by_path = {"k": {k: 0 for k in KERNELS}, "l": {k: 0 for k in KERNELS}}
+    recs = {"k": {}, "l": {}}
+    seq = {}
+    for i, (path, setup, scheme, knobs, expect) in enumerate(SLICE_RUNS):
+        label = f"{path} {scheme} {knobs['forward_impl']}"
+        runner, rec, counts, recs[path][label] = slice_run(
+            torch, label, setup, scheme, knobs, expect, "sequential")
+        seq[i] = (runner, rec)
+        for k, n in counts.items():
+            by_path[path][k] += n
+    for path, i in SLICE_COHORT.items():
+        _, setup, scheme, knobs, expect = SLICE_RUNS[i]
+        label = f"{path} {scheme} {knobs['forward_impl']} cohort"
+        runner, rec, counts, r = slice_run(torch, label, setup, scheme,
+                                           knobs, expect, "cohort")
+        seq_runner, seq_rec = seq[i]
+        check(_plain_assigns(rec["assigns"][0])
+              == _plain_assigns(seq_rec["assigns"][0]),
+              f"({label}) round 1's assignments differ from sequential")
+        if setup == "rnn":
+            shipped_close(f"{label} vs sequential", rec["first"],
+                          seq_rec["first"])
+        else:
+            r["first_round_diff_sequential"] = first_results_close(
+                torch, label, rec["first"], seq_rec["first"],
+                SLICE_COHORT_PARAM_TOL)
+        r["sequential_training_launches"] = recs[path][
+            label.replace(" cohort", "")]["training_launches"]
+        recs[path][label] = r
+        for k, n in counts.items():
+            by_path[path][k] += n
+    return by_path, recs
 
 
 def serve_path(torch, model, params):
@@ -2363,6 +2737,13 @@ def main_path(torch, rt):
     by_path["j"], cohort_recs = cohort_path(torch)
     scheme_recs["j"] = cohort_recs
 
+    # (k) the residual net on cifar10, (l) the RNN on shakespeare
+    print(f"  (k) resnet on cifar10, (l) rnn on shakespeare, {ROUNDS} rounds "
+          "each, sequential, then cohort beside it")
+    counts, slice_recs = slice_path(torch)
+    by_path.update(counts)
+    scheme_recs.update(slice_recs)
+
     for counts in by_path.values():
         for k, n in counts.items():
             launches[k] += n
@@ -2443,7 +2824,7 @@ def main() -> int:
     records.update(check_ssd_rmsnorm(torch))
     launches, by_path, zoo_stats, scheme_recs = main_path(torch, rt)
     print(f"path (g) {json.dumps(zoo_stats)}")
-    print(f"paths (h), (i), (j) {json.dumps(scheme_recs)}")
+    print(f"paths (h)-(l) {json.dumps(scheme_recs)}")
     trace_round(torch)
     trace_round(torch, "j", trainer="cohort", per_round=10)
     print(f"calibration {json.dumps(calibration_record(torch))}")

@@ -4,10 +4,12 @@ The JAX package keeps its parameters as pytrees of arrays, and both
 packages use the same layouts, so converting is a copy:
 
 * the FL models: nested dicts of ``{"basis", "coeff"}`` factors per layer,
-  or dense ``(ksq, I, O)`` weights (the CNN's and the composed
-  transformer's alike, keyed by layer name), with HWIO-ordered
-  ``(ksq, I, O)`` weights, ``(ksq, I, R)`` bases and ``(blocks, R, O)``
-  coefficients;
+  or dense ``(ksq, I, O)`` weights (the CNN's, the residual net's, the
+  RNN's and the composed transformer's alike, keyed by layer name), with
+  HWIO-ordered ``(ksq, I, O)`` weights, ``(ksq, I, R)`` bases and
+  ``(blocks, R, O)`` coefficients; the RNN's embedding is a
+  ``(1, vocab, R)`` basis or a ``(1, vocab, pE)`` weight, gathered by
+  row;
 * the model zoo (``repro.models.model.init``): ``{"embed", "unembed",
   "final_norm", "stack"}``, where the hybrid stack holds ``"mamba"`` and
   ``"mamba_norms"`` with every leaf stacked ``(nsuper, attn_every, ...)``

@@ -7,11 +7,13 @@ from repro_torch.core.aggregation import (  # noqa: F401
     zero_pad,
 )
 from repro_torch.core.composition import (  # noqa: F401
+    CompositionPlan,
     CompositionSpec,
     apply_factors,
     apply_flops,
     compose,
     compose_flops,
+    decompose,
     dense_apply_flops,
     gather_blocks,
     init_factors,

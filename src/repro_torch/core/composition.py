@@ -20,7 +20,7 @@ card, its plain version on the CPU, and one launch for a cohort under
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -302,3 +302,127 @@ def conv_rank_overhead(calibration=None, device=None) -> float:
     from repro_torch.core.calibration import get_calibration
 
     return float(get_calibration(device).conv_rank_overhead)
+
+
+def decompose(weight: Tensor, basis: Tensor, p: int,
+              spec: CompositionSpec) -> Tensor:
+    """Least-squares projection of a materialised p-width weight back onto
+    the span of ``basis``:  û* = argmin_û ‖v·û − w‖²  (per ksq slice).
+
+    Used only by parity experiments / materialised baselines: the
+    factorized training path never needs it (paper Alg. 2 line 10 is an
+    identity there because the factors are the parameters).
+
+    The system ``A û = B`` has ``A`` the ``(ksq·I, R)`` flattened basis.
+    It is solved with ``torch.linalg.lstsq``, whose only CUDA driver
+    (``gels``) assumes ``A`` of full column rank; the reference's
+    ``jnp.linalg.lstsq`` returns the minimum-norm solution, which is the
+    same solution there.  A spec with ``ksq·I < R`` cannot have full
+    column rank, so it raises instead.
+
+    Returns ``(p^2, R, O)`` reduced-coefficient blocks.
+    """
+    ksq, pI, pO = weight.shape
+    I, O = spec.base_in, spec.base_out
+    if (pI, pO) != (p * I, p * O):
+        raise ValueError("weight shape inconsistent with width/spec")
+    if ksq * I < spec.rank:
+        raise ValueError(
+            f"decompose needs a basis of full column rank: ksq*I = "
+            f"{ksq * I} < rank {spec.rank}")
+    # invert the compose reshape: (ksq, p, I, p, O) -> (ksq, I, p*p, O)
+    w = weight.reshape(ksq, p, I, p, O).permute(0, 2, 1, 3, 4)
+    # flatten basis over (ksq, I): A (ksq*I, R), B (ksq*I, m*O)
+    A = basis.reshape(ksq * I, spec.rank)
+    B = w.reshape(ksq * I, p * p * O)
+    sol = torch.linalg.lstsq(A, B, driver="gels").solution
+    # (R, p*p*O) -> (p*p, R, O)
+    return sol.reshape(spec.rank, p * p, O).permute(1, 0, 2)
+
+
+# ---------------------------------------------------------------------------
+# Model-level composition plans
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    """One factorized weight inside a model: its spec and parameter names."""
+
+    name: str
+    spec: CompositionSpec
+
+
+class CompositionPlan:
+    """The set of factorized weights in a model plus shared block counters.
+
+    Heroes tracks one update-times counter vector per factorized weight; all
+    weights in a model share the same width assignment ``p_n`` per client,
+    so one global counter (the paper's ``c_i``) of size ``P^2`` serves, and
+    the block indices are reused for every layer (Fig. 1/3).
+    """
+
+    def __init__(self, layers: Dict[str, CompositionSpec], max_width: int):
+        ps = {s.max_width for s in layers.values()}
+        if ps != {max_width}:
+            raise ValueError(
+                f"all layer specs must share max_width={max_width}, got {ps}")
+        self.layers = dict(layers)
+        self.max_width = max_width
+        self.num_blocks = max_width * max_width
+
+    def init(self, gen: torch.Generator, device=None,
+             dtype: torch.dtype = torch.float32
+             ) -> Dict[str, Dict[str, Tensor]]:
+        """Random factors for every layer, drawn from ``gen`` in sorted
+        layer order, on ``device`` (the CUDA card unless the caller asks
+        for the CPU).  The port's generator is not JAX's, so the draws
+        differ from the reference's ``init`` by construction."""
+        from repro_torch import resolve_device
+
+        device = resolve_device(device)
+        params = {}
+        for name, spec in sorted(self.layers.items()):
+            v, u = init_factors(gen, spec, device)
+            params[name] = {"basis": v.to(dtype), "coeff": u.to(dtype)}
+        return params
+
+    def reduce(self, params, block_ids) -> Dict[str, Dict[str, Tensor]]:
+        """Ship-to-client view: full basis + gathered coefficient blocks.
+
+        ``block_ids`` come from the shared ``P^2`` counter, so they are
+        only valid for "square" layers; anchored-mode layers hold ``P``
+        blocks and need their own id set.  Ids are validated against each
+        layer's ``spec.num_blocks``.
+        """
+        ids = np.asarray(block_ids)
+        out = {}
+        for name, spec in self.layers.items():
+            if ids.size and (ids.min() < 0 or ids.max() >= spec.num_blocks):
+                raise ValueError(
+                    f"layer {name!r} ({spec.mode}) has {spec.num_blocks} "
+                    f"blocks but got ids in [{ids.min()}, {ids.max()}] — "
+                    "anchored layers need their own id set, not the "
+                    "shared P^2-counter ids")
+            out[name] = {
+                "basis": params[name]["basis"],
+                "coeff": gather_blocks(params[name]["coeff"], ids),
+            }
+        return out
+
+    def compose_all(self, reduced_params, p: int) -> Dict[str, Tensor]:
+        """Materialise every layer weight at width p from reduced factors."""
+        return {
+            name: compose(reduced_params[name]["basis"],
+                          reduced_params[name]["coeff"], p, spec)
+            for name, spec in self.layers.items()
+        }
+
+    def traffic_bytes(self, p: int, bytes_per_param: int = 4) -> int:
+        """Upload/download payload for a width-p client (basis + blocks)."""
+        return bytes_per_param * sum(
+            spec.params_factorized(p) for spec in self.layers.values())
+
+    def materialized_bytes(self, p: int, bytes_per_param: int = 4) -> int:
+        return bytes_per_param * sum(
+            spec.params_materialized(p) for spec in self.layers.values())

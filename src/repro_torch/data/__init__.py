@@ -1,8 +1,10 @@
 """Federated dataset subsystem: the dataset and partitioner registries
 and the client data pipeline (numpy host arrays, tensors on the device).
 
-The ``synthetic_image`` and ``synthetic_text`` datasets are registered in
-this port so far.
+Registered datasets: the ``synthetic_image`` and ``synthetic_text``
+stand-ins, and the CIFAR-10 (binary batches or npz) and Shakespeare (text)
+loaders, which read local files under ``data_root`` or fall back to a
+deterministic synthetic set, cached as npz (:mod:`repro_torch.data.cache`).
 """
 
 from repro_torch.data.base import (  # noqa: F401
@@ -32,3 +34,5 @@ from repro_torch.data.synthetic import (  # noqa: F401
     SyntheticTextTask,
     lm_batches,
 )
+from repro_torch.data import cifar10 as _cifar10  # noqa: F401  (registers "cifar10")
+from repro_torch.data import shakespeare as _shakespeare  # noqa: F401  ("shakespeare")

@@ -10,9 +10,14 @@ Metadata keys the rest of the system reads:
   modality          "image" | "text"
   num_classes       image tasks: label count (model output dim)
   vocab             text tasks: token count (model output dim)
+  natural_ids       optional (N,) int array: per-train-sample group id
+                    (e.g. Shakespeare speaker) consumed by the
+                    "natural" partitioner
   partition_labels  optional (N,) labels the label-based partitioners
                     split on; defaults to ``y`` for image tasks
-  source            "synthetic" for the generated stand-ins
+  source            "files" | "synthetic": whether real data was found
+                    under ``data_root`` or the deterministic fallback
+                    was generated
 """
 
 from __future__ import annotations
@@ -22,10 +27,6 @@ from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
-
-# datasets of the JAX package that later slices of the port bring in
-_LATER = {"cifar10": "ROADMAP queue A step 7",
-          "shakespeare": "ROADMAP queue A step 7 (rnn)"}
 
 
 @dataclasses.dataclass
@@ -102,11 +103,12 @@ def register_dataset(name: str):
 
 
 def load_dataset(name: str, **kwargs) -> FederatedDataset:
-    """Look up and invoke a registered loader (``seed`` and the loader's
-    own keywords pass through)."""
-    if name in _LATER and name not in DATASETS:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet ({_LATER[name]})")
+    """Look up and invoke a registered loader.
+
+    Common kwargs every loader accepts: ``seed`` (fallback generation
+    seed), ``data_root`` (where real files are searched), ``cache_dir``
+    (npz cache location, see :mod:`repro_torch.data.cache`).
+    """
     if name not in DATASETS:
         raise KeyError(f"unknown dataset {name!r}; have {sorted(DATASETS)}")
     return DATASETS[name](**kwargs)

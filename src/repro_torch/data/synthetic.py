@@ -94,8 +94,13 @@ def lm_batches(seqs: np.ndarray, batch: int, rng: np.random.Generator):
 
 @register_dataset("synthetic_image")
 def load_synthetic_image(seed: int = 0, noise: float = 1.2,
+                         data_root=None, cache_dir=None,
                          **task_kw) -> FederatedDataset:
-    """SyntheticImageTask as a registry dataset."""
+    """SyntheticImageTask as a registry dataset.
+
+    ``data_root``/``cache_dir`` are accepted for loader-signature parity
+    but unused: generation is already in-memory deterministic.
+    """
     task = SyntheticImageTask(seed=seed, noise=noise, **task_kw)
     return FederatedDataset(
         name="synthetic_image",
@@ -108,11 +113,13 @@ def load_synthetic_image(seed: int = 0, noise: float = 1.2,
 
 
 @register_dataset("synthetic_text")
-def load_synthetic_text(seed: int = 0, **task_kw) -> FederatedDataset:
+def load_synthetic_text(seed: int = 0, data_root=None, cache_dir=None,
+                        **task_kw) -> FederatedDataset:
     """SyntheticTextTask as a registry dataset.
 
     No natural ids: the ``natural`` partitioner falls back to contiguous
-    shards, as in the reference.
+    shards, as in the reference.  ``data_root``/``cache_dir`` are unused,
+    as for the image stand-in.
     """
     task = SyntheticTextTask(seed=seed, **task_kw)
     return FederatedDataset(

@@ -1,13 +1,14 @@
 """Federated-learning runtime: Heroes + baselines over a simulated
-heterogeneous edge network (paper Sec. III / VI), on the CNN and the
-composed transformer (training and greedy-decode serving)."""
+heterogeneous edge network (paper Sec. III / VI), on the CNN, the residual
+net, the RNN and the composed transformer (training and greedy-decode
+serving)."""
 
 from repro_torch.fl.engine import (SCHEMES, EngineRunner, ServerState,
                                    build_engine, register_scheme)
 from repro_torch.fl.heterogeneity import HeterogeneityModel
 from repro_torch.fl.models import (MODELS, ComposedLayer, FLModelDef,
                                    LayerHint, get_model, make_cnn,
-                                   register_model)
+                                   make_resnet, make_rnn, register_model)
 from repro_torch.fl.population import SCHEDULERS
 from repro_torch.fl.simulation import (build_image_setup, build_runner,
                                        build_setup, build_text_setup,
@@ -21,7 +22,7 @@ __all__ = [
     "SCHEMES", "EngineRunner", "ServerState", "build_engine",
     "register_scheme", "HeterogeneityModel",
     "MODELS", "ComposedLayer", "FLModelDef", "LayerHint", "get_model",
-    "make_cnn", "register_model", "SCHEDULERS",
+    "make_cnn", "make_resnet", "make_rnn", "register_model", "SCHEDULERS",
     "build_image_setup", "build_runner", "build_setup", "build_text_setup",
     "run_scheme", "summarize", "time_to_accuracy", "traffic_to_accuracy",
     "make_transformer", "serving_weights", "greedy_decode",

@@ -28,8 +28,9 @@ under a ``forward_impl`` knob:
 Layers reach the card's kernels through those paths: ``compose`` (every
 materialised layer), ``conv_rank_apply`` (rank-space convs),
 ``rank_dense_apply`` (rank-space dense layers) and
-``compose_dense_apply`` (``fused_compose`` dense layers).  The CNN and
-the composed transformer (:mod:`repro_torch.fl.transformer`) are ported.
+``compose_dense_apply`` (``fused_compose`` dense layers).  The CNN, the
+residual net and the RNN are defined here, the composed transformer in
+:mod:`repro_torch.fl.transformer`.
 """
 
 from __future__ import annotations
@@ -55,10 +56,6 @@ Tensor = torch.Tensor
 
 FORWARD_IMPLS = ("auto", "materialize", "rank_space")
 
-# models of the JAX package that later slices of the port bring in
-_LATER = {"resnet": "ROADMAP queue A step 7",
-          "rnn": "ROADMAP queue A step 7"}
-
 
 @dataclasses.dataclass(frozen=True)
 class LayerHint:
@@ -70,7 +67,8 @@ class LayerHint:
         input geometry.
       apps_fn: optional ``(data_shape) -> apps_per_sample`` deriving the
         count from the actual input shape ``(B, ...)``.
-      rank_capable: False pins the layer to materialisation.
+      rank_capable: False pins the layer to materialisation (the RNN's
+        recurrence weight, composed once and reused T times).
       dense_apply_free: the materialised application costs no FLOPs.
       basis_gather: the rank path's basis projection is a gather.
     """
@@ -125,6 +123,9 @@ class ComposedLayer:
         if self.kind == "embed":
             return _apply_embed(entry, x, width, self.spec)
         return _apply_dense(entry, x, width, self.spec)
+
+    def materialized(self, entry, width: int) -> Tensor:
+        return _materialized(entry, width, self.spec)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -345,9 +346,6 @@ def register_model(name: str, *, modality: str = "image"):
 
 
 def get_model(name: str) -> ModelEntry:
-    if name in _LATER and name not in MODEL_REGISTRY:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet ({_LATER[name]})")
     try:
         return MODEL_REGISTRY[name]
     except KeyError:
@@ -395,6 +393,15 @@ def _apply_embed(entry, tokens: Tensor, width: int,
         y = torch.einsum("...r,bro->...bo", emb_r, entry["coeff"])
         return y.reshape(y.shape[:-2] + (width * spec.base_out,))
     return entry[0][idx]
+
+
+def _materialized(entry, width: int, spec: CompositionSpec) -> Tensor:
+    """Force-compose a layer the forward needs as a dense tensor (the
+    RNN's recurrence weight: composed once per evaluation, reused T times
+    in the loop)."""
+    if isinstance(entry, dict):
+        return compose(entry["basis"], entry["coeff"], width, spec)
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -446,10 +453,133 @@ def make_cnn(max_width: int = 3, base: int = 8, rank: int = 8,
     return FLModelDef.from_layers("cnn", layers, forward, flops, num_classes)
 
 
-MODELS = {"cnn": make_cnn}
+# ---------------------------------------------------------------------------
+# ResNet-ish (reduced stand-in for the paper's ResNet-18)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def make_resnet(max_width: int = 3, base: int = 8, rank: int = 8,
+                num_classes: int = 10, in_ch: int = 3) -> FLModelDef:
+    conv_hint = LayerHint(64, lambda s: s[1] * s[2])  # stride-1 convs
+    layers = {
+        "stem": ComposedLayer(
+            "stem",
+            CompositionSpec(max_width, rank, in_ch, base, ksq=9, mode="grow_out"),
+            kind="conv", hint=conv_hint),
+        **{name: ComposedLayer(
+            name, CompositionSpec(max_width, rank, base, base, ksq=9),
+            kind="conv", hint=conv_hint)
+           for name in ("b1a", "b1b", "b2a", "b2b")},
+        "fc": ComposedLayer(
+            "fc",
+            CompositionSpec(max_width, rank, base, num_classes, ksq=1,
+                            mode="grow_in"),
+            hint=LayerHint(apps_per_sample=1)),
+    }
+
+    def forward(w, width, batch):
+        x = batch["x"]
+        x = torch.relu(layers["stem"].apply(w["stem"], x, width))
+        h = torch.relu(layers["b1a"].apply(w["b1a"], x, width))
+        x = torch.relu(x + layers["b1b"].apply(w["b1b"], h, width))
+        h = torch.relu(layers["b2a"].apply(w["b2a"], x, width))
+        x = torch.relu(x + layers["b2b"].apply(w["b2b"], h, width))
+        x = x.mean(dim=(1, 2))
+        return layers["fc"].apply(w["fc"], x, width)
+
+    def flops(width, hw: int = 8):
+        p = width
+        f = 2 * 9 * in_ch * (p * base) * hw * hw
+        f += 4 * 2 * 9 * (p * base) ** 2 * hw * hw
+        f += 2 * (p * base) * num_classes
+        return 3 * f
+
+    return FLModelDef.from_layers("resnet", layers, forward, flops,
+                                  num_classes)
+
+
+# ---------------------------------------------------------------------------
+# RNN (Shakespeare stand-in: next-token prediction)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def make_rnn(max_width: int = 3, base: int = 16, rank: int = 8,
+             vocab: int = 64) -> FLModelDef:
+    seq_len = lambda s: s[1]  # noqa: E731 — tokens (B, T)
+    layers = {
+        # embedding application is a gather on both paths: materialised
+        # rows cost ~0, and the rank path gathers R-length basis rows
+        # then pays only the coefficient contraction per token
+        "embed": ComposedLayer(
+            "embed",
+            CompositionSpec(max_width, rank, vocab, base, ksq=1,
+                            mode="grow_out"),
+            kind="embed",
+            hint=LayerHint(32, seq_len, dense_apply_free=True,
+                           basis_gather=True)),
+        "wx": ComposedLayer(
+            "wx", CompositionSpec(max_width, rank, base, base, ksq=1),
+            hint=LayerHint(32, seq_len)),
+        # the recurrence weight: composed once, reused T times per
+        # evaluation
+        "wh": ComposedLayer(
+            "wh", CompositionSpec(max_width, rank, base, base, ksq=1),
+            hint=LayerHint(32, seq_len, rank_capable=False)),
+        "out": ComposedLayer(
+            "out",
+            CompositionSpec(max_width, rank, base, vocab, ksq=1,
+                            mode="grow_in"),
+            hint=LayerHint(32, seq_len)),
+    }
+
+    def forward(w, width, batch):
+        tokens = batch["tokens"]  # (B, T)
+        emb = layers["embed"].apply(w["embed"], tokens, width)  # (B,T,pE)
+        wh = layers["wh"].materialized(w["wh"], width)[0]
+        # the input projection of all T steps in one call, out of the
+        # loop: in rank space (rank_apply, or compose_apply when fused)
+        # or against the composed weight
+        if isinstance(w["wx"], dict):
+            xp = layers["wx"].apply(w["wx"], emb, width)
+        else:
+            xp = emb @ w["wx"][0]
+        # made here, so under the cohort trainer's vmap it is unbatched
+        # and broadcasts against each client's wh
+        h = torch.zeros((emb.shape[0], wh.shape[-2]), dtype=emb.dtype,
+                        device=emb.device)
+        hs = []
+        for t in range(xp.shape[1]):
+            h = torch.tanh(xp[:, t] + h @ wh)
+            hs.append(h)
+        hs = torch.stack(hs, dim=1)  # (B,T,pH)
+        return layers["out"].apply(w["out"], hs, width)  # (B,T,V)
+
+    def flops(width, seq: int = 32):
+        p = width
+        per_tok = 2 * vocab * (p * base) + 4 * (p * base) ** 2 + 2 * (p * base) * vocab
+        return 3 * per_tok * seq
+
+    return FLModelDef.from_layers("rnn", layers, forward, flops, vocab,
+                                  input_key="tokens")
+
+
+MODELS = {"cnn": make_cnn, "resnet": make_resnet, "rnn": make_rnn}
 
 
 @register_model("cnn", modality="image")
 def _build_cnn(max_width: int, meta: Dict[str, Any], **kw) -> FLModelDef:
     return make_cnn(max_width=max_width, num_classes=meta["num_classes"],
                     in_ch=meta["channels"], **kw)
+
+
+@register_model("resnet", modality="image")
+def _build_resnet(max_width: int, meta: Dict[str, Any], **kw) -> FLModelDef:
+    return make_resnet(max_width=max_width, num_classes=meta["num_classes"],
+                       in_ch=meta["channels"], **kw)
+
+
+@register_model("rnn", modality="text")
+def _build_rnn(max_width: int, meta: Dict[str, Any], **kw) -> FLModelDef:
+    return make_rnn(max_width=max_width, vocab=meta["vocab"], **kw)

@@ -22,15 +22,19 @@ from repro_torch.fl.types import FLConfig, RoundLog
 def build_setup(task: str, model_name: Optional[str] = None,
                 num_clients: int = 100, max_width: int = 3, seed: int = 0, *,
                 partitioner: Optional[str] = None, partition_kw=None,
-                task_kw=None, model_kw=None, device=None):
+                data_root=None, cache_dir=None, task_kw=None, model_kw=None,
+                device=None):
     """Registry-driven setup: dataset x partitioner x model.
 
     Returns the ``(model, parts_x, parts_y, test_batch)`` tuple every
     caller feeds :func:`run_scheme`; the shards are host numpy views
     (gathered per minibatch), the test batch is on ``device``.
+    ``data_root`` is where the loader looks for real files and
+    ``cache_dir`` where it caches its arrays (:mod:`repro_torch.data`).
     """
     device = resolve_device(device)
-    ds = load_dataset(task, seed=seed, **(task_kw or {}))
+    ds = load_dataset(task, seed=seed, data_root=data_root,
+                      cache_dir=cache_dir, **(task_kw or {}))
     if partitioner is None:
         partitioner = "natural" if ds.modality == "text" else "dirichlet"
     parts = partition_dataset(ds, partitioner, num_clients, seed,
@@ -51,7 +55,8 @@ def build_image_setup(model_name: str = "cnn", num_clients: int = 100,
                       gamma: float = 40.0, max_width: int = 3, seed: int = 0,
                       noise: float = 1.2, *, task: str = "synthetic_image",
                       partitioner: str = "dirichlet", partition_kw=None,
-                      task_kw=None, device=None):
+                      data_root=None, cache_dir=None, task_kw=None,
+                      device=None):
     """Image-task setup (default: the synthetic stand-in under the paper's
     Γ partition)."""
     task_kw = dict(task_kw or {})
@@ -62,6 +67,7 @@ def build_image_setup(model_name: str = "cnn", num_clients: int = 100,
         partition_kw.setdefault("gamma_pct", gamma)
     return build_setup(task, model_name, num_clients, max_width, seed,
                        partitioner=partitioner, partition_kw=partition_kw,
+                       data_root=data_root, cache_dir=cache_dir,
                        task_kw=task_kw, device=device)
 
 
@@ -69,16 +75,18 @@ def build_text_setup(num_clients: int = 100, max_width: int = 3,
                      seed: int = 0, *, task: str = "synthetic_text",
                      model_name: Optional[str] = None,
                      partitioner: str = "natural", partition_kw=None,
-                     task_kw=None, model_kw=None, device=None):
+                     data_root=None, cache_dir=None, task_kw=None,
+                     model_kw=None, device=None):
     """Char-LM setup as a registry lookup.
 
-    The default ``natural`` partitioner falls back to contiguous shards
-    of the synthetic corpus.  ``model_name`` picks a registered text
-    model (``"transformer"`` for the composed-LLM path; the reference's
-    default ``"rnn"`` is not ported yet).
+    The default ``natural`` partitioner groups by speaker when the
+    dataset carries ids (Shakespeare) and falls back to contiguous shards
+    of the synthetic corpus.  ``model_name`` picks a registered text model
+    (``"rnn"`` by default, ``"transformer"`` for the composed-LLM path).
     """
     return build_setup(task, model_name, num_clients, max_width, seed,
                        partitioner=partitioner, partition_kw=partition_kw,
+                       data_root=data_root, cache_dir=cache_dir,
                        task_kw=task_kw, model_kw=model_kw, device=device)
 
 

@@ -7,6 +7,7 @@ per sum).
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -167,3 +168,115 @@ def test_init_factors_scale():
     std = (1.0 / (ts.ksq * ts.base_in) / ts.rank) ** 0.25
     for t in (v, u):
         assert abs(float(t.std()) / std - 1.0) < 0.15
+
+
+# decompose solves a least-squares system of a handful of terms per sum
+# in f32 on both sides (LAPACK's gels here, an SVD-based solve in jax)
+DECOMPOSE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("p", [1, 2, 3])
+@pytest.mark.parametrize("ksq", [9, 1])
+def test_decompose_matches_and_inverts_compose(p, ksq):
+    js = jc.CompositionSpec(3, 4, 6, 5, ksq=ksq)
+    ts = tc.CompositionSpec(3, 4, 6, 5, ksq=ksq)
+    rng = np.random.default_rng(10 * p + ksq)
+    v = rng.standard_normal(ts.basis_shape()).astype(np.float32)
+    w = rng.standard_normal(ts.weight_shape(p)).astype(np.float32)
+    want = np.asarray(jc.decompose(jnp.asarray(w), jnp.asarray(v), p, js))
+    got = tc.decompose(torch.from_numpy(w), torch.from_numpy(v), p, ts)
+    assert tuple(got.shape) == want.shape == (p * p, 4, 5)
+    np.testing.assert_allclose(got.numpy(), want, atol=DECOMPOSE_TOL,
+                               rtol=DECOMPOSE_TOL)
+    # a weight in the basis's span comes back whole
+    u = torch.from_numpy(rng.standard_normal((p * p, 4, 5)).astype(
+        np.float32))
+    vt = torch.from_numpy(v)
+    w_span = tc.compose(vt, u, p, ts)
+    back = tc.decompose(w_span, vt, p, ts)
+    np.testing.assert_allclose(back.numpy(), u.numpy(), atol=DECOMPOSE_TOL,
+                               rtol=DECOMPOSE_TOL)
+    np.testing.assert_allclose(tc.compose(vt, back, p, ts).numpy(),
+                               w_span.numpy(), atol=DECOMPOSE_TOL,
+                               rtol=DECOMPOSE_TOL)
+
+
+def test_decompose_refuses_what_it_cannot_solve():
+    ts = tc.CompositionSpec(3, 8, 6, 5, ksq=1)  # ksq*I = 6 < rank 8
+    with pytest.raises(ValueError, match="full column rank"):
+        tc.decompose(torch.zeros(1, 12, 10), torch.zeros(1, 6, 8), 2, ts)
+    ok = tc.CompositionSpec(3, 4, 6, 5, ksq=9)
+    with pytest.raises(ValueError, match="inconsistent"):
+        tc.decompose(torch.zeros(9, 12, 5), torch.zeros(9, 6, 4), 2, ok)
+
+
+def _plan_specs(mod):
+    return {"conv": mod.CompositionSpec(3, 8, 6, 5, ksq=9),
+            "stem": mod.CompositionSpec(3, 8, 3, 5, ksq=9, mode="grow_out"),
+            "head": mod.CompositionSpec(3, 8, 5, 10, mode="grow_in")}
+
+
+def test_composition_plan_matches():
+    jplan = jc.CompositionPlan(_plan_specs(jc), 3)
+    tplan = tc.CompositionPlan(_plan_specs(tc), 3)
+    assert tplan.num_blocks == jplan.num_blocks == 9
+    assert tc.LayerPlan("conv", tplan.layers["conv"]).spec == \
+        tplan.layers["conv"]
+    rng = np.random.default_rng(0)
+    params = {n: {"basis": rng.standard_normal(s.basis_shape()).astype(
+                      np.float32),
+                  "coeff": rng.standard_normal(
+                      s.coefficient_shape()).astype(np.float32)}
+              for n, s in tplan.layers.items()}
+    tparams = {n: {k: torch.from_numpy(a) for k, a in d.items()}
+               for n, d in params.items()}
+    # the shared P^2-counter ids are valid only for square layers: the
+    # anchored ones (3 blocks) refuse id 3 and above, on both sides
+    with pytest.raises(ValueError, match="anchored layers"):
+        jplan.reduce(params, [0, 4])
+    with pytest.raises(ValueError, match="anchored layers"):
+        tplan.reduce(tparams, [0, 4])
+    for p in (1, 2, 3):
+        assert tplan.traffic_bytes(p) == jplan.traffic_bytes(p)
+        assert tplan.materialized_bytes(p) == jplan.materialized_bytes(p)
+        assert tplan.traffic_bytes(p, 2) == jplan.traffic_bytes(p, 2)
+    # one id set serves every layer, so a mixed plan composes at p = 1, a
+    # square one at p^2 ids and an anchored one at p ids
+    cases = [(list(tplan.layers), [2], 1),
+             (["conv"], [1, 4, 5, 8], 2), (["conv"], list(range(9)), 3),
+             (["stem", "head"], [0, 2], 2)]
+    for names, ids, p in cases:
+        jsub = jc.CompositionPlan({n: jplan.layers[n] for n in names}, 3)
+        tsub = tc.CompositionPlan({n: tplan.layers[n] for n in names}, 3)
+        jred, tred = jsub.reduce(params, ids), tsub.reduce(tparams, ids)
+        jw, tw = jsub.compose_all(jred, p), tsub.compose_all(tred, p)
+        for n in names:
+            np.testing.assert_array_equal(tred[n]["coeff"].numpy(),
+                                          np.asarray(jred[n]["coeff"]))
+            _close(tw[n].numpy(), jw[n])
+    for mod in (jc, tc):
+        with pytest.raises(ValueError, match="max_width"):
+            mod.CompositionPlan(_plan_specs(mod), 2)
+
+
+def test_composition_plan_init_from_a_torch_generator():
+    """Factors drawn in sorted layer order from the port's generator (the
+    draws differ from the reference's jax key by construction), with the
+    reference's shapes and dtype."""
+    jplan = jc.CompositionPlan(_plan_specs(jc), 3)
+    tplan = tc.CompositionPlan(_plan_specs(tc), 3)
+    want = jplan.init(jax.random.PRNGKey(0))
+    got = tplan.init(torch.Generator().manual_seed(0), "cpu")
+    assert list(got) == sorted(tplan.layers) == list(want)
+    for n in want:
+        for k in ("basis", "coeff"):
+            assert tuple(got[n][k].shape) == want[n][k].shape
+            assert got[n][k].dtype == torch.float32
+    # one generator drawn layer after layer, in sorted order
+    gen = torch.Generator().manual_seed(0)
+    for n in sorted(tplan.layers):
+        v, u = tc.init_factors(gen, tplan.layers[n])
+        assert torch.equal(v, got[n]["basis"])
+        assert torch.equal(u, got[n]["coeff"])
+    f64 = tplan.init(torch.Generator().manual_seed(1), "cpu", torch.float64)
+    assert f64["conv"]["basis"].dtype == torch.float64

@@ -138,11 +138,18 @@ def test_convert_round_trip_and_init_shapes():
 
 
 def test_unported_models_raise():
-    for name in ("resnet", "rnn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(name)
-    # ported since: the composed transformer resolves through the registry
-    assert get_model("transformer").modality == "text"
+    """No model of the reference is left unported: ``resnet`` and ``rnn``,
+    which raised until they were, resolve with the reference's
+    modalities, as the composed transformer does; an unknown name still
+    raises."""
+    from repro.fl.models import get_model as j_get_model
+
+    for name in ("cnn", "resnet", "rnn", "transformer"):
+        assert get_model(name).modality == j_get_model(name).modality
+    assert get_model("resnet").modality == "image"
+    assert get_model("rnn").modality == "text"
+    with pytest.raises(ValueError, match="unknown model"):
+        get_model("lstm")
 
 
 def test_calibration_measures_on_the_cpu_and_honours_pins():
