@@ -99,7 +99,22 @@ Run from the root of a checkout.  It
    each run is held against the CPU (the RNN's, whose local SGD
    amplifies rounding, in its schedule, round 1 at the shipped weights
    and the card's weights scored on the CPU), and
-   ``build_text_setup()`` must resolve the RNN;
+   ``build_text_setup()`` must resolve the RNN; (k) also runs the
+   ROADMAP C.10 experiment (heroes pinned auto and fedavg, twice
+   sequential and once cohort, with cuDNN's defaults and under
+   ``cudnn.deterministic``); (m) heroes over a virtual population of a
+   million clients (``build_setup(population=1_000_000)``, availability
+   participation, two edge groups, the cohort trainer, path (c)'s pins,
+   a checkpoint every round) under ``cudnn.deterministic``: 4 rounds
+   uninterrupted, the same stopped after round 2 and continued by a new
+   process (``chip_smoke.py resume ...``) from the checkpoint, semi-async
+   events at the million (uniform, rejection-sampled) resumed the same way
+   with results in flight, and ``run_until_budget`` at round 2's wall;
+   the resumed runs must equal the uninterrupted ones bit for bit, the
+   schedule and participation the CPU run's, the edge partials recombine
+   to the merged state; (n) the dataset smoke
+   (``repro_torch.data.smoke.main([])``, one cohort heroes round per
+   loader), each loader's accuracy within 2 test samples of the CPU's;
 4. traces one round of (c) with ``torch.profiler`` (device busy share,
    top kernels), with the sequential trainer and 4 clients and with the
    cohort trainer and 10, and prints the calibration
@@ -2150,12 +2165,13 @@ SLICE_RUNS = (
 # each path's cohort run, beside the sequential run of SLICE_RUNS at this
 # index: (k) heroes pinned auto, (l) heroes rank_space
 SLICE_COHORT = {"k": 2, "l": 6}
-# (k)'s cohort run against its sequential run on the card: the weights
-# after round 1 (10 steps) as vs_cpu holds a card run, within 1e-3, since
-# the residual net's card runs move from each other and from the CPU's
-# by up to ~5e-5 over its 32x32 convs' training (path (j)'s CNN: 1.5e-7);
-# losses and estimates as path (j) holds them
-SLICE_COHORT_PARAM_TOL = (1e-3, 0.0)
+# (k)'s cohort run is held to its sequential run under
+# cudnn_deterministic, at path (j)'s tolerance: with cuDNN's defaults two
+# identical sequential runs of the residual net differ by ~2e-5 after
+# round 1 (cuDNN picks non-deterministic algorithms for its 32x32 convs'
+# backward), under cudnn.deterministic by nothing (ROADMAP C.10,
+# spread_k).  A card run against the CPU's stays within vs_cpu's 1e-3:
+# those runs take cuDNN's defaults, as a user's do.
 # the RNN's local SGD amplifies float rounding: the JAX package's own run
 # from weights moved by 1e-7 relative is 3.6e-5 away after 2 steps and
 # 6e-2 after 10 (tests/test_torch_resnet_rnn.py), so a card run and a CPU
@@ -2286,11 +2302,13 @@ def slice_run(torch, label, setup, scheme, knobs, expect, trainer):
 
 def slice_path(torch) -> tuple:
     """Paths (k) and (l): every ``SLICE_RUNS`` run with the sequential
-    trainer, then each path's ``SLICE_COHORT`` run with the cohort
-    trainer, held against its sequential run on the card (round 1's
-    results: all of them on the residual net, ``AT_SHIPPED_WEIGHTS`` on
-    the RNN) and against the CPU; and ``build_text_setup()`` with no model
-    name resolves the RNN.  Returns (launch counts by path, records)."""
+    trainer, the C.10 experiment (``spread_k``), then each path's
+    ``SLICE_COHORT`` run with the cohort trainer, held against its
+    sequential run on the card (round 1's results: all of them on the
+    residual net, both runs under ``cudnn_deterministic``,
+    ``AT_SHIPPED_WEIGHTS`` on the RNN) and against the CPU; and
+    ``build_text_setup()`` with no model name resolves the RNN.  Returns
+    (launch counts by path, records)."""
     from repro_torch.fl import build_text_setup
     from repro_torch.kernels import KERNELS
 
@@ -2309,12 +2327,25 @@ def slice_path(torch) -> tuple:
         seq[i] = (runner, rec)
         for k, n in counts.items():
             by_path[path][k] += n
+    recs["k"]["C.10 spread"] = spread_k(torch)
     for path, i in SLICE_COHORT.items():
         _, setup, scheme, knobs, expect = SLICE_RUNS[i]
         label = f"{path} {scheme} {knobs['forward_impl']} cohort"
-        runner, rec, counts, r = slice_run(torch, label, setup, scheme,
-                                           knobs, expect, "cohort")
-        seq_runner, seq_rec = seq[i]
+        det = setup == "resnet"
+        with (cudnn_deterministic(torch) if det
+              else contextlib.nullcontext()):
+            runner, rec, counts, r = slice_run(torch, label, setup, scheme,
+                                               knobs, expect, "cohort")
+            if det:
+                hooked = {}
+                run_path(torch, setup, scheme,
+                         dict(knobs, trainer="sequential"), DEVICE,
+                         rounds=1,
+                         hook=lambda s: hooked.update(
+                             rec=record_training(s)))
+                seq_rec = hooked["rec"]
+            else:
+                seq_rec = seq[i][1]
         check(_plain_assigns(rec["assigns"][0])
               == _plain_assigns(seq_rec["assigns"][0]),
               f"({label}) round 1's assignments differ from sequential")
@@ -2322,15 +2353,412 @@ def slice_path(torch) -> tuple:
             shipped_close(f"{label} vs sequential", rec["first"],
                           seq_rec["first"])
         else:
-            r["first_round_diff_sequential"] = first_results_close(
-                torch, label, rec["first"], seq_rec["first"],
-                SLICE_COHORT_PARAM_TOL)
+            r["first_round_diff_sequential_deterministic"] = (
+                first_results_close(torch, label, rec["first"],
+                                    seq_rec["first"]))
         r["sequential_training_launches"] = recs[path][
             label.replace(" cohort", "")]["training_launches"]
         recs[path][label] = r
         for k, n in counts.items():
             by_path[path][k] += n
     return by_path, recs
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    """cuDNN's deterministic algorithms and no autotuning for the block
+    (``torch.backends.cudnn.deterministic = True``, ``benchmark =
+    False``), restored after it."""
+    cudnn = torch.backends.cudnn
+    was = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = was
+
+
+def max_param_diff(a, b) -> float:
+    """The largest absolute difference of two params trees."""
+    from repro_torch.convert import to_numpy
+    from repro_torch.core.estimator import tree_leaves
+
+    import numpy as np
+
+    return max(float(np.abs(x - y).max()) for x, y in
+               zip(tree_leaves(to_numpy(a)), tree_leaves(to_numpy(b))))
+
+
+# ROADMAP C.10: the residual net's card runs spread.  Path (k)'s heroes
+# pinned auto and fedavg (no port kernel), each run with the sequential
+# trainer twice and the cohort trainer once, with cuDNN's defaults and
+# deterministic; the weights after round 1 compared
+SPREAD_RUNS = (("heroes auto", "heroes", dict(PATHS["c"][1])),
+               ("fedavg", "fedavg", dict(forward_impl="materialize",
+                                         agg_backend="host")))
+
+
+def spread_k(torch) -> dict:
+    """The C.10 experiment: for each ``SPREAD_RUNS`` run and each cuDNN
+    mode, the largest weight difference after round 1 between two
+    sequential runs and between the cohort and the sequential run."""
+    out = {}
+    for label, scheme, knobs in SPREAD_RUNS:
+        for mode in ("default", "deterministic"):
+            ctx = (cudnn_deterministic(torch) if mode == "deterministic"
+                   else contextlib.nullcontext())
+            params = {}
+            with ctx:
+                for run, trainer in (("sequential", "sequential"),
+                                     ("again", "sequential"),
+                                     ("cohort", "cohort")):
+                    runner, _, _, _ = run_path(
+                        torch, "resnet", scheme,
+                        dict(knobs, trainer=trainer), DEVICE, rounds=1)
+                    params[run] = runner.params
+            r = {"sequential_vs_again": max_param_diff(
+                     params["again"], params["sequential"]),
+                 "cohort_vs_sequential": max_param_diff(
+                     params["cohort"], params["sequential"])}
+            out[f"{label}, {mode}"] = r
+            if mode == "deterministic":
+                check(r["sequential_vs_again"] == 0.0,
+                      f"(k) {label}: two sequential runs differ under "
+                      "cudnn.deterministic")
+            print(f"  (k) C.10 spread, {label}, cuDNN {mode}: weights after "
+                  f"round 1, sequential vs sequential "
+                  f"{r['sequential_vs_again']:.3e}, cohort vs sequential "
+                  f"{r['cohort_vs_sequential']:.3e}")
+    return out
+
+
+# path (m): a virtual population of a million clients on the CNN at full
+# width, the calibration pinned as on path (c) so a new process picks the
+# same impls; every round checkpointed, keeping two
+M_POPULATION = 1_000_000
+M_SETUP = dict(partition_kw={"samples_per_client": 32})
+M_KNOBS = dict(clients_per_round=10, participation="availability",
+               edge_groups=2, trainer="cohort", forward_impl="auto",
+               conv_rank_overhead=1.0, fused_compose_gain=0.5, eval_every=1,
+               checkpoint_every=1, checkpoint_keep=2)
+# (m3): semi-async events at the million, uniform (the rejection path)
+M_ASYNC = dict(round_mode="semi_async", clients_per_round=4, async_k=2,
+               participation="uniform")
+M_ROUNDS, M_STOP = 4, 2
+M_EXPECT = ("compose", "conv_rank", "compose_apply")
+M_PARTIAL_TOL = 1e-5
+
+
+def m_runner(torch, device, ckpt_dir, population=M_POPULATION, **over):
+    """A fresh path-(m) setup and runner (each runner binds its own
+    registry) on ``device``; returns (runner, setup seconds)."""
+    from repro_torch.fl import FLConfig, build_runner, build_setup
+
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    setup = build_setup("synthetic_image", "cnn", max_width=3, seed=0,
+                        population=population, device=device, **M_SETUP)
+    cfg = FLConfig(num_clients=population, checkpoint_dir=str(ckpt_dir),
+                   **dict(M_KNOBS, **over))
+    runner = build_runner("heroes", *setup, cfg=cfg, device=device)
+    return runner, time.perf_counter() - t0
+
+
+def timed_saves(runner) -> list:
+    """Wrap ``runner.save_checkpoint`` to append each save's seconds (it
+    copies the state to the host, which waits for the card)."""
+    save = runner.save_checkpoint
+    secs = []
+
+    def timed():
+        t0 = time.perf_counter()
+        out = save()
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    runner.save_checkpoint = timed
+    return secs
+
+
+def history_dicts(runner) -> list:
+    import dataclasses
+
+    return [dataclasses.asdict(h) for h in runner.history]
+
+
+def resume_worker(argv) -> int:
+    """``chip_smoke.py resume MODE DEVICE CKPT_DIR OUT_DIR``, the new
+    process of (m2) and (m3): restore the newest checkpoint of a path-(m)
+    run (``MODE`` m2 or m3) on ``DEVICE``, run it to ``M_ROUNDS``, and
+    write its history, restore time and final params under ``OUT_DIR``.
+    It imports nothing but torch and ``repro_torch``."""
+    import torch
+
+    mode, device, ckpt_dir, out_dir = argv
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels as rt
+    from repro_torch.checkpoint import npz_ckpt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device != "cpu":
+        rt.build()  # built by the parent: loads them
+    with cudnn_deterministic(torch):
+        runner, _ = m_runner(torch, device, ckpt_dir,
+                             **(M_ASYNC if mode == "m3" else {}))
+        t0 = time.perf_counter()
+        check(runner.restore_latest(), f"({mode}) no checkpoint to resume")
+        if device != "cpu":
+            torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        rec = {"restored_round": runner.state.round,
+               "restored_in_flight": len(runner.state.in_flight),
+               "restore_ms": 1e3 * restore_s}
+        runner.run(M_ROUNDS - runner.state.round)
+        runner.close()
+    rec["history"] = history_dicts(runner)
+    rec["participation"] = {str(k): v for k, v in
+                            runner.state.participation.items()}
+    npz_ckpt.save_checkpoint(out_dir, M_ROUNDS, runner.params)
+    (Path(out_dir) / "run.json").write_text(json.dumps(rec))
+    return 0
+
+
+def resume_in_new_process(torch, label, mode, ckpt_dir, ref) -> dict:
+    """Run ``resume_worker`` in a new Python process and hold what it
+    continued against the uninterrupted run ``ref``: history, final
+    params and participation bit for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import npz_ckpt
+    from repro_torch.convert import to_numpy
+    from repro_torch.core.estimator import tree_leaves
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "resume", mode,
+             DEVICE, str(ckpt_dir), out], capture_output=True, text=True,
+            timeout=300)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"({label}) the resuming process failed:\n{proc.stdout}\n"
+              f"{proc.stderr[-4000:]}")
+        rec = json.loads((Path(out) / "run.json").read_text())
+        _, params = npz_ckpt.restore_latest(out)
+    want = to_numpy(ref.params)
+    got = [np.asarray(params[name][key]) for name in want
+           for key in sorted(want[name])]
+    same = all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in
+               zip(tree_leaves(want), got))
+    check(rec["restored_round"] == M_STOP,
+          f"({label}) resumed at round {rec['restored_round']}")
+    check(rec["history"] == history_dicts(ref),
+          f"({label}) the resumed history differs from the uninterrupted "
+          "run's")
+    check(same, f"({label}) the resumed run's final params differ from the "
+          "uninterrupted run's")
+    check({int(k): v for k, v in rec["participation"].items()}
+          == ref.state.participation,
+          f"({label}) participation differs after the resume")
+    out = {"restore_ms": rec["restore_ms"],
+           "restored_in_flight": rec["restored_in_flight"],
+           "new_process_s": wall}
+    print(f"      ({label}) a new process restored round {M_STOP} "
+          f"({rec['restore_ms']:.2f} ms, {rec['restored_in_flight']} in "
+          f"flight) and ran to round {M_ROUNDS} in {wall:.1f} s: history, "
+          f"params and participation equal the uninterrupted run's bit for "
+          f"bit")
+    return out
+
+
+def partials_close(runner, k: int) -> float:
+    """The edge groups' partials of the last merge (a cohort of ``k``)
+    recombine to the merged state: summed over the groups, the bases over
+    K give the merged basis and the coefficient blocks over their counts
+    the merged blocks.  Returns the largest difference."""
+    worst = 0.0
+    for name, p in runner.merger.last_partials.items():
+        basis = p["bases"].sum(0) / k
+        cnt = p["mask"].sum(0)
+        trained = cnt > 0
+        coeff = p["dense"].sum(0)[trained] / cnt[trained][:, None, None]
+        for got, want in ((basis, runner.params[name]["basis"]),
+                          (coeff, runner.params[name]["coeff"][trained])):
+            worst = max(worst, float((got - want).abs().max()))
+    check(worst <= M_PARTIAL_TOL,
+          f"(m) edge partials recombine {worst:.3e} from the merged state")
+    return worst
+
+
+def population_path(torch) -> tuple:
+    """Path (m): a Heroes run over a virtual population of a million
+    clients, checkpointed every round, under ``cudnn_deterministic``:
+    (m1) 4 rounds uninterrupted; (m2) the same stopped after round 2 and
+    continued by a new process from the checkpoint; (m3) semi-async events
+    at the million (uniform, rejection-sampled) stopped after event 2 with
+    results in flight, continued the same way; (m4) ``run_until_budget``
+    at (m1)'s wall after round 2.  (m2) and (m3) must equal their
+    uninterrupted runs bit for bit, (m1)'s schedule and participation the
+    CPU run's (weights as ``vs_cpu`` holds them), and the edge partials
+    must recombine to the merged state.  Returns (launch counts, record).
+    """
+    import tempfile
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp, cudnn_deterministic(torch):
+        tmp = Path(tmp)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        # (m1) uninterrupted, timed, its cohorts recorded
+        m1, setup_s = m_runner(torch, DEVICE, tmp / "m1")
+        saves = timed_saves(m1)
+        hooked = record_training(m1)
+        secs = []
+        for _ in range(M_ROUNDS):
+            t0 = time.perf_counter()
+            m1.run_round()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - base
+        step = sorted((tmp / "m1").glob("step_*"))[-1]
+        ckpt_bytes = sum(f.stat().st_size for f in step.iterdir())
+        rec["m1"] = {
+            "setup_s": setup_s, "s_per_round": secs,
+            "save_ms": [1e3 * s for s in saves],
+            "s_per_round_without_save": [a - b for a, b in zip(secs, saves)],
+            "checkpoint_bytes": ckpt_bytes, "peak_bytes": peak,
+            "accuracy": [h.accuracy for h in m1.history],
+            "participants": m1.population.participants(),
+            "partials_max_diff": partials_close(
+                m1, len(hooked["assigns"][-1]))}
+        check_run(torch, "m1", m1)
+        check(len(saves) == M_ROUNDS, f"(m1) {len(saves)} saves")
+        check(sorted(p.name for p in (tmp / "m1").glob("step_*"))
+              == [f"step_{r:08d}" for r in (M_ROUNDS - 1, M_ROUNDS)],
+              "(m1) keep-2 pruning")
+
+        # (m2) stopped after round 2, continued by a new process
+        m2, _ = m_runner(torch, DEVICE, tmp / "m2")
+        m2.run(M_STOP)
+        check(history_dicts(m2) == history_dicts(m1)[:M_STOP],
+              "(m2) its first rounds differ from (m1)'s")
+        m2.close()
+        rec["m2"] = resume_in_new_process(torch, "m2", "m2", tmp / "m2", m1)
+
+        # (m3) semi-async at the million, uninterrupted and resumed
+        m3, _ = m_runner(torch, DEVICE, tmp / "m3ref", **M_ASYNC)
+        m3.run(M_ROUNDS)
+        check(any(h.stale for h in m3.history),
+              "(m3) no event merged a stale result")
+        stopped, _ = m_runner(torch, DEVICE, tmp / "m3", **M_ASYNC)
+        stopped.run(M_STOP)
+        in_flight = len(stopped.state.in_flight)
+        check(in_flight >= 1, "(m3) nothing in flight at the checkpoint")
+        stopped.close()
+        rec["m3"] = resume_in_new_process(torch, "m3", "m3", tmp / "m3", m3)
+        check(rec["m3"]["restored_in_flight"] == in_flight,
+              "(m3) the restored run lost its in-flight results")
+        rec["m3"]["stale"] = [h.stale for h in m3.history]
+
+        # (m4) Alg. 1's outer loop at (m1)'s wall after round 2
+        m4, _ = m_runner(torch, DEVICE, tmp / "m4")
+        m4.run_until_budget(time_budget=m1.history[M_STOP - 1].wall_time)
+        check(history_dicts(m4) == history_dicts(m1)[:M_STOP],
+              "(m4) run_until_budget did not stop after round 2")
+        counts = dict(LAUNCHES)
+        for r in (m1, m3, m4):
+            r.close()
+
+        # the same (m1) run on the CPU: schedule, participation, weights
+        cpu, _ = m_runner(torch, "cpu", tmp / "cpu")
+        cpu_rec = record_training(cpu)
+        cpu.run(M_ROUNDS)
+        for rnd, (a, b) in enumerate(zip(hooked["assigns"],
+                                         cpu_rec["assigns"])):
+            check(_plain_assigns(a) == _plain_assigns(b),
+                  f"(m1) round {rnd + 1}'s cohort differs from the CPU's")
+        check(m1.state.participation == cpu.state.participation,
+              "(m1) participation differs from the CPU run's")
+        rec["m1"]["max_param_diff_cpu"] = vs_cpu(torch, "m1", m1, cpu)
+        cpu.close()
+
+        # setup and one round's peak memory at 10^4 clients, beside (m1)'s
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        small, small_s = m_runner(torch, DEVICE, tmp / "small",
+                                  population=10_000)
+        small.run_round()
+        torch.cuda.synchronize()
+        rec["setup_s_by_population"] = {"10000": small_s,
+                                        str(M_POPULATION): setup_s}
+        rec["round1_peak_bytes_at_10000"] = (
+            torch.cuda.max_memory_allocated() - base)
+        small.close()
+    for k in M_EXPECT:
+        check(counts[k] > 0, f"(m) never launched {k}")
+    print(f"  (m) {json.dumps(rec)}")
+    print(f"      launches {counts}")
+    return counts, rec
+
+
+def _smoke_accuracies(smoke, argv) -> tuple:
+    """Run ``smoke.main(argv)``, echo its lines, and return (exit code,
+    accuracy by loader) from them."""
+    import io
+    import re
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = smoke.main(argv)
+    accs = {}
+    for line in buf.getvalue().splitlines():
+        print(f"      {line}")
+        m = re.match(r"ok\s+(\S+): acc=(\S+) ", line)
+        if m:
+            accs[m.group(1)] = float(m.group(2))
+    return rc, accs
+
+
+def smoke_path(torch) -> tuple:
+    """Path (n): the dataset smoke, ``repro_torch.data.smoke.main([])``,
+    on the card (one cohort heroes round per loader), as CI's
+    dataset-smoke leg runs the JAX package's: it must return 0 with a
+    finite accuracy on every loader, each within 2 test samples of the
+    same smoke on the CPU.  Returns (launch counts, accuracies)."""
+    from repro_torch.data import smoke
+    from repro_torch.fl.simulation import build_image_setup, build_text_setup
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, accs = _smoke_accuracies(smoke, [])
+    secs = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    check(rc == 0, f"(n) the dataset smoke exited {rc}")
+    check(sorted(accs) == sorted(smoke.setups()),
+          f"(n) loaders that passed: {sorted(accs)}")
+    rc_cpu, cpu_accs = _smoke_accuracies(smoke, ["--device", "cpu"])
+    check(rc_cpu == 0, f"(n) the dataset smoke on the CPU exited {rc_cpu}")
+    for name, (kind, kw) in smoke.setups().items():
+        tb = (build_image_setup if kind == "image" else build_text_setup)(
+            device="cpu", **kw)[3]
+        n_test = int(tb["labels"].shape[0])
+        check(abs(accs[name] - cpu_accs[name]) <= 2.0 / n_test,
+              f"(n) {name}: accuracy {accs[name]} on the card, "
+              f"{cpu_accs[name]} on the CPU")
+    check(sum(counts.values()) > 0, "(n) launched no kernel")
+    rec = {"s": secs, "accuracy": accs, "cpu_accuracy": cpu_accs,
+           "launches": {k: n for k, n in counts.items() if n}}
+    print(f"  (n) {json.dumps(rec)}")
+    return counts, rec
+
 
 
 def serve_path(torch, model, params):
@@ -2744,6 +3172,14 @@ def main_path(torch, rt):
     by_path.update(counts)
     scheme_recs.update(slice_recs)
 
+    # (m) a virtual population of a million, checkpointed and resumed;
+    # (n) the dataset smoke
+    print(f"  (m) heroes over {M_POPULATION} virtual clients, "
+          f"{M_ROUNDS} rounds, checkpointed and resumed in a new process")
+    by_path["m"], scheme_recs["m"] = population_path(torch)
+    print("  (n) the dataset smoke, one cohort round per loader")
+    by_path["n"], scheme_recs["n"] = smoke_path(torch)
+
     for counts in by_path.values():
         for k, n in counts.items():
             launches[k] += n
@@ -2796,6 +3232,8 @@ def main() -> int:
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["resume"]:  # path (m)'s new process
+        return resume_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2824,7 +3262,7 @@ def main() -> int:
     records.update(check_ssd_rmsnorm(torch))
     launches, by_path, zoo_stats, scheme_recs = main_path(torch, rt)
     print(f"path (g) {json.dumps(zoo_stats)}")
-    print(f"paths (h)-(l) {json.dumps(scheme_recs)}")
+    print(f"paths (h)-(n) {json.dumps(scheme_recs)}")
     trace_round(torch)
     trace_round(torch, "j", trainer="cohort", per_round=10)
     print(f"calibration {json.dumps(calibration_record(torch))}")

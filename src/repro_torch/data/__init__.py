@@ -25,6 +25,7 @@ from repro_torch.data.partition import (  # noqa: F401
 from repro_torch.data.streaming import (  # noqa: F401
     ClientDataLoader,
     ShardView,
+    VirtualShardList,
     make_shards,
     round_batch_indices,
     to_batch,

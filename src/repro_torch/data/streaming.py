@@ -2,7 +2,8 @@
 per-client batch loader that hands out tensors on the run's device.
 
 :class:`ShardView` keeps ONE global numpy array per split plus per-client
-index vectors and gathers only the minibatches a round touches.
+index vectors and gathers only the minibatches a round touches;
+:class:`VirtualShardList` derives a population's views on demand.
 :class:`ClientDataLoader` owns the *host RNG contract* shared with the JAX
 package: client ``n`` in round ``r`` draws from
 ``np.random.default_rng((seed, r, n))`` — ``tau`` training-batch index
@@ -59,11 +60,63 @@ class ShardView:
         return out.astype(dtype) if dtype is not None else out
 
 
-def make_shards(x: np.ndarray, y: np.ndarray, parts):
-    """Per-client (parts_x, parts_y): :class:`ShardView`s over the single
-    global arrays, one per index list."""
-    return ([ShardView(x, p) for p in parts],
-            [ShardView(y, p) for p in parts])
+class VirtualShardList:
+    """Population-sized shard sequence backed by a pure index function.
+
+    ``parts[n]`` builds a :class:`ShardView` from ``index_fn(n)`` on
+    demand, so a 10^6-client partition costs nothing until a client is
+    actually sampled — the O(cohort) stand-in for a materialized
+    ``num_clients``-long partition list.  ``index_fn`` must be pure in
+    ``n`` (:class:`repro_torch.fl.population.VirtualPartition`), which is
+    what keeps shards identical across processes and independent of the
+    population size or query order.  ``registry`` optionally carries the
+    :class:`~repro_torch.fl.population.PopulationRegistry` the engine
+    binds its heterogeneity model and participation bookkeeping to.
+    """
+
+    virtual = True
+
+    def __init__(self, base: np.ndarray, index_fn: Callable[[int], np.ndarray],
+                 size: int, registry=None):
+        self.base = base
+        self.index_fn = index_fn
+        self.size = size
+        self.registry = registry
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __getitem__(self, n) -> ShardView:
+        n = int(n)
+        if not 0 <= n < self.size:
+            raise IndexError(n)
+        return ShardView(self.base, self.index_fn(n))
+
+    def __iter__(self):
+        return (self[n] for n in range(self.size))
+
+
+def make_shards(x: np.ndarray, y: np.ndarray, parts,
+                streaming: bool = True):
+    """Per-client (parts_x, parts_y) from global arrays + index lists.
+
+    ``streaming=True`` returns :class:`ShardView`s over the single global
+    array; ``streaming=False`` materializes per-client copies.  Gathered
+    minibatches are byte-identical either way.
+
+    A *lazy* partition — anything exposing ``indices(n)`` and ``len``,
+    e.g. :class:`repro_torch.fl.population.VirtualPartition` — yields
+    :class:`VirtualShardList`s instead: no per-client index arrays are
+    materialized, each sampled client's shard is derived on demand.
+    """
+    if callable(getattr(parts, "indices", None)):
+        size = len(parts)
+        return (VirtualShardList(x, parts.indices, size),
+                VirtualShardList(y, parts.indices, size))
+    if streaming:
+        return ([ShardView(x, p) for p in parts],
+                [ShardView(y, p) for p in parts])
+    return [x[p] for p in parts], [y[p] for p in parts]
 
 
 def round_batch_indices(seed: int, rnd: int, n: int, num_samples: int,

@@ -80,6 +80,11 @@ class ClientResult:
     loss_before: float
     loss_after: float
 
+    def host_params(self) -> Any:
+        """Params copied to host numpy, for the checkpoint codec; during a
+        run results stay on the device."""
+        return tree_map(lambda t: t.detach().cpu().numpy(), self.params)
+
 
 def local_train(
     model: FLModelDef,

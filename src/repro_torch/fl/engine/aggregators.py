@@ -16,6 +16,9 @@ cohort in dispatch order.  Both ``agg_backend`` values run them: on one
 device the reference's ``"collective"`` backend gives the same state bit
 for bit, and its stacked form waits for the multi-device merge (ROADMAP
 queue A step 9), where a ``psum`` gives it work these loops cannot do.
+With ``edge_groups > 1`` on the collective backend the runner's
+:class:`~repro_torch.fl.population.hierarchy.HierarchicalMerger` also
+folds each edge group's partials beside the merge.
 """
 
 from __future__ import annotations
@@ -75,10 +78,15 @@ class DenseMeanAggregator(Aggregator):
         return state.params
 
     def aggregate(self, state, results, assigns, weights=None) -> ServerState:
+        if self.eng.merger is not None:
+            self._edge_fold(state, results, weights)
         return dataclasses.replace(
             state, params=self._merge(state, results, weights),
             bound_state=_mean_bound(state, results, self.eng.cfg.lr,
                                     clip=False))
+
+    def _edge_fold(self, state, results, weights) -> None:
+        self.eng.merger.fold_dense_mean(state.params, results, weights)
 
     def _merge(self, state, results, weights):
         trees = [tree_map(lambda u, g, w=weight_of(weights, n):
@@ -101,6 +109,9 @@ class MaskedDenseAggregator(DenseMeanAggregator):
     def client_params(self, state: ServerState, n: int,
                       assignment: Assignment) -> Any:
         return self.eng.model.slice_dense(state.params, assignment["width"])
+
+    def _edge_fold(self, state, results, weights) -> None:
+        self.eng.merger.fold_masked_dense(state.params, results, weights)
 
     def _merge(self, state, results, weights):
         new = {}
@@ -199,6 +210,9 @@ class HeroesAggregator(Aggregator):
             assignment["hidden_ids"], assignment["anchored_ids"])
 
     def aggregate(self, state, results, assigns, weights=None) -> ServerState:
+        if self.eng.merger is not None:
+            self.eng.merger.fold_factorized(state.params, self.eng.model.specs,
+                                            results, assigns, weights)
         ws = None if weights is None else [weight_of(weights, n)
                                            for n in results]
         new = {}

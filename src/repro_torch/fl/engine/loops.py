@@ -112,10 +112,10 @@ class SemiAsyncRoundLoop(RoundLoop):
     exactly what a straggler's update would contain when it finally
     lands — and merged with weight ``staleness_decay ** staleness``.
     Dispatch records live in ``state.in_flight``, with their results on
-    the run's device: the JAX package moves stragglers' results to host
-    numpy because its cohort stacks are device-pinned, which nothing here
-    is.  Checkpointing them comes with ``fl/engine/state.py`` (ROADMAP
-    queue A step 8).
+    the run's device, and are checkpointed with the state: the codec
+    (:mod:`repro_torch.fl.engine.state`) copies each result's params to
+    the host (``ClientResult.host_params``) and a restore puts them back
+    on the device, so a resumed run merges the same stragglers.
     """
 
     def setup(self, eng) -> None:

@@ -21,7 +21,8 @@ from repro_torch.fl.engine.aggregators import (Aggregator,
                                                HeroesAggregator,
                                                MaskedDenseAggregator)
 from repro_torch.fl.engine.base import (AssignmentPolicy, LocalTrainer,
-                                        PayloadModel, RoundLoop)
+                                        ParticipationScheduler, PayloadModel,
+                                        RoundLoop)
 from repro_torch.fl.engine.loops import SemiAsyncRoundLoop, SyncRoundLoop
 from repro_torch.fl.engine.payload import DensePayload, FactorizedPayload
 from repro_torch.fl.engine.policies import (FullWidthAssignment,
@@ -80,9 +81,14 @@ def _lookup(table, key, what):
 
 def build_engine(scheme: str, model, parts_x, parts_y, test_batch, het,
                  cfg: FLConfig, eval_width: Optional[int] = None, *,
-                 device=None) -> EngineRunner:
+                 device=None,
+                 sampler: Optional[ParticipationScheduler] = None
+                 ) -> EngineRunner:
     """Instantiate a registered scheme into a ready-to-run engine on
-    ``device`` (the CUDA device by default)."""
+    ``device`` (the CUDA device by default).  ``sampler`` overrides the
+    participation scheduler the runner would build from
+    ``cfg.participation`` (:mod:`repro_torch.fl.population.schedulers`),
+    e.g. a ``TraceParticipation`` holding its trace."""
     bundle = _lookup(SCHEMES, scheme, "scheme")()
     if bundle.trainer is not None:
         trainer = bundle.trainer()
@@ -102,6 +108,7 @@ def build_engine(scheme: str, model, parts_x, parts_y, test_batch, het,
         factorized=bundle.factorized,
         estimate=bundle.estimate(cfg),
         device=device,
+        sampler=sampler,
     )
 
 

@@ -1,10 +1,14 @@
 """The engine runner: component wiring around an explicit ServerState.
 
 The runner owns the *static* collaborators — model, data partitions,
-heterogeneity model, the scheme components, the device — and exactly ONE
-mutable slot: ``self.state``, the current
+heterogeneity model, the edge-group merger, the scheme components, the
+device — and exactly ONE mutable slot: ``self.state``, the current
 :class:`~repro_torch.fl.types.ServerState`.  Each ``run_round`` installs
-the state returned by the loop.  ``state.params`` is public: a caller may
+the state returned by the loop and (when ``FLConfig.checkpoint_every`` is
+set) saves it at the round boundary through
+:mod:`repro_torch.checkpoint.npz_ckpt`; ``restore_latest`` rebuilds the
+state from the newest checkpoint, so the continued run is bit-identical
+to an uninterrupted one.  ``state.params`` is public: a caller may
 replace it (for example with another engine's initial weights, through
 :func:`repro_torch.convert.from_jax_params`) before the first round.
 
@@ -14,18 +18,23 @@ The runner runs on the CUDA device unless the caller passes
 
 from __future__ import annotations
 
-from typing import List
+from pathlib import Path
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import npz_ckpt
 from repro_torch.core import convergence
 from repro_torch.data.streaming import ClientDataLoader
+from repro_torch.fl.engine import state as state_lib
 from repro_torch.fl.engine.base import (Aggregator, AssignmentPolicy,
-                                        LocalTrainer, PayloadModel, RoundLoop)
+                                        LocalTrainer, ParticipationScheduler,
+                                        PayloadModel, RoundLoop)
 from repro_torch.fl.heterogeneity import HeterogeneityModel
 from repro_torch.fl.models import FLModelDef
+from repro_torch.fl.population.hierarchy import HierarchicalMerger
 from repro_torch.fl.population.schedulers import build_scheduler
 from repro_torch.fl.types import FLConfig, RoundLog, ServerState
 
@@ -42,10 +51,9 @@ def check_ported(cfg: FLConfig) -> None:
     if cfg.trainer_mesh_devices > 1:
         later.append(f"trainer_mesh_devices={cfg.trainer_mesh_devices}: "
                      "a cohort's clients trained across devices (step 9)")
-    if cfg.edge_groups > 1 or cfg.shard_server_state:
-        later.append("edge_groups / shard_server_state (step 9)")
-    if cfg.checkpoint_every > 0 or cfg.checkpoint_dir:
-        later.append("checkpointing (step 8)")
+    if cfg.shard_server_state:
+        later.append("shard_server_state: server state sharded across "
+                     "devices (step 9)")
     if cfg.telemetry != "off":
         later.append(f"telemetry={cfg.telemetry!r} (step 9)")
     if later:
@@ -63,14 +71,20 @@ class EngineRunner:
                  eval_width: int, *, assignment: AssignmentPolicy,
                  payload: PayloadModel, aggregator: Aggregator,
                  trainer: LocalTrainer, loop: RoundLoop,
-                 factorized: bool, estimate: bool, device=None):
+                 factorized: bool, estimate: bool, device=None,
+                 sampler: Optional[ParticipationScheduler] = None):
         check_ported(cfg)
         self.device = resolve_device(device)
         self.scheme = scheme
         self.model = model
         self.parts_x, self.parts_y = parts_x, parts_y
+        # shards may be lazy ShardViews or a population-scale
+        # VirtualShardList (repro_torch.data.streaming)
         self.data = ClientDataLoader(parts_x, parts_y, self.device,
                                      model.input_key)
+        # population registry (virtual setups): adopts the state's
+        # participation dict as its bookkeeping store (below)
+        self.population = getattr(parts_x, "registry", None)
         self.test_batch = {k: v.to(self.device) for k, v in test_batch.items()}
         self.het = het
         self.cfg = cfg
@@ -78,13 +92,18 @@ class EngineRunner:
         self.P = next(iter(model.specs.values())).max_width
         self.factorized = factorized
         self.estimate = estimate
+        # the edge groups' partial folds beside the aggregators' merge
+        # (one device: the merged state is the flat merge's)
+        self.merger = None
+        if cfg.agg_backend == "collective" and cfg.edge_groups > 1:
+            self.merger = HierarchicalMerger(cfg.edge_groups)
 
         self.assignment = assignment
         self.payload = payload
         self.aggregator = aggregator
         self.trainer = trainer
         self.loop = loop
-        self.sampler = build_scheduler(cfg)
+        self.sampler = sampler if sampler is not None else build_scheduler(cfg)
         for comp in (assignment, payload, aggregator, trainer, loop,
                      self.sampler):
             comp.setup(self)
@@ -96,8 +115,25 @@ class EngineRunner:
                 lr=cfg.lr))
         self.state = aggregator.init_global(self.state)
         self.state = assignment.init_state(self.state)
+        self._bind_population()
+
+    def _bind_population(self) -> None:
+        if self.population is not None:
+            self.population.bind_participation(self.state.participation)
 
     # --- state views ------------------------------------------------------
+    @property
+    def round(self) -> int:
+        return self.state.round
+
+    @property
+    def wall(self) -> float:
+        return self.state.wall
+
+    @property
+    def traffic(self) -> float:
+        return self.state.traffic
+
     @property
     def params(self):
         return self.state.params
@@ -119,6 +155,16 @@ class EngineRunner:
         for n in clients:
             state.participation[int(n)] = state.round
         return clients
+
+    def close(self) -> None:
+        """Release the data loader's background prefetch workers."""
+        self.data.close()
+
+    def __enter__(self) -> "EngineRunner":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def flops_per_iter(self, width: int) -> float:
         """Per-iteration FLOPs the virtual clock charges a client:
@@ -166,12 +212,66 @@ class EngineRunner:
                 total += int(np.prod(batch["labels"].shape))
             return correct / total
 
+    # --- checkpoint / resume ----------------------------------------------
+    def save_checkpoint(self) -> Path:
+        """Write the current ServerState under ``cfg.checkpoint_dir``."""
+        if not self.cfg.checkpoint_dir:
+            raise ValueError("FLConfig.checkpoint_dir is not set")
+        payload = state_lib.state_to_payload(self.state)
+        return npz_ckpt.save_checkpoint(
+            self.cfg.checkpoint_dir, self.state.round, payload,
+            keep=self.cfg.checkpoint_keep)
+
+    def restore_latest(self) -> bool:
+        """Adopt the newest checkpoint under ``cfg.checkpoint_dir``.
+
+        Returns False when there is none (fresh start).  The freshly
+        initialised params serve as the key-type template for the
+        restored tree, and everything goes back onto the run's device;
+        afterwards the continued history — rng stream, scheduler tallies
+        and in-flight dispatches included — is bit-identical to a
+        never-interrupted run.
+        """
+        if not self.cfg.checkpoint_dir:
+            raise ValueError("FLConfig.checkpoint_dir is not set")
+        got = npz_ckpt.restore_latest(self.cfg.checkpoint_dir)
+        if got is None:
+            return False
+        _, payload = got
+        self.state = state_lib.payload_to_state(payload, self.state.params,
+                                                self.device)
+        self._bind_population()
+        return True
+
+    def _maybe_checkpoint(self) -> None:
+        cfg = self.cfg
+        if (cfg.checkpoint_every > 0 and cfg.checkpoint_dir
+                and self.state.round % cfg.checkpoint_every == 0):
+            self.save_checkpoint()
+
     # --- driving ----------------------------------------------------------
     def run_round(self) -> RoundLog:
         self.state, log = self.loop.run_round(self.state)
+        self._maybe_checkpoint()
         return log
 
     def run(self, rounds: int) -> List[RoundLog]:
         for _ in range(rounds):
+            self.run_round()
+        return self.history
+
+    def run_until_budget(self, time_budget: Optional[float] = None,
+                         traffic_budget: Optional[float] = None,
+                         max_rounds: int = 10_000) -> List[RoundLog]:
+        """Paper Alg. 1 outer loop: train while T <= T^max (and/or a
+        traffic budget)."""
+        if not (time_budget or traffic_budget):
+            raise ValueError("run_until_budget needs a time or traffic "
+                             "budget")
+        for _ in range(max_rounds):
+            if time_budget is not None and self.wall >= time_budget:
+                break
+            if traffic_budget is not None and self.traffic >= traffic_budget:
+                break
             self.run_round()
         return self.history

@@ -7,8 +7,7 @@ is the explicit round state that ``RoundLoop.run_round(state) ->
 :mod:`repro_torch.fl.engine`) so policy modules can share the data model
 without import cycles.  ``FLConfig`` keeps the JAX package's knobs and
 defaults; the engine raises ``NotImplementedError`` for values this port
-does not run yet (``repro_torch.fl.engine.runner.check_ported`` and the
-registry's ``LATER_TRAINERS``).
+does not run yet (``repro_torch.fl.engine.runner.check_ported``).
 """
 
 from __future__ import annotations
@@ -165,16 +164,24 @@ class FLConfig:
     # width-p forward+backward; "rank_aware" charges the per-layer impl
     # the client forward takes under forward_impl.
     clock_model: str = "dense"
-    # --- knobs of later slices, kept with the reference's defaults -------
-    # participation schedulers other than "uniform", hierarchical edge
-    # merges and sharded server state (population / collective), and
-    # checkpointing and telemetry: the engine raises NotImplementedError
-    # for any value but these defaults.
+    # --- population and checkpoints --------------------------------------
+    # Who is offered each round (repro_torch.fl.population.schedulers):
+    # "uniform", "availability", "resource_gated" or "trace".
     participation: str = "uniform"
+    # > 1 splits each merge cohort into that many contiguous edge groups
+    # on the collective backend; the merged state is the flat merge's and
+    # each group's partial fold is kept (runner.merger.last_partials).
     edge_groups: int = 0
+    # Server state sharded across devices: the engine raises
+    # NotImplementedError for True (the multi-GPU merge, ROADMAP step 9).
     shard_server_state: bool = False
+    # Save the ServerState every checkpoint_every rounds under
+    # checkpoint_dir, keeping the newest checkpoint_keep (0: never).
     checkpoint_every: int = 0
     checkpoint_dir: Optional[str] = None
     checkpoint_keep: int = 3
+    # --- a later slice, kept with the reference's defaults ---------------
+    # telemetry: the engine raises NotImplementedError for any value but
+    # "off" (ROADMAP step 9).
     telemetry: str = "off"
     telemetry_dir: Optional[str] = None

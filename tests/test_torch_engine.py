@@ -175,10 +175,7 @@ def test_config_keeps_reference_defaults():
 
 @pytest.mark.parametrize("knob,match", [
     (dict(trainer_mesh_devices=2), "trainer_mesh_devices.*step 9"),
-    (dict(checkpoint_every=1, checkpoint_dir="ckpt"), "checkpoint.*step 8"),
     (dict(telemetry="memory"), "telemetry.*step 9"),
-    (dict(participation="availability"), "participation.*step 9"),
-    (dict(edge_groups=2), "edge_groups.*step 9"),
     (dict(shard_server_state=True), "shard_server_state.*step 9"),
     (dict(agg_devices=2), "agg_devices.*step 9"),
 ])
@@ -188,6 +185,26 @@ def test_unported_knobs_raise(knob, match):
     cfg = TConfig(**{"num_clients": 4, **knob})
     with pytest.raises(NotImplementedError, match=match):
         t_build("heroes", tm, tx, ty, tt, cfg=cfg, device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    dict(checkpoint_every=1, checkpoint_dir="ckpt"),
+    dict(participation="availability"),
+    dict(edge_groups=2),
+])
+def test_ported_knobs_run(knob, tmp_path):
+    """The knobs the population and checkpoint slice ported build and run
+    a round."""
+    if "checkpoint_dir" in knob:
+        knob = dict(knob, checkpoint_dir=str(tmp_path / "ckpt"))
+    tm, tx, ty, tt = t_setup(num_clients=4, device="cpu")
+    cfg = TConfig(**{"num_clients": 4, "clients_per_round": 2, **knob})
+    with t_build("heroes", tm, tx, ty, tt, cfg=cfg, device="cpu") as r:
+        assert r.run_round().round == 1
+        if "checkpoint_dir" in knob:
+            assert (tmp_path / "ckpt" / "step_00000001").is_dir()
+        if "edge_groups" in knob:
+            assert r.merger.last_partials is not None
 
 
 def test_streamed_eval_and_rank_aware_clock_match_reference():
