@@ -115,6 +115,18 @@ Run from the root of a checkout.  It
    to the merged state; (n) the dataset smoke
    (``repro_torch.data.smoke.main([])``, one cohort heroes round per
    loader), each loader's accuracy within 2 test samples of the CPU's;
+   (o) telemetry (``telemetry="jsonl"``) under ``cudnn.deterministic`` on
+   3 rounds of heroes sequential with a checkpoint every round, heroes
+   cohort with all 10 clients a round and fedavg semi-async (path (c)'s
+   pins, FLConfig's default merge), each beside the same run with
+   telemetry off (5 pairs, alternating which runs first): the log
+   validates, its trace export loads back, the history, final weights
+   and launch counts equal the off run's bit for bit, the virtual spans
+   and traffic counters the CPU run's; it prints the report, the median
+   s/round on and off, each round's split into its wall
+   spans (trainer, host staging, device step, merge, checkpoint), that
+   of a fifth run with the engine's assign, train_all and evaluate timed
+   too, and each save's two halves (the state to the host, the write);
 4. traces one round of (c) with ``torch.profiler`` (device busy share,
    top kernels), with the sequential trainer and 4 clients and with the
    cohort trainer and 10, and prints the calibration
@@ -133,6 +145,7 @@ import contextlib
 import functools
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -2761,6 +2774,289 @@ def smoke_path(torch) -> tuple:
 
 
 
+# path (o): telemetry on the card.  Three runs of 3 rounds on the
+# 10-client CNN setup with path (c)'s pins under FLConfig's default merge
+# backend, each writing telemetry="jsonl": (label, scheme, knobs)
+O_RUNS = (
+    ("heroes sequential, a save every round", "heroes",
+     dict(checkpoint_every=1)),
+    ("heroes cohort, 10 a round", "heroes",
+     dict(trainer="cohort", clients_per_round=10)),
+    ("fedavg semi-async", "fedavg", dict(round_mode="semi_async",
+                                         async_k=2)),
+)
+O_EXPECT = {"heroes": ("compose", "conv_rank", "compose_apply"),
+            "fedavg": ()}
+# the wall spans a round's time splits into
+O_STAGES = ("trainer.local_train", "trainer.host_stage",
+            "trainer.device_step", "aggregate.merge", "checkpoint.save")
+O_TIME_RTOL = 1e-9
+# runs with telemetry off and on in pairs of alternating order (off, on),
+# (on, off), ...: telemetry's cost is the median of its rounds 2-3
+O_PAIRS = 5
+# the engine calls a fifth run of each times on the host clock, so the
+# round's rest (what no span covers) splits further
+O_TIMED = (("assignment", "assign"), ("trainer", "train_all"),
+           ("aggregator", "evaluate"))
+
+
+def timed_calls(torch, runner, calls: list) -> None:
+    """Wrap the ``O_TIMED`` methods of ``runner``'s components to append
+    each call, synchronised at both ends, to ``calls`` as a wall span in
+    the log's form (named ``component.method``)."""
+    for comp, meth in O_TIMED:
+        obj = getattr(runner, comp)
+
+        def timed(*args, _fn=getattr(obj, meth), _name=f"{comp}.{meth}",
+                  **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            calls.append({"type": "span", "name": _name, "clock": "wall",
+                          "t0": t0, "t1": time.perf_counter()})
+            return out
+
+        setattr(obj, meth, timed)
+
+
+def o_run(torch, scheme, knobs, device, tmp, telemetry, hook=None):
+    """One path-(o) run of ``ROUNDS`` rounds on ``device`` with
+    ``telemetry`` ("off", "memory", or "jsonl" into a new directory under
+    ``tmp``), launch counts set to 0 just before it; ``hook(runner)``,
+    if given, runs before the first round.  Returns (runner,
+    [(t0, t1)] of each round on the host clock, synchronised, launches,
+    the events: the sink's, or the log read back)."""
+    import tempfile
+
+    from repro_torch.fl import FLConfig, build_image_setup, build_runner
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.obs import load_events
+
+    over = dict(SCHEME_KNOBS, clients_per_round=4, eval_every=1)
+    over.update(knobs, telemetry=telemetry)
+    if telemetry == "jsonl":
+        over["telemetry_dir"] = tempfile.mkdtemp(dir=tmp)
+    if over.get("checkpoint_every"):
+        over["checkpoint_dir"] = tempfile.mkdtemp(dir=tmp)
+    setup = build_image_setup(num_clients=10, device=device)
+    runner = build_runner(scheme, *setup, device=device,
+                          cfg=FLConfig(num_clients=10, **over))
+    if hook is not None:
+        hook(runner)
+    rounds = []
+    with runner:
+        if device != "cpu":
+            torch.cuda.synchronize()
+        reset_launches()
+        for _ in range(ROUNDS):
+            t0 = time.perf_counter()
+            runner.run_round()
+            if device != "cpu":
+                torch.cuda.synchronize()
+            rounds.append((t0, time.perf_counter()))
+        counts = dict(LAUNCHES)
+    events = None
+    if telemetry == "memory":
+        events = runner.obs.sinks[0].events
+    elif telemetry == "jsonl":
+        events = load_events(Path(over["telemetry_dir"]) / "events.jsonl")
+    return runner, rounds, counts, events
+
+
+def stage_split(events, rounds, stages=O_STAGES) -> list:
+    """For each round: its seconds and, for each wall span of
+    ``O_STAGES``, the total seconds of its spans that start in the round
+    and that total's share of the round; ``rest`` is what the spans
+    leave uncovered."""
+    out = []
+    for t0, t1 in rounds:
+        row = {"s": t1 - t0}
+        for name in stages:
+            total = sum(e["t1"] - e["t0"] for e in events
+                        if e.get("type") == "span" and e["name"] == name
+                        and t0 <= e["t0"] <= t1)
+            if total:
+                row[name] = {"s": total, "share": total / (t1 - t0)}
+        if stages == O_STAGES:
+            # what no span covers (sampling, planning, the clients'
+            # views, evaluation); host staging overlaps the device steps
+            rest = row["s"] - sum(v["s"] for k, v in row.items()
+                                  if k not in ("s", "trainer.host_stage"))
+            row["rest"] = {"s": rest, "share": rest / (t1 - t0)}
+        out.append(row)
+    return out
+
+
+def virtual_match(label, got, want) -> None:
+    """The virtual-clock spans and events and the ``traffic.*`` counters
+    of two logs: names and attrs equal, times within ``O_TIME_RTOL``."""
+    gv = [e for e in got if e.get("clock") == "virtual"]
+    wv = [e for e in want if e.get("clock") == "virtual"]
+    check(len(gv) == len(wv) > 0,
+          f"(o) {label}: {len(gv)} virtual spans and events on the card, "
+          f"{len(wv)} on the CPU")
+    for a, b in zip(gv, wv):
+        check((a["type"], a["name"], a["attrs"]) ==
+              (b["type"], b["name"], b["attrs"]),
+              f"(o) {label}: virtual {a['name']} {a['attrs']} on the card, "
+              f"{b['name']} {b['attrs']} on the CPU")
+        for k in ("t0", "t1", "t"):
+            if k in b:
+                check(abs(a[k] - b[k]) <= O_TIME_RTOL * abs(b[k]),
+                      f"(o) {label}: {a['name']} {k} {a[k]} on the card, "
+                      f"{b[k]} on the CPU")
+
+    def traffic(events):
+        return {k: v for k, v in events[-1]["counters"].items()
+                if k.startswith("traffic.")}
+
+    check(traffic(got) == traffic(want) and traffic(want),
+          f"(o) {label}: traffic counters {traffic(got)} on the card, "
+          f"{traffic(want)} on the CPU")
+
+
+@contextlib.contextmanager
+def save_parts(parts: dict):
+    """Time the two halves of each checkpoint save inside the block: the
+    state's copy to host arrays (``state_to_payload``, which waits for the
+    card) and the npz write (``npz_ckpt.save_checkpoint``), in seconds
+    appended to ``parts["payload"]`` and ``parts["write"]``."""
+    from repro_torch.checkpoint import npz_ckpt
+    from repro_torch.fl.engine import state as state_lib
+
+    saved = state_lib.state_to_payload, npz_ckpt.save_checkpoint
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            parts[key].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    state_lib.state_to_payload = timed("payload", saved[0])
+    npz_ckpt.save_checkpoint = timed("write", saved[1])
+    try:
+        yield parts
+    finally:
+        state_lib.state_to_payload, npz_ckpt.save_checkpoint = saved
+
+
+def telemetry_path(torch) -> tuple:
+    """Path (o): each ``O_RUNS`` run with ``telemetry="jsonl"`` on the
+    card under ``cudnn_deterministic``, beside the same run with telemetry
+    off (``O_PAIRS`` pairs, alternating which runs first): the log must
+    validate with the port's
+    validator and its trace export load back; every run's history and
+    final weights and launch counts must equal the first off run's bit
+    for bit; the virtual spans and ``traffic.*`` counters must equal the
+    same run's on the CPU.  Prints the port's report, the median s/round
+    of rounds 2-3 with telemetry on and off, and each round's split into the wall spans of
+    ``O_STAGES``, and that of a fifth run (telemetry in memory, equal to
+    the others too) with its ``O_TIMED`` engine calls timed.  Returns (launch counts of the first on run of each,
+    record)."""
+    import tempfile
+
+    from repro_torch.kernels import KERNELS
+    from repro_torch.obs import export_trace, validate_file
+    from repro_torch.obs.report import render_report
+
+    total = {k: 0 for k in KERNELS}
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp, cudnn_deterministic(torch):
+        tmp = Path(tmp)
+        for label, scheme, knobs in O_RUNS:
+            parts = {"payload": [], "write": []}
+            order = [tel for i in range(O_PAIRS)
+                     for tel in (("off", "jsonl"), ("jsonl", "off"))[i % 2]]
+            runs = []
+            for i, tel in enumerate(order):
+                # the first on run's saves are split into their halves
+                with (save_parts(parts) if knobs.get("checkpoint_every")
+                      and i == order.index("jsonl")
+                      else contextlib.nullcontext()):
+                    runs.append(o_run(torch, scheme, knobs, DEVICE, tmp,
+                                      tel))
+            calls = []
+            runs.append(o_run(torch, scheme, knobs, DEVICE, tmp, "memory",
+                              hook=lambda r: timed_calls(torch, r, calls)))
+            off, on = runs[order.index("off")], runs[order.index("jsonl")]
+            for r in runs:
+                check(history_dicts(r[0]) == history_dicts(off[0]),
+                      f"(o) {label}: a history differs with telemetry on")
+                check(max_param_diff(r[0].params, off[0].params) == 0.0,
+                      f"(o) {label}: final weights differ with telemetry "
+                      "on")
+                check(r[2] == off[2], f"(o) {label}: launches {r[2]} with "
+                      f"telemetry on, {off[2]} off")
+            for k in O_EXPECT[scheme]:
+                check(on[2][k] > 0, f"(o) {label}: never launched {k}")
+            for k, n in on[2].items():
+                total[k] += n
+            log = Path(on[0].cfg.telemetry_dir) / "events.jsonl"
+            counts = validate_file(log)
+            check(counts.get("metrics") == 1 and counts.get("span", 0) > 0,
+                  f"(o) {label}: event counts {counts}")
+            trace = json.loads(export_trace(on[3], tmp / "trace.json")
+                               .read_text(encoding="utf-8"))
+            n_x = sum(1 for e in trace["traceEvents"] if e.get("ph") == "X")
+            check(n_x == counts["span"],
+                  f"(o) {label}: {n_x} complete events in the trace, "
+                  f"{counts['span']} spans in the log")
+            if knobs.get("checkpoint_every"):
+                saves = [e for e in on[3] if e.get("type") == "span"
+                         and e["name"] == "checkpoint.save"]
+                check(len(saves) == ROUNDS,
+                      f"(o) {label}: {len(saves)} checkpoint.save spans")
+            _, _, _, cpu = o_run(torch, scheme, knobs, "cpu", tmp, "memory")
+            virtual_match(label, on[3], cpu)
+            secs = {tel: [[t1 - t0 for t0, t1 in r[1]]
+                          for r, t in zip(runs, order) if t == want]
+                    for tel, want in (("on", "jsonl"), ("off", "off"))}
+            steady = {tel: [sum(r[1:]) / len(r[1:]) for r in v]
+                      for tel, v in secs.items()}
+            cost = {"median_on_s": statistics.median(steady["on"]),
+                    "median_off_s": statistics.median(steady["off"]),
+                    "pairs_on_slower": sum(
+                        a > b for a, b in zip(steady["on"], steady["off"])),
+                    "pairs": O_PAIRS}
+            cost["ratio"] = cost["median_on_s"] / cost["median_off_s"]
+            split = stage_split(on[3], on[1])
+            names = [f"{c}.{m}" for c, m in O_TIMED]
+            calls_split = stage_split(calls + runs[-1][3], runs[-1][1],
+                                      tuple(names) + O_STAGES)
+            rec[label] = {"s_per_round": secs, "cost": cost,
+                          "stages": split,
+                          "engine_calls": calls_split,
+                          "events": counts, "launches": {
+                              k: n for k, n in on[2].items() if n}}
+            if parts["write"]:
+                ms = {k: [1e3 * t for t in v] for k, v in parts.items()}
+                rec[label]["save_ms"] = ms
+                print(f"      saves: state to host {ms['payload']} ms, npz "
+                      f"write {ms['write']} ms")
+            print(f"  (o) {label}: events {counts}; launches "
+                  f"{rec[label]['launches']} (equal on and off); history "
+                  "and weights equal on and off bit for bit; virtual spans "
+                  "and traffic equal the CPU run's; rounds 2-3, median "
+                  f"s/round on {cost['median_on_s']:.4f}, off "
+                  f"{cost['median_off_s']:.4f} (x{cost['ratio']:.3f}), on "
+                  f"slower in {cost['pairs_on_slower']} of {O_PAIRS} pairs")
+            for what, rows in (("", split),
+                               ("engine calls timed, ", calls_split)):
+                for i, row in enumerate(rows, 1):
+                    cells = ", ".join(
+                        f"{name} {v['s'] * 1e3:.3f} ms "
+                        f"({100 * v['share']:.1f}%)"
+                        for name, v in row.items() if name != "s")
+                    print(f"      {what}round {i}: {row['s']:.4f} s; "
+                          f"{cells}")
+            for line in render_report(on[3]).splitlines():
+                print(f"      | {line}")
+    return total, rec
+
+
 def serve_path(torch, model, params):
     """Path (e)'s serving half: compose the heroes weights once per width
     and greedy-decode ``SERVE_STEPS`` tokens for ``SERVE_BATCH`` prompts
@@ -3179,6 +3475,10 @@ def main_path(torch, rt):
     by_path["m"], scheme_recs["m"] = population_path(torch)
     print("  (n) the dataset smoke, one cohort round per loader")
     by_path["n"], scheme_recs["n"] = smoke_path(torch)
+    # (o) telemetry on the card
+    print(f"  (o) telemetry, {ROUNDS} rounds each, jsonl, beside the runs "
+          "with it off")
+    by_path["o"], scheme_recs["o"] = telemetry_path(torch)
 
     for counts in by_path.values():
         for k, n in counts.items():
@@ -3262,7 +3562,7 @@ def main() -> int:
     records.update(check_ssd_rmsnorm(torch))
     launches, by_path, zoo_stats, scheme_recs = main_path(torch, rt)
     print(f"path (g) {json.dumps(zoo_stats)}")
-    print(f"paths (h)-(n) {json.dumps(scheme_recs)}")
+    print(f"paths (h)-(o) {json.dumps(scheme_recs)}")
     trace_round(torch)
     trace_round(torch, "j", trainer="cohort", per_round=10)
     print(f"calibration {json.dumps(calibration_record(torch))}")

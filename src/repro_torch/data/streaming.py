@@ -18,11 +18,14 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import (Any, Callable, Iterable, Iterator, List, Optional,
                     Sequence, Tuple)
 
 import numpy as np
 import torch
+
+from repro_torch.obs.recorder import NOOP
 
 
 class ShardView:
@@ -215,6 +218,10 @@ class ClientDataLoader:
         self.parts_x, self.parts_y = parts_x, parts_y
         self.device = torch.device(device)
         self.input_key = input_key
+        # telemetry recorder (repro_torch.obs); the engine runner rebinds
+        # it to its own, the no-op keeps a standalone loader
+        # uninstrumented
+        self.obs = NOOP
         # live prefetch workers: (stop event, thread) pairs, so close()
         # can release them even when a round body died before its
         # generator's cleanup ran
@@ -299,9 +306,19 @@ class ClientDataLoader:
         with self._workers_lock:
             self._workers.append((stop, t))
         t.start()
+        obs = self.obs
         try:
             while True:
-                got = q.get()
+                if obs.enabled:
+                    # stall = consumer time blocked on the staging thread;
+                    # depth sampled just before the blocking get
+                    obs.observe("data.prefetch_depth", q.qsize())
+                    t0 = time.perf_counter()
+                    got = q.get()
+                    obs.observe("data.prefetch_stall_s",
+                                time.perf_counter() - t0)
+                else:
+                    got = q.get()
                 if got is end:
                     break
                 if isinstance(got, tuple) and len(got) == 2 \

@@ -19,6 +19,11 @@ queue A step 9), where a ``psum`` gives it work these loops cannot do.
 With ``edge_groups > 1`` on the collective backend the runner's
 :class:`~repro_torch.fl.population.hierarchy.HierarchicalMerger` also
 folds each edge group's partials beside the merge.
+
+On the collective backend each merge adds one to the telemetry counter
+``aggregate.collective_calls[rule=...]`` under the rule the reference's
+merger names it by (``dense_mean``, ``masked_dense``, ``flanc``,
+``factorized``), so a port run counts what a reference run counts.
 """
 
 from __future__ import annotations
@@ -42,6 +47,13 @@ def weight_of(weights: Optional[Dict[int, float]], n: int) -> Optional[float]:
     if weights is None:
         return None
     return float(weights.get(n, 1.0))
+
+
+def count_merge(eng, rule: str) -> None:
+    """One merge of ``rule`` (each aggregator's ``rule``) on the
+    collective backend, for telemetry."""
+    if eng.obs.enabled and eng.cfg.agg_backend == "collective":
+        eng.obs.counter_add("aggregate.collective_calls", rule=rule)
 
 
 def _mean_bound(state: ServerState, results, lr: float,
@@ -68,6 +80,8 @@ def _mean_bound(state: ServerState, results, lr: float,
 class DenseMeanAggregator(Aggregator):
     """FedAvg/ADP: plain parameter mean over the cohort."""
 
+    rule = "dense_mean"
+
     def init_global(self, state: ServerState) -> ServerState:
         eng = self.eng
         return dataclasses.replace(
@@ -78,6 +92,7 @@ class DenseMeanAggregator(Aggregator):
         return state.params
 
     def aggregate(self, state, results, assigns, weights=None) -> ServerState:
+        count_merge(self.eng, self.rule)
         if self.eng.merger is not None:
             self._edge_fold(state, results, weights)
         return dataclasses.replace(
@@ -105,6 +120,8 @@ class DenseMeanAggregator(Aggregator):
 
 class MaskedDenseAggregator(DenseMeanAggregator):
     """HeteroFL: element-wise mean over the clients covering each region."""
+
+    rule = "masked_dense"
 
     def client_params(self, state: ServerState, n: int,
                       assignment: Assignment) -> Any:
@@ -138,6 +155,8 @@ class FlancAggregator(Aggregator):
     ``blocks_for_width(p)`` blocks (original Flanc: no sharing).
     """
 
+    rule = "flanc"
+
     def init_global(self, state: ServerState) -> ServerState:
         eng = self.eng
         full = eng.model.init_factorized(eng.cfg.seed, eng.device)
@@ -161,6 +180,7 @@ class FlancAggregator(Aggregator):
                 for name in params["basis"]}
 
     def aggregate(self, state, results, assigns, weights=None) -> ServerState:
+        count_merge(self.eng, self.rule)
         basis, coeffs = state.params["basis"], state.params["coeffs"]
 
         def contrib(n, name, key, prev):
@@ -198,6 +218,8 @@ class FlancAggregator(Aggregator):
 class HeroesAggregator(Aggregator):
     """Enhanced NC: basis average + block-wise coefficient merge (Eq. 5)."""
 
+    rule = "factorized"
+
     def init_global(self, state: ServerState) -> ServerState:
         eng = self.eng
         return dataclasses.replace(
@@ -210,6 +232,7 @@ class HeroesAggregator(Aggregator):
             assignment["hidden_ids"], assignment["anchored_ids"])
 
     def aggregate(self, state, results, assigns, weights=None) -> ServerState:
+        count_merge(self.eng, self.rule)
         if self.eng.merger is not None:
             self.eng.merger.fold_factorized(state.params, self.eng.model.specs,
                                             results, assigns, weights)

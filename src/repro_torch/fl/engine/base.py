@@ -23,6 +23,7 @@ from typing import TYPE_CHECKING, Any, Dict, Optional, Sequence, Tuple
 
 from repro_torch.fl.client import ClientResult
 from repro_torch.fl.types import RoundLog, ServerState
+from repro_torch.obs.recorder import NOOP
 
 if TYPE_CHECKING:  # pragma: no cover
     from repro_torch.fl.engine.runner import EngineRunner
@@ -37,6 +38,12 @@ class Component:
 
     def setup(self, eng: "EngineRunner") -> None:
         self.eng = eng
+
+    @property
+    def obs(self):
+        """The bound runner's telemetry recorder (:mod:`repro_torch.obs`);
+        the shared no-op before :meth:`setup` binds a runner."""
+        return getattr(getattr(self, "eng", None), "obs", NOOP)
 
 
 class AssignmentPolicy(Component):

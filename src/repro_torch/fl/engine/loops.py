@@ -26,6 +26,16 @@ mean — exactly — for the global-mean rules; the weights can exceed 1, so
 partitioned rules (per-block, per-region, per-width subsets) see an
 extrapolated weighting.  Semi-async multiplies them into the staleness
 discounts.
+
+With telemetry on (``eng.obs``, :mod:`repro_torch.obs`) each dispatched
+client records its ``client.train`` and ``client.upload`` spans on the
+virtual clock and its bytes under ``traffic.up`` / ``traffic.down`` by
+width; each merge an ``aggregate.merge`` wall span, which ends after the
+device has finished the merge; each round the ``round.makespan`` and
+``round.wait`` histograms and a ``round.aggregate`` event; semi-async
+events also ``staleness`` per merged result and the ``loop.in_flight``
+gauge.  Telemetry only reads what the loops computed: nothing of it
+enters the state, so histories and checkpoints are the same with it off.
 """
 
 from __future__ import annotations
@@ -60,6 +70,32 @@ def _charge(eng, n: int, a) -> Tuple[float, float, float]:
     return mu, b, eng.het.upload_time(n, b)
 
 
+def _record_dispatch(obs, state: ServerState, n: int, a, t_train: float,
+                     t_up: float, b: float) -> None:
+    """Client ``n``'s train and upload spans on the virtual clock (from
+    ``state.wall``) and its bytes each way, by width."""
+    obs.span("client.train", state.wall, t_train, client=int(n),
+             width=int(a["width"]), tau=int(a["tau"]),
+             round=state.round + 1)
+    obs.span("client.upload", t_train, t_up, client=int(n), bytes=b,
+             round=state.round + 1)
+    obs.counter_add("traffic.up", b, width=int(a["width"]))
+    obs.counter_add("traffic.down", b, width=int(a["width"]))
+
+
+def _merge(eng, state: ServerState, results, assigns, weights,
+           **attrs) -> ServerState:
+    """``eng.aggregator.aggregate`` inside the ``aggregate.merge`` wall
+    span, which (telemetry on) ends once the device has the merge done."""
+    obs = eng.obs
+    with obs.wall_span("aggregate.merge", clients=len(results), **attrs):
+        state = eng.aggregator.aggregate(state, results, assigns,
+                                         weights=weights)
+        if obs.enabled:
+            eng.sync_device()
+    return state
+
+
 class SyncRoundLoop(RoundLoop):
     """Synchronous makespan round (paper Eq. 19)."""
 
@@ -75,6 +111,7 @@ class SyncRoundLoop(RoundLoop):
                 f"num_clients={cfg.num_clients})")
         state, assigns = eng.assignment.assign(state, clients)
         results = eng.trainer.train_all(state, assigns)
+        obs = eng.obs
         times = {}
         traffic = state.traffic
         up = 0.0
@@ -83,13 +120,15 @@ class SyncRoundLoop(RoundLoop):
             times[n] = a["tau"] * mu + nu
             traffic += 2 * b  # down + up
             up += b  # symmetric payloads: uplink == downlink == b
+            if obs.enabled:
+                t_train = state.wall + a["tau"] * mu
+                _record_dispatch(obs, state, n, a, t_train, t_train + nu, b)
         weights = (_sample_weights(eng, list(results))
                    if cfg.sample_weighted else None)
-        state = eng.aggregator.aggregate(
-            dataclasses.replace(state, traffic=traffic,
-                                traffic_up=state.traffic_up + up,
-                                traffic_down=state.traffic_down + up),
-            results, assigns, weights=weights)
+        state = _merge(eng, dataclasses.replace(
+            state, traffic=traffic, traffic_up=state.traffic_up + up,
+            traffic_down=state.traffic_down + up),
+            results, assigns, weights)
         makespan = max(times.values())
         wait = float(np.mean([makespan - t for t in times.values()]))
         state = dataclasses.replace(state, wall=state.wall + makespan,
@@ -97,6 +136,11 @@ class SyncRoundLoop(RoundLoop):
         acc = None
         if state.round % cfg.eval_every == 0 or state.round == 1:
             acc = eng.aggregator.evaluate(state)
+        if obs.enabled:
+            obs.observe("round.makespan", makespan)
+            obs.observe("round.wait", wait)
+            obs.event("round.aggregate", state.wall, round=state.round,
+                      clients=len(results))
         log = RoundLog(state.round, state.wall, state.traffic, makespan, wait,
                        float(np.mean([a["tau"] for a in assigns.values()])),
                        acc, up_bytes=up, down_bytes=up)
@@ -129,6 +173,7 @@ class SemiAsyncRoundLoop(RoundLoop):
         eng = self.eng
         state, assigns = eng.assignment.assign(state, clients)
         results = eng.trainer.train_all(state, assigns)
+        obs = eng.obs
         traffic = state.traffic
         up = 0.0
         new = []
@@ -138,6 +183,9 @@ class SemiAsyncRoundLoop(RoundLoop):
             up += b
             finish = state.wall + a["tau"] * mu + nu
             new.append(InFlight(n, a, results[n], finish, state.round))
+            if obs.enabled:
+                _record_dispatch(obs, state, n, a, state.wall + a["tau"] * mu,
+                                 finish, b)
         return dataclasses.replace(state, traffic=traffic,
                                    traffic_up=state.traffic_up + up,
                                    traffic_down=state.traffic_down + up,
@@ -181,8 +229,11 @@ class SemiAsyncRoundLoop(RoundLoop):
             sw = _sample_weights(eng, list(results))
             weights = sw if weights is None else \
                 {n: sw[n] * weights[n] for n in sw}
-        state = eng.aggregator.aggregate(state, results, assigns,
-                                         weights=weights)
+        obs = eng.obs
+        if obs.enabled:
+            for t in done:
+                obs.observe("staleness", float(state.round - t.dispatched))
+        state = _merge(eng, state, results, assigns, weights, stale=stale)
 
         makespan = t_k - state.wall  # time since the previous aggregation
         wait = float(np.mean([t_k - t.finish for t in done]))
@@ -191,6 +242,13 @@ class SemiAsyncRoundLoop(RoundLoop):
         acc = None
         if state.round % cfg.eval_every == 0 or state.round == 1:
             acc = eng.aggregator.evaluate(state)
+        if obs.enabled:
+            obs.observe("round.makespan", makespan)
+            obs.observe("round.wait", wait)
+            obs.event("round.aggregate", state.wall, round=state.round,
+                      clients=len(results), stale=stale,
+                      in_flight=len(remaining))
+            obs.gauge_set("loop.in_flight", len(remaining))
         log = RoundLog(state.round, state.wall, state.traffic, makespan, wait,
                        float(np.mean([a["tau"] for a in assigns.values()])),
                        acc, stale=stale,

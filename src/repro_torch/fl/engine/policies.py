@@ -35,6 +35,33 @@ from repro_torch.fl.types import SchedState, ServerState
 _MU_PROBE = 1024
 
 
+def _record_coverage(obs, assigns: Dict[int, Assignment]) -> None:
+    """Per-tensor coverage telemetry for one assignment event.
+
+    Tallies ``coverage.{hidden,anchored}_rounds`` (+1 for every block
+    included in at least one client's assignment this event — divided by
+    ``coverage.events`` this is the paper-Fig.-2 coverage fraction) and
+    ``coverage.{hidden,anchored}_iters`` (tau-weighted per-block
+    training iterations, the Heroes scheduler's own counter signal).
+    Reads only the assignment dicts the policy already built.
+    """
+    if not obs.enabled:
+        return
+    obs.counter_add("coverage.events")
+    unions = {"hidden": set(), "anchored": set()}
+    for a in assigns.values():
+        tau = int(a["tau"])
+        for fam in unions:
+            ids = a.get(f"{fam}_ids")
+            if ids is None or len(ids) == 0:
+                continue
+            obs.tally_add(f"coverage.{fam}_iters", ids, tau)
+            unions[fam].update(int(i) for i in np.atleast_1d(ids))
+    for fam, union in unions.items():
+        if union:
+            obs.tally_add(f"coverage.{fam}_rounds", sorted(union))
+
+
 def tier_width(het: HeterogeneityModel, n: int, max_width: int) -> int:
     """Static width by hardware tier (HeteroFL / Flanc assignment rule)."""
     order = {"laptop": max_width, "agx_xavier": max(max_width - 1, 1),
@@ -105,6 +132,16 @@ class HeroesAssignment(AssignmentPolicy):
             comm_time_fn=lambda n, p: eng.het.upload_time(
                 n, eng.model.factorized_bytes(p)),
         )
+        if eng.obs.enabled:
+            # pre-size the coverage tallies to the model's block counts
+            # so never-trained blocks still render as 0% rows
+            nb = self.scheduler.spec.num_blocks
+            for name in ("coverage.hidden_rounds", "coverage.hidden_iters"):
+                eng.obs.tally_add(name, [nb - 1], 0)
+            if self._anch_spec is not None:
+                for name in ("coverage.anchored_rounds",
+                             "coverage.anchored_iters"):
+                    eng.obs.tally_add(name, [self.P - 1], 0)
 
     def init_state(self, state: ServerState) -> ServerState:
         return dataclasses.replace(state, sched=SchedState(
@@ -154,6 +191,7 @@ class HeroesAssignment(AssignmentPolicy):
                    for n, a in plan.assignments.items()}
         # keep the planner's scratch mirroring the authoritative tallies
         self.scheduler.counters = counters
+        _record_coverage(eng.obs, out)
         return (dataclasses.replace(state,
                                     sched=SchedState(counters, anchored)),
                 out)

@@ -18,6 +18,7 @@ The runner runs on the CUDA device unless the caller passes
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 from typing import List, Optional
 
@@ -37,6 +38,7 @@ from repro_torch.fl.models import FLModelDef
 from repro_torch.fl.population.hierarchy import HierarchicalMerger
 from repro_torch.fl.population.schedulers import build_scheduler
 from repro_torch.fl.types import FLConfig, RoundLog, ServerState
+from repro_torch.obs import build_recorder
 
 
 def check_ported(cfg: FLConfig) -> None:
@@ -54,8 +56,6 @@ def check_ported(cfg: FLConfig) -> None:
     if cfg.shard_server_state:
         later.append("shard_server_state: server state sharded across "
                      "devices (step 9)")
-    if cfg.telemetry != "off":
-        later.append(f"telemetry={cfg.telemetry!r} (step 9)")
     if later:
         raise NotImplementedError("not ported yet: " + "; ".join(later))
     if cfg.clock_model not in ("dense", "rank_aware"):
@@ -78,10 +78,17 @@ class EngineRunner:
         self.scheme = scheme
         self.model = model
         self.parts_x, self.parts_y = parts_x, parts_y
+        # telemetry recorder (repro_torch.obs); cfg.telemetry="off" gives
+        # the shared no-op.  Built first so every component (the data
+        # loader included) can bind to it
+        self.obs = build_recorder(cfg, meta={
+            "scheme": scheme, "config": dataclasses.asdict(cfg)},
+            device=self.device)
         # shards may be lazy ShardViews or a population-scale
         # VirtualShardList (repro_torch.data.streaming)
         self.data = ClientDataLoader(parts_x, parts_y, self.device,
                                      model.input_key)
+        self.data.obs = self.obs
         # population registry (virtual setups): adopts the state's
         # participation dict as its bookkeeping store (below)
         self.population = getattr(parts_x, "registry", None)
@@ -93,7 +100,9 @@ class EngineRunner:
         self.factorized = factorized
         self.estimate = estimate
         # the edge groups' partial folds beside the aggregators' merge
-        # (one device: the merged state is the flat merge's)
+        # (one device: the merged state is the flat merge's).  It records
+        # no telemetry: the aggregators count the merges
+        # (``aggregate.collective_calls``) the reference's merger counts
         self.merger = None
         if cfg.agg_backend == "collective" and cfg.edge_groups > 1:
             self.merger = HierarchicalMerger(cfg.edge_groups)
@@ -154,11 +163,27 @@ class EngineRunner:
         clients = self.sampler.sample(state, k, exclude)
         for n in clients:
             state.participation[int(n)] = state.round
+        if self.obs.enabled:
+            # a virtual population's profiles come from its keyed
+            # streams, one sampled client at a time
+            for n in clients:
+                self.obs.counter_add("participation.tier",
+                                     tier=self.het.clients[int(n)].tier)
         return clients
 
+    def sync_device(self) -> None:
+        """Wait for the work queued on the run's CUDA device (nothing on
+        the CPU): a telemetry wall span around device work calls it
+        before it ends, so the span covers the work, not its launch."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def close(self) -> None:
-        """Release the data loader's background prefetch workers."""
+        """Release the data loader's background prefetch workers and
+        close the telemetry recorder (its final metrics snapshot); safe
+        to call again."""
         self.data.close()
+        self.obs.close()
 
     def __enter__(self) -> "EngineRunner":
         return self
@@ -217,10 +242,17 @@ class EngineRunner:
         """Write the current ServerState under ``cfg.checkpoint_dir``."""
         if not self.cfg.checkpoint_dir:
             raise ValueError("FLConfig.checkpoint_dir is not set")
-        payload = state_lib.state_to_payload(self.state)
-        return npz_ckpt.save_checkpoint(
-            self.cfg.checkpoint_dir, self.state.round, payload,
-            keep=self.cfg.checkpoint_keep)
+        with self.obs.wall_span("checkpoint.save", round=self.state.round):
+            payload = state_lib.state_to_payload(self.state)
+            path = npz_ckpt.save_checkpoint(
+                self.cfg.checkpoint_dir, self.state.round, payload,
+                keep=self.cfg.checkpoint_keep)
+        if self.obs.enabled:
+            self.obs.counter_add("checkpoint.saves")
+            # the step directory's files: state.npz and manifest.json
+            self.obs.counter_add("checkpoint.bytes", float(sum(
+                f.stat().st_size for f in Path(path).iterdir())))
+        return path
 
     def restore_latest(self) -> bool:
         """Adopt the newest checkpoint under ``cfg.checkpoint_dir``.

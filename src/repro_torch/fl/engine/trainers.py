@@ -21,6 +21,13 @@ prefetch thread.
 the proximal pull ``mu * (w - w_global)`` added to every SGD step, so
 FedProx drops in as a scheme bundle.
 
+With telemetry on, each client's ``trainer.local_train`` (sequential,
+proximal) and each group's ``trainer.device_step`` (cohort) is a wall
+span that ends once the device has finished the work, and the cohort
+trainer records ``trainer.host_stage`` (from the prefetch thread) and
+one ``trainer.cohort_shape`` count per group.  The port compiles nothing
+per shape, so it has no ``trainer.jit_recompiles`` counter.
+
 Results stay on the run's device; both merge backends consume them
 there.  Training a cohort across GPUs (the JAX package's mesh-sharded
 client axis, ``trainer_mesh_devices > 1``) is ROADMAP queue A step 9.
@@ -51,19 +58,24 @@ class SequentialTrainer(LocalTrainer):
     def train_all(self, state, assigns: Dict[int, Assignment],
                   ) -> Dict[int, ClientResult]:
         eng = self.eng
+        obs = eng.obs
         cal = for_dispatch(eng.cfg, eng.device)
         out = {}
         for n, a in assigns.items():
             params = eng.aggregator.client_params(state, n, a)
-            out[n] = client_lib.local_train(
-                eng.model, params, a["width"], a["tau"],
-                eng.parts_x[n], eng.parts_y[n], eng.cfg.lr,
-                np.random.default_rng((eng.cfg.seed, state.round, n)),
-                eng.cfg.batch_size, factorized=eng.factorized,
-                estimate=eng.estimate,
-                forward_impl=eng.cfg.forward_impl,
-                calibration=cal,
-            )
+            with obs.wall_span("trainer.local_train", client=int(n),
+                               width=int(a["width"]), tau=int(a["tau"])):
+                out[n] = client_lib.local_train(
+                    eng.model, params, a["width"], a["tau"],
+                    eng.parts_x[n], eng.parts_y[n], eng.cfg.lr,
+                    np.random.default_rng((eng.cfg.seed, state.round, n)),
+                    eng.cfg.batch_size, factorized=eng.factorized,
+                    estimate=eng.estimate,
+                    forward_impl=eng.cfg.forward_impl,
+                    calibration=cal,
+                )
+                if obs.enabled:
+                    eng.sync_device()
         return out
 
 
@@ -117,6 +129,14 @@ class CohortTrainer(LocalTrainer):
         3 estimate batches.  Stacked with the step axis first, (steps, C,
         B, ...), and packed with the clients' taus into one buffer for
         one host-to-device copy."""
+        # the span lands from the prefetch thread; the recorder's lock
+        # makes that safe
+        with self.eng.obs.wall_span("trainer.host_stage", clients=len(ns),
+                                    batch=int(b_eff)):
+            return self._prepare_group_inner(state, b_eff, ns, assigns)
+
+    def _prepare_group_inner(self, state, b_eff: int, ns: List[int],
+                             assigns: Dict[int, Assignment]):
         eng, cfg = self.eng, self.eng.cfg
         taus = [max(assigns[n]["tau"], 1) for n in ns]
         drawn = [eng.data.draw_round(n, seed=cfg.seed, rnd=state.round,
@@ -158,20 +178,33 @@ class CohortTrainer(LocalTrainer):
                                                           assigns[n])
                              for n in ns])
         params = params0
-        for s in range(max(taus)):
-            g = grads(params, {k: v[s] for k, v in steps.items()})
-            new = tree_map(lambda p, gg: (p - cfg.lr * gg).detach(), params,
-                           g)
-            if s >= min(taus):  # a client past its tau keeps its params
-                live = s < tau
-                new = tree_map(lambda nw, old: torch.where(
-                    live.reshape((-1,) + (1,) * (nw.dim() - 1)), nw, old),
-                    new, params)
-            params = new
+        obs = eng.obs
+        # (steps, C, B, ...): the group's largest tau, its clients (the
+        # port pads neither), the batch
+        lead = steps[key].shape
+        with obs.wall_span("trainer.device_step", clients=int(lead[1]),
+                           width=int(width), tau_pad=int(lead[0])):
+            for s in range(max(taus)):
+                g = grads(params, {k: v[s] for k, v in steps.items()})
+                new = tree_map(lambda p, gg: (p - cfg.lr * gg).detach(),
+                               params, g)
+                if s >= min(taus):  # a client past its tau keeps its params
+                    live = s < tau
+                    new = tree_map(lambda nw, old: torch.where(
+                        live.reshape((-1,) + (1,) * (nw.dim() - 1)), nw,
+                        old), new, params)
+                params = new
 
-        first = {k: v[0] for k, v in steps.items()}
-        with torch.no_grad():
-            loss_b, loss_a = losses(params0, first), losses(params, first)
+            first = {k: v[0] for k, v in steps.items()}
+            with torch.no_grad():
+                loss_b, loss_a = losses(params0, first), losses(params,
+                                                                first)
+            if obs.enabled:
+                eng.sync_device()
+        if obs.enabled:
+            obs.counter_add("trainer.cohort_shape", width=int(width),
+                            clients=int(lead[1]), tau_pad=int(lead[0]),
+                            batch=int(lead[2]))
         rows = [loss_b, loss_a]
         if est is not None:
             eb = [{k: v[i] for k, v in est.items()} for i in range(3)]
@@ -203,32 +236,42 @@ class ProximalTrainer(LocalTrainer):
     def train_all(self, state, assigns: Dict[int, Assignment],
                   ) -> Dict[int, ClientResult]:
         eng, cfg = self.eng, self.eng.cfg
+        obs = eng.obs
         mu = cfg.prox_mu
         cal = for_dispatch(cfg, eng.device)
         out: Dict[int, ClientResult] = {}
         for n, a in assigns.items():
             fns = ClientFns(eng.model, a["width"], eng.factorized,
                             cfg.forward_impl, cal)
-            anchor = eng.aggregator.client_params(state, n, a)
-            nsamp = eng.data.num_samples(n)
-            idx, est_idx = round_batch_indices(
-                cfg.seed, state.round, n, nsamp, max(a["tau"], 1),
-                min(cfg.batch_size, nsamp), estimate=eng.estimate)
-            params, first = anchor, None
-            for i in idx:
-                batch = eng.data.gather(n, i)
-                if first is None:
-                    first = batch
-                g = fns.grad(params, batch)
-                params = tree_map(
-                    lambda p, w0, gg: (p - cfg.lr * (gg + mu * (p - w0)))
-                    .detach(), params, anchor, g)
-            est: Dict[str, float] = {}
-            if est_idx is not None:
-                est = estimator.client_estimates(
-                    fns.grad, anchor, params,
-                    [eng.data.gather(n, i) for i in est_idx])
-                est = {k: float(v) for k, v in est.items()}
-            out[n] = ClientResult(params, est, fns.value(anchor, first),
-                                  fns.value(params, first))
+            with obs.wall_span("trainer.local_train", client=int(n),
+                               width=int(a["width"]), tau=int(a["tau"])):
+                out[n] = self._train_one(state, n, a, fns, mu)
+                if obs.enabled:
+                    eng.sync_device()
         return out
+
+    def _train_one(self, state, n: int, a: Assignment, fns: ClientFns,
+                   mu: float) -> ClientResult:
+        eng, cfg = self.eng, self.eng.cfg
+        anchor = eng.aggregator.client_params(state, n, a)
+        nsamp = eng.data.num_samples(n)
+        idx, est_idx = round_batch_indices(
+            cfg.seed, state.round, n, nsamp, max(a["tau"], 1),
+            min(cfg.batch_size, nsamp), estimate=eng.estimate)
+        params, first = anchor, None
+        for i in idx:
+            batch = eng.data.gather(n, i)
+            if first is None:
+                first = batch
+            g = fns.grad(params, batch)
+            params = tree_map(
+                lambda p, w0, gg: (p - cfg.lr * (gg + mu * (p - w0)))
+                .detach(), params, anchor, g)
+        est: Dict[str, float] = {}
+        if est_idx is not None:
+            est = estimator.client_estimates(
+                fns.grad, anchor, params,
+                [eng.data.gather(n, i) for i in est_idx])
+            est = {k: float(v) for k, v in est.items()}
+        return ClientResult(params, est, fns.value(anchor, first),
+                            fns.value(params, first))

@@ -180,8 +180,13 @@ class FLConfig:
     checkpoint_every: int = 0
     checkpoint_dir: Optional[str] = None
     checkpoint_keep: int = 3
-    # --- a later slice, kept with the reference's defaults ---------------
-    # telemetry: the engine raises NotImplementedError for any value but
-    # "off" (ROADMAP step 9).
+    # --- telemetry (repro_torch.obs) -------------------------------------
+    # "off" (default): the shared no-op recorder — zero overhead, nothing
+    # synchronizes, and the instrumented paths give the same histories
+    # bit for bit.  "memory": in-process MemorySink (tests/notebooks).
+    # "jsonl": append every span/event to ``<telemetry_dir>/events.jsonl``
+    # with a final metrics snapshot at close; render with
+    # ``python -m repro_torch.obs.report``.  With either, the wall spans
+    # around device work end with a synchronize of the CUDA device.
     telemetry: str = "off"
     telemetry_dir: Optional[str] = None

@@ -31,6 +31,7 @@ from repro_torch.fl import FLConfig as TConfig
 from repro_torch.fl import build_image_setup as t_setup
 from repro_torch.fl import build_runner as t_build
 from repro_torch.fl.engine import state as t_state
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 SCHEMES = ("fedavg", "adp", "heterofl", "flanc", "heroes")
 

@@ -48,22 +48,12 @@ from repro_torch.kernels.compose import (compose, compose_dense_apply,
 from repro_torch.kernels.conv_rank import conv_rank_apply
 from test_torch_engine import PIN, _record
 from test_torch_schemes import BASE, _assert_params_close
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 DENSE_TOL = 2e-5
 CONV_TOL = 2e-4
 MODES = ("square", "grow_out", "grow_in")
 SCHEMES = ("fedavg", "adp", "heterofl", "flanc", "fedprox", "heroes")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """These runs are chains of tiny ops: one intra-op thread runs them
-    faster than many, and keeps a loaded machine's workers from
-    oversubscribing its cores.  Restored for the worker's next file."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rand(seed, *shapes, scale=0.5):

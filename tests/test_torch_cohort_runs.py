@@ -23,9 +23,9 @@ from repro_torch.fl import FLConfig as TConfig
 from repro_torch.fl import build_image_setup as t_setup
 from repro_torch.fl import build_runner as t_build
 from repro_torch.fl.engine import CohortTrainer
-from test_torch_cohort import one_thread  # noqa: F401 (an autouse fixture)
 from test_torch_engine import EST_TOL, _record
 from test_torch_schemes import BASE, _check
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,7 @@ from repro_torch.fl import RoundLog
 from repro_torch.fl import build_image_setup as t_setup
 from repro_torch.fl import build_runner as t_build
 from repro_torch.fl import simulation as tsim
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 MEAN_ATOL = 1e-6  # means may sum in another order across frameworks
 SCHEMES = ("fedavg", "adp", "heterofl", "flanc", "fedprox", "heroes")

@@ -15,6 +15,7 @@ from repro_torch.convert import from_jax_params
 from repro_torch.data import smoke
 from repro_torch.fl import FLConfig, build_runner
 from repro_torch.fl.simulation import build_image_setup, build_text_setup
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 
 def test_smoke_main_on_cpu(tmp_path, capsys):

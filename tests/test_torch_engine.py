@@ -32,6 +32,7 @@ from repro_torch.fl import build_runner as t_build
 from repro_torch.fl import client as tclient
 from repro_torch.fl import summarize
 from repro_torch.fl.heterogeneity import HeterogeneityModel as THet
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 PIN = dict(conv_rank_overhead=1.0, fused_compose_gain=0.5)
 EST_TOL = 1e-3
@@ -175,7 +176,6 @@ def test_config_keeps_reference_defaults():
 
 @pytest.mark.parametrize("knob,match", [
     (dict(trainer_mesh_devices=2), "trainer_mesh_devices.*step 9"),
-    (dict(telemetry="memory"), "telemetry.*step 9"),
     (dict(shard_server_state=True), "shard_server_state.*step 9"),
     (dict(agg_devices=2), "agg_devices.*step 9"),
 ])
@@ -191,10 +191,11 @@ def test_unported_knobs_raise(knob, match):
     dict(checkpoint_every=1, checkpoint_dir="ckpt"),
     dict(participation="availability"),
     dict(edge_groups=2),
+    dict(telemetry="memory"),
 ])
 def test_ported_knobs_run(knob, tmp_path):
-    """The knobs the population and checkpoint slice ported build and run
-    a round."""
+    """The knobs the population, checkpoint and telemetry slices ported
+    build and run a round."""
     if "checkpoint_dir" in knob:
         knob = dict(knob, checkpoint_dir=str(tmp_path / "ckpt"))
     tm, tx, ty, tt = t_setup(num_clients=4, device="cpu")
@@ -205,6 +206,8 @@ def test_ported_knobs_run(knob, tmp_path):
             assert (tmp_path / "ckpt" / "step_00000001").is_dir()
         if "edge_groups" in knob:
             assert r.merger.last_partials is not None
+        if "telemetry" in knob:
+            assert len(r.obs.sinks[0].spans("client.train")) == 2
 
 
 def test_streamed_eval_and_rank_aware_clock_match_reference():

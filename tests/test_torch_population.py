@@ -42,6 +42,7 @@ from repro_torch.fl.population import (HierarchicalMerger,
                                        grouped_ordered_fold)
 from repro_torch.fl.population.schedulers import _EXACT_POOL_MAX
 from repro_torch.fl.types import ServerState as TState
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 W = (0.05, 0.15, 0.30, 0.50)
 

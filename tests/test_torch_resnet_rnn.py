@@ -43,9 +43,9 @@ from repro_torch.fl import run_scheme
 from repro_torch.fl.engine import SCHEMES, CohortTrainer
 from repro_torch.fl.models import make_resnet as t_make_resnet
 from repro_torch.fl.models import make_rnn as t_make_rnn
-from test_torch_cohort import one_thread  # noqa: F401 (an autouse fixture)
 from test_torch_engine import EST_TOL, _record, _rel
 from test_torch_schemes import _check
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 TOL = 2e-5
 CONV_TOL = 2e-4

@@ -21,6 +21,7 @@ from repro_torch.convert import from_jax_params
 from repro_torch.core.estimator import tree_leaves
 from repro_torch.fl import FLConfig, build_image_setup, build_runner
 from repro_torch.fl import build_setup
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 SCHEMES = ("fedavg", "adp", "heterofl", "flanc", "heroes")
 ROUNDS = 5

@@ -29,6 +29,7 @@ from repro_torch.fl import build_image_setup as t_setup
 from repro_torch.fl import build_runner as t_build
 from repro_torch.fl.engine import ProximalTrainer, SemiAsyncRoundLoop
 from test_torch_engine import EST_TOL, PIN, _record, _rel
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 BASE = dict(num_clients=8, clients_per_round=3, eval_every=1, **PIN)
 ASYNC = dict(round_mode="semi_async", async_k=2)

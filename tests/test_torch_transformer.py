@@ -50,6 +50,7 @@ from repro_torch.fl import make_transformer as t_make
 from repro_torch.fl import serving_weights as t_serving
 from repro_torch.fl.models import _apply_embed as t_apply_embed
 from repro_torch.fl.transformer import arch_of
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 ATOL, RTOL = 2e-4, 2e-3
 EST_TOL = 1e-3
