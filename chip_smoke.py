@@ -33,7 +33,10 @@ Run from the root of a checkout.  It
    transformer path's shapes, the reference's sweep shapes, head dims 80
    and 256 over several KV tiles, a query group of 8 over uneven key
    splits with ragged lengths down to 0, and in model layout through
-   ``kernels.ops``; rmsnorm and ssd_chunk in f32 and bf16, element-wise,
+   ``kernels.ops``, there also at every call shape of paths (p) and (q)
+   (each dense config's prefill and decode, gemma's windowed forward,
+   ring, int8 and training calls); rmsnorm and ssd_chunk in f32 and
+   bf16, element-wise,
    at zamba2's path shapes, the reference's sweep shapes, with ``heads >
    1``, at every width of the zoo's rmsnorm configs and widths the
    one-pass kernel does not take, and at every instance and edge of the
@@ -51,7 +54,8 @@ Run from the root of a checkout.  It
    kernels, at one realistic shape each over ``BIG_ITERS`` eager calls
    (flash also at path (g)'s own call, decode also through
    ``kernels.ops`` on the model layout, rmsnorm also at path (g)'s
-   decode shapes);
+   decode shapes; flash, decode and rmsnorm also at path (p)'s own
+   prefill and decode calls on gemma-2b);
 3. drives the port's main paths, with the launch counts set to 0 just
    before each and read just after, each checked against the same run on
    the CPU (the plain versions, which the CPU tests hold to the JAX
@@ -127,6 +131,23 @@ Run from the root of a checkout.  It
    spans (trainer, host staging, device step, merge, checkpoint), that
    of a fifth run with the engine's assign, train_all and evaluate timed
    too, and each save's two halves (the state to the host, the write);
+   (p) the zoo's dense family on gemma-2b at full width and depth (bf16
+   compute): a 4 x 512 prefill held against step-by-step
+   ``serve_step``, the sliding-window variant (a ring of 16 slots,
+   teacher-forced past its wraps, against the windowed forward, and a
+   ring one slot too wide and one with a stale slot, which that check
+   must fail), the
+   int8 KV cache (within the reference's 5 % of the bf16 cache), 3 AdamW
+   steps of the training launcher's step function on the full model
+   (the loss falls, flash attention and rmsnorm launch in every
+   forward), ``launch/serve.py``'s ``main`` at its defaults (which must
+   serve gemma-2b), one layer in f32 against the CPU, and the training
+   step on one layer in f32 against the CPU's; (q) stablelm-3b at full
+   depth, deepseek-coder-33b and granite-34b at full width and 8 layers
+   (one card holds neither's 62 or 88 f32 layers): each a prefill held
+   against ``serve_step`` and ``launch/serve.py``'s loop; deepseek must
+   launch rmsnorm, the LayerNorm archs none; (g), (p) and (q) each trace
+   a prefill and 4 serve steps;
 4. traces one round of (c) with ``torch.profiler`` (device busy share,
    top kernels), with the sequential trainer and 4 clients and with the
    cohort trainer and 10, and prints the calibration
@@ -1378,6 +1399,37 @@ def check_attention(torch):
                 close(torch, got,
                       o.reshape(b, kv, g, S, d).permute(0, 3, 1, 2, 4), tol,
                       f"ops.flash_attention {tn} b={b} S={S} vs oracle")
+        # paths (p) and (q)'s own calls, in model layout through
+        # kernels.ops: gemma's MQA (G 8, D 256), stablelm's MHA (D 80),
+        # deepseek's G 7 (padded to the decode kernel's 16-row group, D
+        # 128) and granite's MQA of 48 (3 row groups a key); decode
+        # lengths ragged
+        flash_calls, decode_calls = dense_attention_shapes()
+        for label, b, S, kv, g, d, w in flash_calls:
+            q, k, v = (rn(b, S, kv, g, d, dtype=dtype),
+                       rn(b, S, kv, d, dtype=dtype),
+                       rn(b, S, kv, d, dtype=dtype))
+            got = ops.flash_attention(q, k, v, window=w)
+            qf, kf, vf, G = _flat_flash(q, k, v)
+            want = _flash_math(qf, kf, vf, True, w, G)
+            keep("flash_attention", close(
+                torch, got, want.reshape(b, kv, g, S, d).permute(
+                    0, 3, 1, 2, 4), tol,
+                f"ops.flash_attention {tn} {label}: b={b} S={S} kv={kv} "
+                f"g={g} d={d} window={w}"))
+            del q, k, v, got, want, qf, kf, vf
+        for label, b, S, kv, g, d, _ in decode_calls:
+            q, k, v = (rn(b, 1, kv, g, d, dtype=dtype),
+                       rn(b, S, kv, d, dtype=dtype),
+                       rn(b, S, kv, d, dtype=dtype))
+            lens = ri(1, S + 1, (b,))
+            lens[0] = S
+            got = ops.decode_attention(q, k, v, lens)
+            want = _decode_math(*_flat_decode(q, k, v, lens))
+            keep("decode_attention", close(
+                torch, got, want.reshape(got.shape), tol,
+                f"ops.decode_attention {tn} {label}: b={b} S={S} kv={kv} "
+                f"g={g} d={d}, {splits_of(b * kv, g, S)} splits"))
 
     # no backward, as in the reference: asking for one raises
     for name, fn in (("decode_attention", lambda a: decode_attention(
@@ -1450,8 +1502,26 @@ def check_attention(torch):
         f"({B},) {S}", lambda: ops.decode_attention(qm, k, v, lb),
         lambda: _decode_math(q, kr, vr, lens, G), sdpa, nbytes, flops,
         PEAK_BF16_FLOPS, big=True)
+    # decode at path (p)'s own call: serve's last step on gemma_2b (batch
+    # 4, a 64-slot cache, every slot valid), model layout, bf16
+    g2 = dense_attention_shapes()[1][0]
+    _, B, S, KV, G, D, _ = g2
+    qg = rn(B, 1, KV, G, D, dtype=bf)
+    kg, vg = rn(B, S, KV, D, dtype=bf), rn(B, S, KV, D, dtype=bf)
+    lg = torch.full((B,), S, dtype=torch.int32, device=dev)
+    flat = _flat_decode(qg, kg, vg, lg)
+    gemma = time_kernel(
+        torch, "decode_attention", "path (p) serve, gemma_2b",
+        f"q ({B},1,{KV},{G},{D}) caches ({B},{S},{KV},{D}) bf16, lengths "
+        f"{S}", lambda: ops.decode_attention(qg, kg, vg, lg),
+        lambda: _decode_math(*flat),
+        lambda: F.scaled_dot_product_attention(
+            qg.view(B, KV * G, 1, D), kg.permute(0, 2, 1, 3),
+            vg.permute(0, 2, 1, 3), enable_gqa=True),
+        2 * (2 * qg.numel() + kg.numel() + vg.numel()) + 4 * B,
+        4 * D * B * KV * G * S, PEAK_BF16_FLOPS, big=False)
     records["decode_attention"] = dict(path, at_scale=real,
-                                       ops_model_layout=model)
+                                       ops_model_layout=model, gemma=gemma)
     del q, k, v, kr, vr, qm
     torch.cuda.empty_cache()
 
@@ -1471,6 +1541,27 @@ def check_attention(torch):
         4 * (2 * q.numel() + k.numel() + v.numel()), 4 * D * pairs,
         PEAK_F32_FLOPS, big=False)
     extra = {}
+    # flash at path (p)'s own call: gemma_2b's 4 x 512 prefill (8 query
+    # heads on 1 KV head, head_dim 256), bf16, causal
+    _, B, S, KV, G, D, _ = dense_attention_shapes()[0][0]
+    q = rn(B * KV * G, S, D, dtype=bf)
+    k, v = rn(B * KV, S, D, dtype=bf), rn(B * KV, S, D, dtype=bf)
+    keep("flash_attention", close(
+        torch, flash_attention(q, k, v, q_per_kv=G),
+        _flash_math(q, k, v, True, 0, G), ATTN_TOL["bfloat16"],
+        "flash_attention bf16 path (p) prefill, gemma_2b"))
+    extra["gemma"] = time_kernel(
+        torch, "flash_attention", "path (p) prefill, gemma_2b",
+        f"q ({B * KV * G},{S},{D}) kv ({B * KV},{S},{D}) bf16 G={G} causal",
+        lambda: flash_attention(q, k, v, q_per_kv=G),
+        lambda: _flash_math(q, k, v, True, 0, G),
+        lambda: F.scaled_dot_product_attention(
+            q.view(B, KV * G, S, D), k.view(B, KV, S, D),
+            v.view(B, KV, S, D), is_causal=True, enable_gqa=True),
+        2 * (2 * q.numel() + k.numel() + v.numel()),
+        4 * D * B * KV * G * _causal_pairs(S, S), PEAK_BF16_FLOPS,
+        big=False)
+    del q, k, v
     # flash, bf16 causal: path (g)'s own call, then realistic
     for key, label, shape, big in (
             ("path_g", "path (g) prefill, zamba2", FLASH_PATH_G, False),
@@ -1544,7 +1635,8 @@ def check_ssd_rmsnorm(torch):
         for shape in ((2048, 2560), (2048, 5120), (4, 2560), (4, 5120),
                       (4, 64), (2, 7, 96), (1, 130, 32), (3, 100),
                       (8, 8192), (3, 128), (5, 256), (6, 2048), (7, 3584),
-                      (4, 7168), (5, 1000), (2, 65536), "misaligned"):
+                      (4, 7168), (5, 1000), (2, 65536), "misaligned",
+                      (2048, 2048), (4, 2048), (512, 2048), (2048, 7168)):
             if shape == "misaligned":  # a contiguous view at element 1
                 x = rn(3 * 2560 + 1, dtype=dtype)[1:].view(3, 2560)
             else:
@@ -1630,7 +1722,14 @@ def check_ssd_rmsnorm(torch):
               for d in (2560, 5120)}
     real = rms_case(RMS_AT_SCALE["rows"], RMS_AT_SCALE["d"],
                     "prefill_32k x zamba2", big=True)
-    records["rmsnorm"] = dict(path, at_scale=real, decode=decode)
+    # path (p)'s own calls: gemma_2b's 4 x 512 prefill and a decode step
+    gemma = {"prefill (2048,2048)": rms_case(2048, 2048,
+                                             "path (p) prefill, gemma_2b",
+                                             big=False),
+             "decode (4,2048)": rms_case(4, 2048, "path (p) decode, gemma_2b",
+                                         big=False)}
+    records["rmsnorm"] = dict(path, at_scale=real, decode=decode,
+                              gemma=gemma)
     torch.cuda.empty_cache()
 
     def ssd_case(G, heads, Q, N, P, label, big):
@@ -3310,20 +3409,22 @@ def trace_zoo(torch, cfg, params, toks, steps: int = 4) -> dict:
     return out
 
 
-def zoo_vs_cpu(torch, cfg):
-    """One superblock of ``cfg`` at full width, f32 compute, TF32 off:
-    the card's forward against the same forward on the CPU from the same
-    weights, at ``CPU_BATCH`` x ``CPU_LEN`` tokens (a full chunk and a
-    padded one).  Greedy tokens (argmax at every position) must be equal."""
+def zoo_vs_cpu(torch, cfg, layers=None, batch=CPU_BATCH, length=CPU_LEN,
+               label="(g)"):
+    """``layers`` of ``cfg`` (one superblock by default) at full width,
+    f32 compute, TF32 off: the card's forward against the same forward on
+    the CPU from the same weights, at ``batch`` x ``length`` tokens (for
+    zamba2 a full chunk and a padded one).  Greedy tokens (argmax at every
+    position) must be equal."""
     from repro_torch.models import model, module
 
     import numpy as np
 
-    cfg = cfg.replace(num_layers=cfg.hybrid.attn_every,
-                      compute_dtype="float32")
+    n = layers or cfg.hybrid.attn_every
+    cfg = cfg.replace(num_layers=n, compute_dtype="float32")
     params = model.init(1, cfg, DEVICE)
     toks = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab, (CPU_BATCH, CPU_LEN)))
+        0, cfg.vocab, (batch, length)))
     with torch.no_grad():
         g, _ = model.forward(params, cfg, {"tokens": toks.to(DEVICE)})
         g = g.cpu()
@@ -3332,19 +3433,18 @@ def zoo_vs_cpu(torch, cfg):
                              {"tokens": toks})
         t_cpu = time.perf_counter() - t0
     e = err(torch, g, c, CPU_TOL,
-            f"(g) depth {cfg.num_layers} f32 {CPU_BATCH}x{CPU_LEN}: card vs "
-            "CPU logits")
+            f"{label} depth {n} f32 {batch}x{length}: card vs CPU logits")
     top2 = torch.topk(c, 2, dim=-1).values
     margin = float((top2[..., 0] - top2[..., 1]).min())
     same = bool(torch.equal(g.argmax(-1), c.argmax(-1)))
-    print(f"      greedy tokens equal {same} over {CPU_BATCH * CPU_LEN} "
+    print(f"      greedy tokens equal {same} over {batch * length} "
           f"positions (smallest top-2 margin on the CPU {margin:.3e}); CPU "
           f"forward {t_cpu:.2f} s")
-    check(same, "(g) greedy tokens differ between the card and the CPU")
+    check(same, f"{label} greedy tokens differ between the card and the CPU")
     del params
     torch.cuda.empty_cache()
-    return {"depth6_vs_cpu_max_abs_err": e, "depth6_greedy_equal": same,
-            "depth6_min_top2_margin": margin}
+    return {f"depth{n}_vs_cpu_max_abs_err": e, f"depth{n}_greedy_equal": same,
+            f"depth{n}_min_top2_margin": margin}
 
 
 # path (g)'s gradient: zamba2's smoke config in f32, the card's loss_fn
@@ -3406,6 +3506,478 @@ def zoo_grad(torch):
             "forward_launches": counts}
 
 
+# paths (p) and (q): the zoo's dense family at full width, bf16 compute,
+# f32 params made on the card.  gemma-2b (the serving launcher's default
+# arch) and stablelm-3b at full depth; deepseek-coder-33b and granite-34b
+# with the depth cut to Q_DEPTH layers: their 62 and 88 f32 layers take
+# 133.4 and 135.9 GB, past one card's 80 GB
+DENSE_DEFAULT = "gemma-2b"
+Q_DEPTH = 8
+DENSE_Q = (("stablelm-3b", None), ("deepseek-coder-33b", Q_DEPTH),
+           ("granite-34b", Q_DEPTH))
+# the dense archs whose norm is RMSNorm (the others' LayerNorm stays plain
+# PyTorch, in the reference and the port alike)
+DENSE_RMSNORM = frozenset({"gemma-2b", "deepseek-coder-33b"})
+DENSE_EXPECT = frozenset({"flash_attention", "decode_attention"})
+# (p) and (q) hold serve_step to the prefill within DENSE_STEP_TOL of
+# max|logits|: 3x the largest sound reading, stablelm-3b's 1.87e-2 over 32
+# bf16 layers (gemma-2b 7.1e-3, deepseek-coder-33b 1.2e-2, granite-34b
+# 9.6e-3 at 8 layers; H100, bf16).  path (g)'s STEP_TOL is zamba2's 63
+# blocks'.
+DENSE_STEP_TOL = 0.06
+# (p)'s sliding-window variant: teacher-forced serve_step over WINDOW_LEN
+# tokens through a ring of WINDOW slots (wrapping twice) against forward
+# with the same window, within RING_TOL: ~4x its sound reading (7.4e-3 of
+# max|logits|, H100, bf16).  The same check must fail two planted faults
+# (a ring one slot too wide; one slot left stale at STALE_AT for the next
+# WINDOW - 1 steps), so the limit tells a broken ring from rounding.
+WINDOW, WINDOW_BATCH, WINDOW_LEN = 16, 2, 48
+RING_TOL = 0.03
+STALE_AT = WINDOW + 4
+# (p)'s int8 KV cache: INT8_STEPS decode steps against the compute-type
+# cache, within the reference's bound (tests/test_arch_smoke.py:104)
+INT8_STEPS, INT8_TOL = 8, 0.05
+# (p)'s training: the launcher's step function and data (AdamW, cosine
+# schedule over the steps, SyntheticTextTask with numpy seed 0), on the
+# full model and, held against the CPU, on one layer at full width in f32
+TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 8, 64, 3
+TRAIN_CPU_BATCH, TRAIN_CPU_LEN, TRAIN_CPU_STEPS = 2, 32, 2
+TRAIN_CPU_TOL = 1e-5  # loss and grad_norm, f32, relative
+# one layer at full width in f32 against the CPU
+DENSE_CPU_BATCH, DENSE_CPU_LEN = 2, 128
+
+
+def dense_attention_shapes() -> tuple:
+    """The attention calls of paths (p) and (q), from the configs: each
+    dense arch's prefill (``PREFILL_BATCH`` x ``PREFILL_LEN``, causal), and
+    its decode over serve's cache (``SERVE_KW``'s batch and ``max_len``)
+    and over the step check's (``STEP_CHECK`` slots); gemma's windowed
+    forward and ring decode, its int8 cache's decode (the dequantized
+    cache, ``2 * INT8_STEPS`` slots) and its training forward.  Returns
+    (flash, decode) lists of (label, B, S, KV, G, D, window)."""
+    from repro_torch import configs
+
+    flash, decode = [], []
+    for arch in (DENSE_DEFAULT, *(a for a, _ in DENSE_Q)):
+        c = configs.get_config(arch)
+        h = (c.num_kv_heads, c.q_per_kv, c.resolved_head_dim)
+        flash.append((f"{arch} prefill", PREFILL_BATCH, PREFILL_LEN, *h, 0))
+        decode += [(f"{arch} serve", SERVE_KW["batch"], SERVE_KW["max_len"],
+                    *h, 0),
+                   (f"{arch} step check", PREFILL_BATCH, STEP_CHECK, *h, 0)]
+        if arch == DENSE_DEFAULT:
+            flash += [(f"{arch} window", WINDOW_BATCH, WINDOW_LEN, *h,
+                       WINDOW),
+                      (f"{arch} train", TRAIN_BATCH, TRAIN_LEN, *h, 0)]
+            decode += [(f"{arch} ring", WINDOW_BATCH, WINDOW, *h, 0),
+                       (f"{arch} int8", PREFILL_BATCH, 2 * INT8_STEPS, *h,
+                        0)]
+    return flash, decode
+
+
+def launch_diff(before: dict) -> dict:
+    """Launches of each kernel since the snapshot ``before``."""
+    from repro_torch.kernels import LAUNCHES
+
+    return {k: n - before[k] for k, n in LAUNCHES.items() if n > before[k]}
+
+
+def dense_serving(torch, label, cfg, params) -> dict:
+    """A prefill of ``PREFILL_BATCH`` x ``PREFILL_LEN`` tokens (timed
+    warm), its first ``STEP_CHECK`` positions held against step-by-step
+    ``serve_step``, and one prefill and 4 serve steps traced."""
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import model
+
+    import numpy as np
+
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN)), device=DEVICE)
+    prefill = make_prefill(cfg)
+    with torch.no_grad():
+        prefill(params, {"tokens": toks})  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab)
+              and logits.dtype == cfg.cdtype,
+              f"{label} prefill logits {tuple(logits.shape)} {logits.dtype}")
+        check(bool(torch.isfinite(logits).all()),
+              f"{label} non-finite prefill logits")
+        cache = model.init_cache(cfg, PREFILL_BATCH, STEP_CHECK, DEVICE)
+        steps = []
+        for t in range(STEP_CHECK):
+            lg, cache = model.serve_step(params, cfg,
+                                         {"tokens": toks[:, t:t + 1]},
+                                         cache, t)
+            steps.append(lg)
+    dec = torch.cat(steps, dim=1).float()
+    pre = logits[:, :STEP_CHECK].float()
+    step_err = err(torch, dec, pre, DENSE_STEP_TOL,
+                   f"{label} serve_step vs prefill, first {STEP_CHECK} "
+                   "positions, bf16")
+    agree = float((dec.argmax(-1) == pre.argmax(-1)).float().mean())
+    del cache, steps, dec, pre, logits
+    return {"prefill_s": t_prefill,
+            "prefill_tokens_per_s": PREFILL_BATCH * PREFILL_LEN / t_prefill,
+            "step_vs_prefill_max_abs_err": step_err,
+            "step_vs_prefill_argmax_agree": agree,
+            "trace": trace_zoo(torch, cfg, params, toks)}
+
+
+def ring_steps(torch, cfg, params, toks, stale_at=None):
+    """Teacher-forced ``serve_step`` logits over ``toks`` through a ring of
+    ``cfg.sliding_window`` slots.  With ``stale_at``, the slot that step
+    writes is put back as it was after the step (a planted fault: the
+    next ``WINDOW - 1`` steps attend a key from a window earlier)."""
+    from repro_torch.models import model
+
+    cache = model.init_cache(cfg, toks.shape[0], toks.shape[1], DEVICE)
+    smax = cache["k"].shape[2]
+    check(smax == cfg.sliding_window,
+          f"(p) ring of {smax} slots, not {cfg.sliding_window}")
+    steps = []
+    for t in range(toks.shape[1]):
+        if t == stale_at:
+            old = {n: cache[n][:, :, t % smax].clone() for n in ("k", "v")}
+        steps.append(model.serve_step(params, cfg,
+                                      {"tokens": toks[:, t:t + 1]},
+                                      cache, t)[0])
+        if t == stale_at:
+            for n, a in old.items():
+                cache[n][:, :, t % smax] = a
+    return torch.cat(steps, 1).float()
+
+
+def window_check(torch, cfg, params) -> dict:
+    """(p)'s sliding-window variant: teacher-forced ``serve_step`` over
+    ``WINDOW_LEN`` tokens through a ring of ``WINDOW`` slots against the
+    forward with the same window, within ``RING_TOL``; then the same
+    comparison of two planted faults, which must exceed it: a ring of
+    ``WINDOW + 1`` slots (it attends one token the forward masks) and a
+    ring whose slot ``STALE_AT % WINDOW`` goes stale."""
+    from repro_torch.models import model
+
+    import numpy as np
+
+    cfg = cfg.replace(sliding_window=WINDOW)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (WINDOW_BATCH, WINDOW_LEN)), device=DEVICE)
+    with torch.no_grad():
+        full = model.forward(params, cfg, {"tokens": toks})[0].float()
+        sound = ring_steps(torch, cfg, params, toks)
+        wide = ring_steps(torch, cfg.replace(sliding_window=WINDOW + 1),
+                          params, toks)
+        stale = ring_steps(torch, cfg, params, toks, stale_at=STALE_AT)
+    e = err(torch, sound, full, RING_TOL,
+            f"(p) window {WINDOW}: serve_step through the ring vs the "
+            f"windowed forward, {WINDOW_BATCH}x{WINDOW_LEN}, bf16")
+    scale = max(1.0, float(full.abs().max()))
+    planted = {"ring_one_slot_wide": float((wide - full).abs().max())
+               / scale,
+               "slot_stale_at_step_" + str(STALE_AT):
+               float((stale - full).abs().max()) / scale}
+    print(f"  (p) window {WINDOW}, planted faults, max |diff| / max "
+          f"|logits| against the windowed forward: {planted} (each must "
+          f"exceed {RING_TOL})")
+    for k, v in planted.items():
+        check(math.isfinite(v) and v > RING_TOL,
+              f"(p) the ring check passes a planted fault ({k})")
+    return {"window_vs_forward_max_abs_err": e,
+            "window_vs_forward_max_rel_err": e / scale,
+            "window_planted_max_rel_err": planted}
+
+
+def int8_check(torch, cfg, params) -> float:
+    """(p)'s int8 KV cache: ``INT8_STEPS`` teacher-forced decode steps
+    against the compute-type cache's; the reference's bound on max |diff|
+    over max |logits|."""
+    from repro_torch.models import model
+
+    import numpy as np
+
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (PREFILL_BATCH, INT8_STEPS)), device=DEVICE)
+    outs = []
+    for c in (cfg, cfg.replace(kv_cache_quant="int8")):
+        cache = model.init_cache(c, PREFILL_BATCH, 2 * INT8_STEPS, DEVICE)
+        with torch.no_grad():
+            outs.append(torch.cat([model.serve_step(
+                params, c, {"tokens": toks[:, t:t + 1]}, cache, t)[0]
+                for t in range(INT8_STEPS)], 1).float())
+        check(("k_scale" in cache) == (c.kv_cache_quant == "int8"),
+              "(p) the int8 cache has no scales")
+    rel = float((outs[0] - outs[1]).abs().max() / outs[0].abs().max())
+    print(f"  (p) int8 KV cache, {INT8_STEPS} steps: max |diff| / max "
+          f"|logits| {rel:.3e} against the {cfg.compute_dtype} cache (tol "
+          f"{INT8_TOL})")
+    check(math.isfinite(rel) and rel < INT8_TOL,
+          "(p) the int8 KV cache strays from the compute-type cache")
+    return rel
+
+
+def train_steps(torch, cfg, params, seqs, batch, steps, device):
+    """``steps`` steps of the launcher's step function (AdamW, cosine
+    schedule over the steps, warm-up 5) on batches drawn from ``seqs`` by
+    ``lm_batches`` with numpy seed 0.  Returns (params, losses, grad
+    norms, per-step seconds, per-step launches)."""
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.optim import cosine_schedule, make_optimizer
+
+    import numpy as np
+
+    opt = make_optimizer("adamw", cosine_schedule(3e-3, steps, 5))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    rng = np.random.default_rng(0)
+    losses, norms, secs, launched = [], [], [], []
+    for _ in range(steps):
+        toks, labels = lm_batches(seqs, batch, rng)
+        b = {"tokens": torch.as_tensor(toks % cfg.vocab, device=device),
+             "labels": torch.as_tensor(labels % cfg.vocab, device=device)}
+        before = dict(LAUNCHES)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, b)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+        launched.append(launch_diff(before))
+    del state
+    return params, losses, norms, secs, launched
+
+
+def dense_train(torch, cfg, params, task) -> dict:
+    """(p)'s training: ``TRAIN_STEPS`` AdamW steps of the full model at
+    ``TRAIN_BATCH`` x ``TRAIN_LEN`` tokens.  The loss must be finite and
+    fall, and flash attention and rmsnorm must launch in each step's
+    forward (once a layer, and for rmsnorm twice a layer and once more)."""
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, losses, norms, secs, launched = train_steps(
+        torch, cfg, params, task.train, TRAIN_BATCH, TRAIN_STEPS, DEVICE)
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"  (p) training, {TRAIN_STEPS} AdamW steps of the full model at "
+          f"{TRAIN_BATCH}x{TRAIN_LEN}: losses {losses}, grad norms {norms}, "
+          f"s/step {secs}; peak memory above the weights {peak} B; launches "
+          f"per step {launched}; [{card_line()}]")
+    check(all(math.isfinite(x) for x in losses + norms),
+          "(p) a non-finite training loss or gradient norm")
+    check(losses[-1] < losses[0], f"(p) the training loss did not fall: "
+                                  f"{losses}")
+    L = cfg.num_layers
+    for n in launched:
+        check(n.get("flash_attention", 0) >= L
+              and n.get("rmsnorm", 0) >= 2 * L + 1,
+              f"(p) a training step's forward skipped a kernel: {n}")
+    return {"losses": losses, "grad_norms": norms, "s_per_step": secs,
+            "peak_bytes": peak, "launches_per_step": launched}
+
+
+def dense_train_vs_cpu(torch, cfg, task) -> dict:
+    """The training step function on one layer of ``cfg`` at full width,
+    f32, TF32 off, on the card and on the CPU from the same weights and
+    batches (``TRAIN_CPU_BATCH`` x ``TRAIN_CPU_LEN``): loss and grad_norm
+    within ``TRAIN_CPU_TOL``; the parameters as the CPU tests hold the
+    port's to the reference's (AdamW steps an entry whose gradient is
+    rounding noise either way: within twice the summed rates, and 1e-5
+    in all but 1e-3 of the entries)."""
+    from repro_torch.core.estimator import tree_leaves
+    from repro_torch.models import model, module
+    from repro_torch.optim import cosine_schedule
+
+    cfg = cfg.replace(num_layers=1, compute_dtype="float32")
+    params = model.init(2, cfg, DEVICE)
+    cpu = module.tree_map(lambda t: t.cpu(), params)
+    seqs = task.train[:, :TRAIN_CPU_LEN + 1]
+    runs = {}
+    for dev, p in ((DEVICE, params), ("cpu", cpu)):
+        runs[dev] = train_steps(torch, cfg, p, seqs, TRAIN_CPU_BATCH,
+                                TRAIN_CPU_STEPS, dev)
+    (pg, lg, ng, _, _), (pc, lc, nc, sc, _) = runs[DEVICE], runs["cpu"]
+    rates = sum(float(cosine_schedule(3e-3, TRAIN_CPU_STEPS, 5)(
+        torch.tensor(s))) for s in range(1, TRAIN_CPU_STEPS + 1))
+    worst, beyond = 0.0, 0.0
+    for a, b in zip(tree_leaves(pg), tree_leaves(pc)):
+        d = (a.detach().cpu() - b.detach()).abs()
+        worst = max(worst, float(d.max()))
+        beyond = max(beyond, float((d > 1e-5).float().mean()))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    norm_rel = max(abs(a - b) / abs(b) for a, b in zip(ng, nc))
+    print(f"  (p) training step on 1 layer, f32, {TRAIN_CPU_BATCH}x"
+          f"{TRAIN_CPU_LEN}, {TRAIN_CPU_STEPS} steps, card vs CPU: losses "
+          f"{lg} / {lc} (worst rel {loss_rel:.3e}), grad norms rel "
+          f"{norm_rel:.3e}, params max |diff| {worst:.3e} (bound "
+          f"{2 * rates:.3e}), share beyond 1e-5 {beyond:.3e}; CPU s/step "
+          f"{sc}")
+    check(loss_rel <= TRAIN_CPU_TOL and norm_rel <= TRAIN_CPU_TOL,
+          "(p) the training step's loss or grad_norm differs from the CPU's")
+    check(worst <= 2 * rates and beyond < 1e-3,
+          "(p) the training step's parameters differ from the CPU's")
+    del params, cpu, pg, pc
+    torch.cuda.empty_cache()
+    return {"loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+            "param_max_abs_diff": worst, "param_share_beyond_1e-5": beyond}
+
+
+def dense_report(torch, label, cfg, n_params, t_init, init_peak, serving,
+                 r, peak, counts) -> dict:
+    stats = dict(serving, config=(
+        f"{cfg.arch_id}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params} params ({cfg.param_dtype}), compute "
+        f"{cfg.compute_dtype}"), init_s=t_init, serve_s=r["seconds"],
+        serve_tokens=r["tokens"], serve_steps=r["steps"],
+        serve_tokens_per_s=r["tokens"] / r["seconds"],
+        init_peak_bytes=init_peak, peak_bytes=peak, launches=counts)
+    print(f"  {label} {stats['config']}: init {t_init:.3f} s; prefill "
+          f"{PREFILL_BATCH}x{PREFILL_LEN} {serving['prefill_s']:.4f} s "
+          f"({serving['prefill_tokens_per_s']:.1f} tokens/s); serve "
+          f"{r['done']}/{r['requests']} requests, {r['tokens']} tokens in "
+          f"{r['steps']} steps, {r['seconds']:.4f} s "
+          f"({stats['serve_tokens_per_s']:.2f} tokens/s); peak memory above "
+          f"the run's start: init {init_peak} B, serving {peak} B; "
+          f"serve_step argmax agrees with the prefill at "
+          f"{serving['step_vs_prefill_argmax_agree']:.4f} of positions; "
+          f"launches {counts}; [{card_line()}]")
+    what = f"{label} {cfg.arch_id}"
+    check(r["done"] == r["requests"], f"{what}: not every request served")
+    check(all(0 <= t < cfg.vocab for out in r["outputs"].values()
+              for t in out), f"{what}: served a token outside the vocabulary")
+    expect = DENSE_EXPECT | ({"rmsnorm"} if cfg.arch_id in DENSE_RMSNORM
+                             else set())
+    for k in expect:
+        check(counts.get(k, 0) > 0, f"{what}: never launched {k}")
+    if cfg.arch_id not in DENSE_RMSNORM:
+        check(counts.get("rmsnorm", 0) == 0,
+              f"{what}: launched rmsnorm on a LayerNorm arch")
+    check(counts.get("ssd_chunk", 0) == 0, f"{what}: launched ssd_chunk")
+    return stats
+
+
+def init_timed(torch, cfg):
+    """``model.init`` on the card: (params, seconds, parameter count, its
+    peak memory above the call's start)."""
+    from repro_torch.models import model, module
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, cfg, DEVICE)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    # init stacks each layer's draws, so its peak is its own: the
+    # serving peak is measured from the weights alone
+    init_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    return params, t_init, module.count_params(params), init_peak
+
+
+def dense_default_path(torch, cfg=None):
+    """Path (p): gemma-2b at full width and depth through the normal entry
+    points: a 4 x 512 prefill held against step-by-step ``serve_step``,
+    the sliding-window variant and the int8 KV cache, 3 AdamW steps of
+    the training launcher's step function, then ``launch/serve.py``'s
+    ``main`` with no arguments (its default arch, on the card), one layer
+    in f32 against the CPU and the training step against the CPU's.  The
+    launch counts are set to 0 just before and read just after.  ``cfg``
+    defaults to the full config.  Returns (counts, stats)."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticTextTask
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+
+    cfg = cfg or configs.get_config(DENSE_DEFAULT)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    params, t_init, n_params, init_peak = init_timed(torch, cfg)
+    serving = dense_serving(torch, "(p)", cfg, params)
+    serving.update(window_check(torch, cfg, params))
+    serving["int8_rel"] = int8_check(torch, cfg, params)
+    peak = torch.cuda.max_memory_allocated() - base
+    # the training launcher's data: 512 tokens of the vocabulary
+    task = SyntheticTextTask(vocab=512, seq_len=TRAIN_LEN)
+    train = dense_train(torch, cfg, params, task)
+    del params
+    torch.cuda.empty_cache()
+    full = cfg == configs.get_config(DENSE_DEFAULT)
+    r = serve.main(["--device", DEVICE] + ([] if full else ["--smoke"]))
+    check(r["arch"] == DENSE_DEFAULT,
+          f"(p) launch/serve.py served {r['arch']} by default")
+    counts = dict(LAUNCHES)
+    stats = dense_report(torch, "(p)", cfg, n_params, t_init, init_peak,
+                         serving, r, peak, counts)
+    stats["train"] = train
+    torch.cuda.empty_cache()
+    stats.update(zoo_vs_cpu(torch, cfg, layers=1, batch=DENSE_CPU_BATCH,
+                            length=DENSE_CPU_LEN, label="(p)"))
+    stats["train_vs_cpu"] = dense_train_vs_cpu(torch, cfg, task)
+    return counts, stats
+
+
+def serve_times(torch) -> dict:
+    """Tokens/s of ``launch/serve.py``'s ``serve()`` at its defaults on the
+    full gemma-2b, three runs after a warm one: a host-bound loop, for
+    ``chip_compare.py`` to set two trees side by side."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model
+
+    cfg = configs.get_config(DENSE_DEFAULT)
+    params = model.init(0, cfg, DEVICE)
+    serve(cfg, params, device=DEVICE, **SERVE_KW)  # warm-up
+    out = {}
+    for i in range(3):
+        r = serve(cfg, params, device=DEVICE, **SERVE_KW)
+        out[f"serve_tokens_per_s_{i}"] = r["tokens"] / r["seconds"]
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_q_path(torch, cfgs=None):
+    """Path (q): stablelm-3b at full depth, deepseek-coder-33b and
+    granite-34b at full width and ``Q_DEPTH`` layers: each a 4 x 512
+    prefill against step-by-step ``serve_step``, then ``launch/serve.py``'s
+    loop at its defaults.  deepseek must launch rmsnorm, the LayerNorm
+    archs none.  The launch counts are set to 0 just before each arch and
+    read just after.  ``cfgs`` defaults to the full configs with the
+    cuts.  Returns (the summed counts, stats by arch)."""
+    from repro_torch import configs
+    from repro_torch.kernels import KERNELS, LAUNCHES, reset_launches
+    from repro_torch.launch.serve import serve
+
+    if cfgs is None:
+        cfgs = [configs.get_config(a).replace(
+            num_layers=d or configs.get_config(a).num_layers)
+            for a, d in DENSE_Q]
+    total = {k: 0 for k in KERNELS}
+    stats = {}
+    for cfg in cfgs:
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        params, t_init, n_params, init_peak = init_timed(torch, cfg)
+        label = f"(q) {cfg.arch_id}"
+        serving = dense_serving(torch, label, cfg, params)
+        r = serve(cfg, params, device=DEVICE, **SERVE_KW)
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = dict(LAUNCHES)
+        stats[cfg.arch_id] = dense_report(torch, "(q)", cfg, n_params,
+                                          t_init, init_peak, serving, r,
+                                          peak, counts)
+        for k, n in counts.items():
+            total[k] += n
+        del params
+    torch.cuda.empty_cache()
+    return total, stats
+
+
 def main_path(torch, rt):
     from repro_torch.kernels import KERNELS, LAUNCHES, reset_launches
 
@@ -3449,6 +4021,18 @@ def main_path(torch, rt):
     print("  (g) zamba2-2.7b: prefill and launch/serve.py's loop")
     by_path["g"], zoo_stats = zoo_path(torch)
     zoo_stats["grad"] = zoo_grad(torch)
+
+    # (p) gemma-2b, the serving launcher's default, at full size: serving,
+    # the sliding window, the int8 cache and training; (q) the other dense
+    # archs' serving
+    print(f"  (p) {DENSE_DEFAULT}: prefill, window, int8 cache, training, "
+          "launch/serve.py with no arguments")
+    by_path["p"], p_stats = dense_default_path(torch)
+    print("  (q) " + ", ".join(f"{a}" + (f" ({d} layers)" if d else "")
+                               for a, d in DENSE_Q)
+          + ": prefill and launch/serve.py's loop")
+    by_path["q"], q_stats = dense_q_path(torch)
+    zoo_stats["dense"] = {"p": p_stats, "q": q_stats}
 
     # (h) the scheme comparison under FLConfig's defaults, (i) semi-async
     # and sample weights
@@ -3561,7 +4145,7 @@ def main() -> int:
     records.update(check_attention(torch))
     records.update(check_ssd_rmsnorm(torch))
     launches, by_path, zoo_stats, scheme_recs = main_path(torch, rt)
-    print(f"path (g) {json.dumps(zoo_stats)}")
+    print(f"paths (g), (p), (q) {json.dumps(zoo_stats)}")
     print(f"paths (h)-(o) {json.dumps(scheme_recs)}")
     trace_round(torch)
     trace_round(torch, "j", trainer="cohort", per_round=10)
@@ -3582,7 +4166,8 @@ def main() -> int:
             "launches_by_path": {k: v[name] for k, v in by_path.items()},
         })
         for extra in ("two_call_ms", "more_shapes", "at_scale", "path_g",
-                      "ops_model_layout", "decode", "launch_floor_ms",
+                      "ops_model_layout", "decode", "gemma",
+                      "launch_floor_ms",
                       "no_grad", "cohort"):
             if extra in rec:
                 kernels[-1][extra] = rec[extra]

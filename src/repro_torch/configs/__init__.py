@@ -1,8 +1,10 @@
 """Assigned-architecture registry (public-literature pool, see DESIGN.md §5).
 
-The same ten configurations as the JAX package's ``configs``.  Of their
-families the port runs ``hybrid`` (zamba2-2.7b) so far; the model zoo
-raises ``NotImplementedError`` for the others.
+The same ten configurations as the JAX package's ``configs``, and the
+same sliding-window variant for long contexts (:func:`config_for_shape`).
+Of their families the port runs ``dense`` (gemma-2b, stablelm-3b,
+deepseek-coder-33b, granite-34b) and ``hybrid`` (zamba2-2.7b) so far;
+the model zoo raises ``NotImplementedError`` for the others.
 """
 
 from __future__ import annotations
@@ -51,3 +53,25 @@ def get_config(arch_id: str) -> ModelConfig:
 def get_smoke(arch_id: str) -> ModelConfig:
     return ARCHS[arch_id].smoke()
 
+
+
+# archs whose attention is full/quadratic: long_500k runs via a
+# sliding-window variant (DESIGN.md §5); seamless skips long_500k entirely.
+FULL_ATTENTION_ARCHS = {
+    "deepseek-coder-33b", "olmoe-1b-7b", "qwen2-vl-7b", "gemma-2b",
+    "stablelm-3b", "kimi-k2-1t-a32b", "granite-34b",
+}
+LONG_CONTEXT_SKIP = {"seamless-m4t-medium"}
+LONG_CONTEXT_WINDOW = 4096
+
+
+def config_for_shape(arch_id: str, shape_name: str) -> ModelConfig:
+    """Resolve the config actually run for (arch, shape) — applies the
+    sliding-window variant for full-attention archs on long_500k."""
+    cfg = get_config(arch_id)
+    if shape_name == "long_500k":
+        if arch_id in LONG_CONTEXT_SKIP:
+            raise ValueError(f"{arch_id} skips long_500k (DESIGN.md §5)")
+        if arch_id in FULL_ATTENTION_ARCHS:
+            cfg = cfg.replace(sliding_window=LONG_CONTEXT_WINDOW)
+    return cfg

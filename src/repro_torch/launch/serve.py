@@ -1,14 +1,15 @@
 """Batched serving launcher: continuous-batch decode against a KV cache.
 
-``python -m repro_torch.launch.serve --arch zamba2-2.7b [--smoke]
+``python -m repro_torch.launch.serve [--arch gemma-2b] [--smoke]
 [--device cpu]``
 
 Maintains a fixed decode batch; finished requests (length) are replaced
 from the queue — a miniature continuous-batching loop over
-:func:`repro_torch.models.model.serve_step`, as the reference's
+:mod:`repro_torch.launch.steps`' ``serve_step``, as the reference's
 ``repro.launch.serve``.  Runs on the CUDA card unless given
-``--device cpu``.  The port serves the hybrid family (zamba2-2.7b) so
-far.
+``--device cpu``.  The port serves the dense family (gemma-2b, the
+default, stablelm-3b, deepseek-coder-33b, granite-34b) and the hybrid
+one (zamba2-2.7b) so far.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
+from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import model
 from repro_torch.models.sampling import sample_logits
 
@@ -40,6 +42,7 @@ def serve(cfg, params, *, requests: int = 8, batch: int = 4,
              for _ in range(requests)]
     B = batch
     cache = model.init_cache(cfg, B, max_len, dev)
+    step = make_serve_step(cfg)
     active = [None] * B  # [request_id, remaining_prompt, generated]
     next_req = done = steps = tokens_out = pos = 0
     cur = np.zeros((B, 1), np.int64)
@@ -47,36 +50,34 @@ def serve(cfg, params, *, requests: int = 8, batch: int = 4,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    with torch.no_grad():
-        while done < requests and pos < max_len - 1:
-            for s in range(B):
-                if active[s] is None and next_req < len(queue):
-                    active[s] = [next_req, list(queue[next_req]), 0]
-                    outputs[next_req] = []
-                    next_req += 1
-            tokens = torch.as_tensor(cur, device=dev)
-            logits, cache = model.serve_step(params, cfg, {"tokens": tokens},
-                                             cache, pos)
-            gen = (torch.Generator(dev).manual_seed(pos)
-                   if temperature > 0 else None)
-            nxt = sample_logits(gen, logits[:, -1], temperature=temperature,
-                                top_k=top_k).cpu().numpy()
-            for s in range(B):
-                if active[s] is None:
-                    continue
-                rid, prompt, _ = active[s]
-                if prompt:
-                    cur[s, 0] = prompt.pop(0)  # teacher-force the prompt
-                else:
-                    cur[s, 0] = nxt[s]
-                    outputs[rid].append(int(nxt[s]))
-                    active[s][2] += 1
-                    tokens_out += 1
-                    if active[s][2] >= max_new:
-                        done += 1
-                        active[s] = None
-            pos += 1
-            steps += 1
+    while done < requests and pos < max_len - 1:
+        for s in range(B):
+            if active[s] is None and next_req < len(queue):
+                active[s] = [next_req, list(queue[next_req]), 0]
+                outputs[next_req] = []
+                next_req += 1
+        tokens = torch.as_tensor(cur, device=dev)
+        logits, cache = step(params, {"tokens": tokens}, cache, pos)
+        gen = (torch.Generator(dev).manual_seed(pos)
+               if temperature > 0 else None)
+        nxt = sample_logits(gen, logits[:, -1], temperature=temperature,
+                            top_k=top_k).cpu().numpy()
+        for s in range(B):
+            if active[s] is None:
+                continue
+            rid, prompt, _ = active[s]
+            if prompt:
+                cur[s, 0] = prompt.pop(0)  # teacher-force the prompt
+            else:
+                cur[s, 0] = nxt[s]
+                outputs[rid].append(int(nxt[s]))
+                active[s][2] += 1
+                tokens_out += 1
+                if active[s][2] >= max_new:
+                    done += 1
+                    active[s] = None
+        pos += 1
+        steps += 1
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return {"done": done, "requests": requests, "tokens": tokens_out,
@@ -84,9 +85,11 @@ def serve(cfg, params, *, requests: int = 8, batch: int = 4,
             "outputs": outputs}
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> Dict[str, Any]:
+    """Serve from the command line; returns :func:`serve`'s result with
+    the arch served (``"arch"``)."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="zamba2-2.7b",
+    ap.add_argument("--arch", default="gemma-2b",
                     choices=configs.list_archs())
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
@@ -111,6 +114,7 @@ def main(argv=None) -> None:
     print(f"served {r['done']}/{r['requests']} requests, {r['tokens']} "
           f"tokens in {r['steps']} steps, {r['seconds']:.1f}s "
           f"({r['tokens'] / max(r['seconds'], 1e-9):.1f} tok/s on {where})")
+    return dict(r, arch=cfg.arch_id)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,117 @@
+"""Training launcher for the model zoo.
+
+``python -m repro_torch.launch.train --arch gemma-2b --smoke --steps 20
+[--device cpu]``
+
+Runs on the CUDA card unless given ``--device cpu``; ``--smoke`` takes
+the reduced config.  Batches come from ``SyntheticTextTask`` through
+``lm_batches`` with numpy seed 0, as in the reference's launcher;
+Heroes composition is a switch (``--composition``), and
+``--ckpt-dir``/``--ckpt-every`` checkpoint ``{"params", "opt"}`` and
+resume from the newest checkpoint there.  A resumed run continues bit
+for bit: it also draws past the batches of the steps it skips (the
+reference starts its stream over).  Only the one-device ``--mesh host``
+runs; the production meshes raise (ROADMAP A3: ``launch/mesh.py`` is
+out of scope).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs, resolve_device
+from repro_torch.checkpoint.npz_ckpt import restore_latest, save_checkpoint
+from repro_torch.configs.base import CompositionConfig
+from repro_torch.core.estimator import tree_map
+from repro_torch.data import SyntheticTextTask, lm_batches
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import model
+from repro_torch.models.module import count_params
+from repro_torch.optim import cosine_schedule, make_optimizer
+
+
+def _to_device(tree, like, device):
+    """A restored checkpoint's leaves (numpy arrays, or CPU bf16 tensors)
+    as tensors on ``device`` in the dtypes and key order of ``like``'s
+    (the optimizers zip trees leaf by leaf)."""
+    return tree_map(lambda ref, a: torch.as_tensor(a).to(device, ref.dtype),
+                    like, tree)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma-2b", choices=configs.list_archs())
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config")
+    ap.add_argument("--mesh", default="host",
+                    choices=["host", "pod", "multipod"])
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--composition", action="store_true",
+                    help="train the Heroes-factorized parameterisation")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+    if args.mesh != "host":
+        raise NotImplementedError(
+            f"--mesh {args.mesh} is not ported (ROADMAP A3: launch/mesh.py "
+            "is out of scope); the port trains on one device")
+
+    cfg = (configs.get_smoke(args.arch) if args.smoke
+           else configs.get_config(args.arch))
+    if args.composition:
+        cfg = cfg.replace(composition=CompositionConfig(
+            enabled=True, max_width=2, rank=cfg.d_model // 4))
+    dev = resolve_device(args.device)
+    params = model.init(0, cfg, dev)
+    print(f"{cfg.arch_id}: {count_params(params):,} params "
+          f"(composition={'on' if args.composition else 'off'}), "
+          f"device={dev}")
+
+    opt = make_optimizer(args.optimizer,
+                         cosine_schedule(args.lr, args.steps, 5))
+    opt_state = opt.init(params)
+
+    start = 0
+    if args.ckpt_dir:
+        restored = restore_latest(args.ckpt_dir)
+        if restored:
+            start, state = restored
+            params = _to_device(state["params"], params, dev)
+            opt_state = _to_device(state["opt"], opt_state, dev)
+            print(f"resumed from step {start}")
+
+    step_fn = make_train_step(cfg, opt)
+    task = SyntheticTextTask(vocab=min(cfg.vocab, 512), seq_len=args.seq)
+    rng = np.random.default_rng(0)
+    for _ in range(start):  # the batches of the steps already taken
+        lm_batches(task.train, args.batch, rng)
+
+    t0 = time.time()
+    for i in range(start, args.steps):
+        toks, labels = lm_batches(task.train, args.batch, rng)
+        batch = {"tokens": torch.as_tensor(toks % cfg.vocab, device=dev),
+                 "labels": torch.as_tensor(labels % cfg.vocab, device=dev)}
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if i % 10 == 0 or i == args.steps - 1:
+            print(f"step {i:4d}  loss {float(metrics['loss']):.4f}  "
+                  f"grad_norm {float(metrics['grad_norm']):.3f}  "
+                  f"{(time.time() - t0):.1f}s")
+        if args.ckpt_dir and args.ckpt_every and \
+                (i + 1) % args.ckpt_every == 0:
+            save_checkpoint(args.ckpt_dir, i + 1,
+                            {"params": params, "opt": opt_state})
+    print("done.")
+
+
+if __name__ == "__main__":
+    main()

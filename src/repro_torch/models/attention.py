@@ -16,9 +16,10 @@ The attention block of the model zoo (:func:`self_attention`,
 :func:`decode_self_attention`) runs on a CUDA tensor through the two
 forward-only kernels (``kernels.ops.flash_attention`` and
 ``kernels.ops.decode_attention``) and on the CPU through the plain
-:func:`flash_attention` and :func:`decode_attention` here.  Not ported:
-M-RoPE, the int8 KV cache, sliding-window caches and cross-attention
-(they raise ``NotImplementedError``).
+:func:`flash_attention` and :func:`decode_attention` here, with
+sliding-window attention (a ring-buffer cache of ``window`` slots in
+decode) and the int8 KV cache (per-token-per-head scales).  Not ported:
+M-RoPE and cross-attention (M-RoPE raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -191,60 +192,87 @@ def _rotate(cfg, q: Tensor, k: Tensor, cos: Tensor, sin: Tensor):
             apply_rotary(k, cos, sin))
 
 
-def _unported(cfg) -> None:
-    if cfg.sliding_window > 0:
-        raise NotImplementedError("sliding-window attention is not ported "
-                                  "(ROADMAP A11)")
-
-
 def self_attention(params: Params, cfg, x: Tensor, cos: Tensor,
-                   sin: Tensor) -> Tensor:
-    """Full-sequence causal self attention (prefill): the flash-attention
-    kernel on a CUDA tensor, the plain chunked softmax on the CPU."""
-    _unported(cfg)
+                   sin: Tensor, *, causal: bool = True,
+                   skip_masked_blocks: bool = False) -> Tensor:
+    """Full-sequence self attention (train / prefill), windowed by
+    ``cfg.sliding_window``: the flash-attention kernel on a CUDA tensor
+    (which skips masked tiles by itself), the plain chunked softmax on
+    the CPU."""
     B, S, _ = x.shape
     q, k, v = qkv(params, cfg, x)
     q, k = _rotate(cfg, q, k, cos, sin)
     if use_kernel(x):
-        out = ops.flash_attention(q, k, v)
+        out = ops.flash_attention(q, k, v, causal=causal,
+                                  window=cfg.sliding_window)
     else:
-        out = flash_attention(q, k, v, q_chunk=cfg.q_chunk,
-                              kv_chunk=cfg.kv_chunk)
+        out = flash_attention(q, k, v, causal=causal,
+                              window=cfg.sliding_window,
+                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                              skip_masked_blocks=skip_masked_blocks)
     out = out.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim)
     return module.linear(params["wo"], out)
 
 
+def _quantize_kv(t: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per-token-per-head int8 quantization.  t (B, 1, KV, D) -> (int8
+    values, (B, 1, KV) f32 scales).  ``torch.round`` rounds half to even,
+    as ``jnp.round`` does."""
+    tf = t.float()
+    scale = (tf.abs().amax(-1) / 127.0).clamp(min=1e-8)
+    q = torch.clamp(torch.round(tf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
 def decode_self_attention(params: Params, cfg, x: Tensor, cache_k: Tensor,
                           cache_v: Tensor, cache_len: int, cos: Tensor,
-                          sin: Tensor):
+                          sin: Tensor, cache_scales=None):
     """One-token decode step.
 
     x: (B, 1, d); caches (B, Smax, KV, D); ``cache_len`` (an int) tokens
-    are already in the cache.  The new key and value are written into
-    slot ``cache_len`` of the caches *in place* (the reference returns
-    updated copies); the query attends over slots ``0..cache_len``.  On a
-    CUDA tensor that is the decode-attention kernel with lengths
-    ``cache_len + 1``, exactly the reference's prefix ``valid`` mask.
+    are already in the cache.  The new key and value are written *in
+    place* (the reference returns updated copies) into slot ``cache_len``,
+    or, with ``cfg.sliding_window > 0``, slot ``cache_len % Smax`` of a
+    ring of ``Smax`` slots.  The query attends over the first ``min(
+    cache_len, Smax - 1) + 1`` slots with a window (every written slot),
+    ``cache_len + 1`` without: exactly the reference's ``valid`` prefix,
+    which on a CUDA tensor is the decode-attention kernel's lengths.
 
-    Returns (out, cache_k, cache_v).
+    With ``cache_scales = (k_scale, v_scale)``, each (B, Smax, KV) f32,
+    the caches are int8 with per-token-per-head scales: the new entries
+    are quantized and written in place with their scales, and the whole
+    cache is dequantized to ``cfg.cdtype`` for the attention, as the
+    reference does.
+
+    Returns (out, cache_k, cache_v[, cache_scales]).
     """
-    _unported(cfg)
-    if cfg.kv_cache_quant == "int8":
-        raise NotImplementedError("the int8 KV cache is not ported "
-                                  "(ROADMAP A11)")
     B = x.shape[0]
     Smax = cache_k.shape[1]
     t = int(cache_len)
+    slot = t % Smax if cfg.sliding_window > 0 else t
+    n = min(t, Smax - 1) + 1 if cfg.sliding_window > 0 else t + 1
     q, k, v = qkv(params, cfg, x)
     q, k = _rotate(cfg, q, k, cos, sin)
-    cache_k[:, t] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, t] = v[:, 0].to(cache_v.dtype)
-    if use_kernel(x):
-        lengths = torch.full((B,), t + 1, dtype=torch.int32,
-                             device=x.device)
-        out = ops.decode_attention(q, cache_k, cache_v, lengths)
+    if cache_scales is not None:
+        k_scale, v_scale = cache_scales
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        cache_k[:, slot], k_scale[:, slot] = kq[:, 0], ks[:, 0]
+        cache_v[:, slot], v_scale[:, slot] = vq[:, 0], vs[:, 0]
+        k_full = cache_k.to(cfg.cdtype) * k_scale[..., None].to(cfg.cdtype)
+        v_full = cache_v.to(cfg.cdtype) * v_scale[..., None].to(cfg.cdtype)
     else:
-        valid = (torch.arange(Smax, device=x.device) <= t)[None, :]
-        out = decode_attention(q, cache_k, cache_v, valid.expand(B, Smax))
+        cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+        k_full, v_full = cache_k, cache_v
+    if use_kernel(x):
+        lengths = torch.full((B,), n, dtype=torch.int32, device=x.device)
+        out = ops.decode_attention(q, k_full, v_full, lengths)
+    else:
+        valid = (torch.arange(Smax, device=x.device) < n)[None, :]
+        out = decode_attention(q, k_full, v_full, valid.expand(B, Smax))
     out = out.reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim)
-    return module.linear(params["wo"], out), cache_k, cache_v
+    out = module.linear(params["wo"], out)
+    if cache_scales is not None:
+        return out, cache_k, cache_v, cache_scales
+    return out, cache_k, cache_v

@@ -3,25 +3,30 @@
 Functions keyed off ``cfg.family``, mirroring the reference's:
 
   init(seed, cfg, device)                          -> params
-  forward(params, cfg, batch)                      -> (logits, aux_loss)
-  loss_fn(params, cfg, batch)                      -> (loss, metrics)
+  forward(params, cfg, batch, skip_blocks)         -> (logits, aux_loss)
+  loss_fn(params, cfg, batch, skip_blocks)         -> (loss, metrics)
   init_cache(cfg, batch, max_len, device)          -> cache
   prefill(params, cfg, batch, cache)               -> (logits, cache)
   serve_step(params, cfg, batch, cache, cache_len) -> (logits, cache)
 
-The port runs the ``hybrid`` family (zamba2) so far; the others raise
-``NotImplementedError`` (ROADMAP A11).  ``init`` and ``init_cache`` run
-on the CUDA card unless given ``device="cpu"``.  The SSD-chunk, RMSNorm
-and attention kernels are forward-only, so this is the serving and
-evaluation path: call it under ``torch.no_grad()``.
+The port runs the ``dense`` family (gemma-2b, stablelm-3b,
+deepseek-coder-33b, granite-34b) and the ``hybrid`` one (zamba2), with
+sliding-window attention and, for the dense family, the int8 KV cache;
+the moe, ssm, vlm and audio families raise ``NotImplementedError``
+(ROADMAP A11).  ``init`` and ``init_cache`` run on the CUDA card unless
+given ``device="cpu"``.  The RMSNorm, SSD-chunk and attention kernels are
+forward-only; ``kernels.ops`` gives them the backward of their plain
+versions, so ``loss_fn`` trains and serving launches them alike.
 
-Batch keys: ``tokens`` (B, S) int; for ``loss_fn`` also ``labels``
+Batch keys: ``tokens`` (B, S) int, or ``embeddings`` (B, S, d) in their
+place; optionally ``positions`` (B, S); for ``loss_fn`` also ``labels``
 (B, S) and optionally ``loss_mask`` (B, S).  Positions count from 0 in
 ``forward`` and are ``cache_len`` in ``serve_step``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -32,12 +37,14 @@ from repro_torch.models import attention, layers, module, transformer
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
+PORTED_FAMILIES = ("dense", "hybrid")
 
-def _require_hybrid(cfg) -> None:
-    if cfg.family != "hybrid" or cfg.encdec is not None:
+
+def _require_ported(cfg) -> None:
+    if cfg.family not in PORTED_FAMILIES or cfg.encdec is not None:
         raise NotImplementedError(
             f"the {cfg.family} family is not ported (ROADMAP A11); the "
-            "port runs the hybrid family (zamba2-2.7b)")
+            "port runs the dense and hybrid families")
 
 
 # ---------------------------------------------------------------------------
@@ -48,7 +55,7 @@ def _require_hybrid(cfg) -> None:
 def init(seed: int, cfg, device=None) -> Params:
     """Random parameters from ``seed``, drawn on ``device`` (the CUDA card
     unless given ``device="cpu"``) by a generator living there."""
-    _require_hybrid(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(dev).manual_seed(seed)
     p: Params = {
@@ -60,7 +67,10 @@ def init(seed: int, cfg, device=None) -> Params:
     if not cfg.tie_embeddings:
         p["unembed"] = module.init_embedding(gen, cfg.vocab, cfg.d_model,
                                              cfg.pdtype)
-    p["stack"] = transformer.init_hybrid_stack(gen, cfg)
+    if cfg.family == "hybrid":
+        p["stack"] = transformer.init_hybrid_stack(gen, cfg)
+    else:
+        p["stack"] = transformer.init_stack(gen, cfg)
     return p
 
 
@@ -69,31 +79,61 @@ def init(seed: int, cfg, device=None) -> Params:
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def _input_embeddings(params, cfg, batch) -> Tensor:
+    if "embeddings" in batch:
+        return batch["embeddings"].to(cfg.cdtype)
+    x = layers.embed(params["embed"], batch["tokens"], cfg.cdtype)
+    if cfg.arch_id.startswith("gemma"):  # gemma scales embeddings by sqrt(d)
+        # the scale is rounded to the compute type first, as the
+        # reference's jnp.asarray(d**0.5, cdtype); a Python float then
+        # multiplies on the device without a host-to-device copy
+        x = x * _rounded(cfg.d_model ** 0.5, cfg.cdtype)
+    return x
+
+
+def _positions(batch, seq: int, batchsize: int, device):
+    if "positions" in batch:
+        return batch["positions"]
+    return attention.default_positions(batchsize, seq, device=device)
+
+
 def _unembed(params, cfg, x: Tensor) -> Tensor:
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return layers.unembed(table, x, cfg.logit_softcap)
 
 
 # ---------------------------------------------------------------------------
-# forward (full sequence)
+# forward (train / eval, full sequence)
 # ---------------------------------------------------------------------------
 
 
-def forward(params: Params, cfg,
-            batch: Dict[str, Tensor]) -> Tuple[Tensor, Tensor]:
-    _require_hybrid(cfg)
-    x = layers.embed(params["embed"], batch["tokens"], cfg.cdtype)
+def forward(params: Params, cfg, batch: Dict[str, Tensor],
+            skip_blocks: bool = False) -> Tuple[Tensor, Tensor]:
+    """Logits over the full sequence, and the aux loss.  ``skip_blocks``
+    has the CPU's chunked softmax skip the KV chunks that causality or
+    the window mask entirely (the same logits, fewer FLOPs); on a CUDA
+    tensor the flash-attention kernel skips such tiles whatever it
+    says."""
+    _require_ported(cfg)
+    x = _input_embeddings(params, cfg, batch)
     B, S, _ = x.shape
-    pos = attention.default_positions(B, S, device=x.device)
-    cos, sin = attention.angles_for(cfg, pos)
-    x, aux = transformer.apply_hybrid(params["stack"], cfg, x, cos, sin)
+    cos, sin = attention.angles_for(cfg, _positions(batch, S, B, x.device))
+    stack = (transformer.apply_hybrid if cfg.family == "hybrid"
+             else transformer.apply_stack)
+    x, aux = stack(params["stack"], cfg, x, cos, sin, skip_blocks)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     return _unembed(params, cfg, x), aux
 
 
-def loss_fn(params: Params, cfg,
-            batch: Dict[str, Tensor]) -> Tuple[Tensor, Dict[str, Tensor]]:
-    logits, aux = forward(params, cfg, batch)
+def loss_fn(params: Params, cfg, batch: Dict[str, Tensor],
+            skip_blocks: bool = False) -> Tuple[Tensor, Dict[str, Tensor]]:
+    logits, aux = forward(params, cfg, batch, skip_blocks)
     ce = layers.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -105,10 +145,15 @@ def loss_fn(params: Params, cfg,
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> Dict[str, Any]:
     """Zeroed decode caches on ``device`` (the CUDA card unless given
-    ``device="cpu"``)."""
-    _require_hybrid(cfg)
-    return transformer.init_hybrid_cache(cfg, batch, max_len,
-                                         resolve_device(device))
+    ``device="cpu"``); with a sliding window the KV cache is a ring of
+    ``min(max_len, window)`` slots."""
+    _require_ported(cfg)
+    dev = resolve_device(device)
+    cache_len = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+                 else max_len)
+    if cfg.family == "hybrid":
+        return transformer.init_hybrid_cache(cfg, batch, cache_len, dev)
+    return transformer.init_kv_cache(cfg, batch, cache_len, device=dev)
 
 
 def prefill(params: Params, cfg, batch: Dict[str, Tensor],
@@ -127,12 +172,15 @@ def serve_step(params: Params, cfg, batch: Dict[str, Tensor],
     """One new token given a populated cache.  batch["tokens"]: (B, 1);
     ``cache_len`` (an int) tokens are already in the cache, which is
     updated in place and returned."""
-    _require_hybrid(cfg)
-    x = layers.embed(params["embed"], batch["tokens"], cfg.cdtype)
-    pos = torch.full((x.shape[0], 1), int(cache_len), dtype=torch.int32,
-                     device=x.device)
+    _require_ported(cfg)
+    x = _input_embeddings(params, cfg, batch)
+    pos = batch.get("positions")
+    if pos is None:
+        pos = torch.full((x.shape[0], 1), int(cache_len), dtype=torch.int32,
+                         device=x.device)
     cos, sin = attention.angles_for(cfg, pos)
-    x, cache = transformer.decode_hybrid(params["stack"], cfg, x, cache,
-                                         cache_len, cos, sin)
+    decode = (transformer.decode_hybrid if cfg.family == "hybrid"
+              else transformer.decode_stack)
+    x, cache = decode(params["stack"], cfg, x, cache, cache_len, cos, sin)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     return _unembed(params, cfg, x), cache

@@ -1,18 +1,24 @@
-"""Stack assembly for the zoo's hybrid family (zamba2), in PyTorch.
+"""Stack assembly for the zoo's dense and hybrid families, in PyTorch.
 
 The reference scans its stacks with ``lax.scan`` over layer-stacked
 params; the port keeps the same stacked parameter tree and walks it with
 Python loops.
 
+  dense              identical decoder layers (attention + MLP, sequential
+                     or ``parallel_block``), params stacked ``(L, ...)``
   hybrid (zamba2)    superblocks of ``attn_every`` Mamba2 layers, each
                      followed by one *shared* attention+MLP block (the same
                      params at every application — the sharing is the
                      point of the architecture)
 
-Mamba2 params are stacked ``(nsuper, attn_every, ...)`` as in the
-reference.  The reference's ``constrain_residual`` (a sharding constraint
-on the residual stream) is a no-op without a device mesh and is left out.
-The dense, MoE and xLSTM stacks are not ported yet (ROADMAP A11).
+With ``cfg.remat`` and a gradient being recorded, each dense layer runs
+under ``torch.utils.checkpoint`` (non-reentrant), the reference's
+``jax.checkpoint`` around its scan body: activations are recomputed in
+the backward, and the numbers do not change.  Mamba2 params are stacked
+``(nsuper, attn_every, ...)`` as in the reference.  The reference's
+``constrain_residual`` (a sharding constraint on the residual stream) is
+a no-op without a device mesh and is left out.  The MoE and xLSTM stacks
+are not ported yet (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -20,22 +26,147 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.estimator import tree_map
+from repro_torch.core.estimator import tree_leaves, tree_map
 from repro_torch.models import attention, layers, module, ssm
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
 
+def _moe_unported() -> None:
+    raise NotImplementedError("the MoE family is not ported (ROADMAP A11); "
+                              "the port runs the dense and hybrid families")
+
+
+def _layer(tree, *idx):
+    return tree_map(lambda a: a[idx], tree)
+
+
+def _unstack(tree) -> list:
+    """The per-layer trees of a ``(L, ...)``-stacked tree, as views made
+    by one ``unbind`` per leaf: its backward stacks the layers' gradients
+    once, where indexing layer by layer would add a full-size gradient of
+    the stack per layer."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    n = len(tree_leaves(parts)[0])
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# dense decoder layer
+# ---------------------------------------------------------------------------
+
+
+def init_decoder_layer(gen, cfg, use_moe: bool = False) -> Params:
+    if use_moe:
+        _moe_unported()
+    dev = gen.device
+    return {
+        "ln1": layers.init_norm(cfg.d_model, cfg.norm, cfg.pdtype, dev),
+        "attn": attention.init_attention(gen, cfg),
+        "ln2": layers.init_norm(cfg.d_model, cfg.norm, cfg.pdtype, dev),
+        "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                               cfg, cfg.pdtype),
+    }
+
+
+def decoder_layer(params: Params, cfg, x: Tensor, cos, sin,
+                  skip_blocks: bool = False) -> Tensor:
+    h = layers.apply_norm(params["ln1"], x, cfg.norm)
+    attn_out = attention.self_attention(params["attn"], cfg, h, cos, sin,
+                                        skip_masked_blocks=skip_blocks)
+    if cfg.parallel_block:
+        return x + attn_out + layers.apply_mlp(params["mlp"], h,
+                                               cfg.activation)
+    x = x + attn_out
+    h2 = layers.apply_norm(params["ln2"], x, cfg.norm)
+    return x + layers.apply_mlp(params["mlp"], h2, cfg.activation)
+
+
+def decoder_layer_decode(params: Params, cfg, x: Tensor, ck, cv, cache_len,
+                         cos, sin, scales=None):
+    """One token through a decoder layer; the caches (and, for the int8
+    cache, ``scales``) are written in place.  Returns (out, ck, cv[,
+    scales])."""
+    h = layers.apply_norm(params["ln1"], x, cfg.norm)
+    res = attention.decode_self_attention(params["attn"], cfg, h, ck, cv,
+                                          cache_len, cos, sin,
+                                          cache_scales=scales)
+    attn_out = res[0]
+    if cfg.parallel_block:
+        out = x + attn_out + layers.apply_mlp(params["mlp"], h,
+                                              cfg.activation)
+    else:
+        x = x + attn_out
+        h2 = layers.apply_norm(params["ln2"], x, cfg.norm)
+        out = x + layers.apply_mlp(params["mlp"], h2, cfg.activation)
+    return (out, *res[1:])
+
+
+# ---------------------------------------------------------------------------
+# dense stack
+# ---------------------------------------------------------------------------
+
+
+def init_stack(gen, cfg) -> Params:
+    if cfg.moe is not None:
+        _moe_unported()
+    return {"layers": module.stacked_init(
+        lambda g: init_decoder_layer(g, cfg), gen, cfg.num_layers)}
+
+
+def _recording(params) -> bool:
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params))
+
+
+def apply_stack(params: Params, cfg, x: Tensor, cos, sin,
+                skip_blocks: bool = False) -> Tuple[Tensor, Tensor]:
+    """Full-sequence dense stack.  Returns (x, aux loss = 0)."""
+    if cfg.moe is not None:
+        _moe_unported()
+    stacked = params["layers"]
+    remat = cfg.remat and _recording(stacked)
+    for lp in _unstack(stacked):
+        if remat:
+            x = checkpoint(decoder_layer, lp, cfg, x, cos, sin, skip_blocks,
+                           use_reentrant=False)
+        else:
+            x = decoder_layer(lp, cfg, x, cos, sin, skip_blocks)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def decode_stack(params: Params, cfg, x: Tensor, cache: Dict[str, Tensor],
+                 cache_len, cos, sin) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One token through the dense stack.  cache: {"k": (L,B,S,KV,D), "v":
+    same}, and for the int8 cache "k_scale"/"v_scale" (L,B,S,KV); each
+    layer's slot is written in place and the cache returned."""
+    if cfg.moe is not None:
+        _moe_unported()
+    quant = "k_scale" in cache
+    for i, lp in enumerate(_unstack(params["layers"])):
+        scales = ((cache["k_scale"][i], cache["v_scale"][i]) if quant
+                  else None)
+        x = decoder_layer_decode(lp, cfg, x, cache["k"][i], cache["v"][i],
+                                 cache_len, cos, sin, scales)[0]
+    return x, cache
+
+
 def init_kv_cache(cfg, batch: int, max_len: int,
                   num_layers: Optional[int] = None,
                   device=None) -> Dict[str, Tensor]:
     n = num_layers if num_layers is not None else cfg.num_layers
-    if cfg.kv_cache_quant == "int8":
-        raise NotImplementedError("the int8 KV cache is not ported "
-                                  "(ROADMAP A11)")
     shape = (n, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    if cfg.kv_cache_quant == "int8":
+        sshape = shape[:-1]
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(sshape, dtype=torch.float32,
+                                       device=device)}
     return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
 
@@ -79,10 +210,6 @@ def init_hybrid_stack(gen, cfg) -> Params:
     }
 
 
-def _layer(tree, *idx):
-    return tree_map(lambda a: a[idx], tree)
-
-
 def _shared_block(shared: Params, cfg, h: Tensor, attn_fn) -> Tensor:
     hs = layers.apply_norm(shared["ln1"], h, cfg.norm)
     h = h + attn_fn(shared["attn"], hs)
@@ -90,8 +217,8 @@ def _shared_block(shared: Params, cfg, h: Tensor, attn_fn) -> Tensor:
     return h + layers.apply_mlp(shared["mlp"], hm, cfg.activation)
 
 
-def apply_hybrid(params: Params, cfg, x: Tensor, cos,
-                 sin) -> Tuple[Tensor, Tensor]:
+def apply_hybrid(params: Params, cfg, x: Tensor, cos, sin,
+                 skip_blocks: bool = False) -> Tuple[Tensor, Tensor]:
     """Full-sequence hybrid stack.  Returns (x, aux loss = 0)."""
     shared = params["shared"]
     nsuper, per = params["mamba"]["A_log"].shape[:2]
@@ -102,12 +229,17 @@ def apply_hybrid(params: Params, cfg, x: Tensor, cos,
             x = x + ssm.apply_mamba2(mp, cfg,
                                      layers.apply_norm(norm_p, x, cfg.norm))
         x = _shared_block(shared, cfg, x, lambda p, hs: attention.
-                          self_attention(p, cfg, hs, cos, sin))
+                          self_attention(p, cfg, hs, cos, sin,
+                                         skip_masked_blocks=skip_blocks))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def init_hybrid_cache(cfg, batch: int, max_len: int,
                       device=None) -> Dict[str, Any]:
+    if cfg.kv_cache_quant == "int8":
+        # the reference's decode_hybrid writes compute-type keys into the
+        # int8 cache and fails (a dtype error in dynamic_update_slice)
+        raise TypeError("the hybrid stack's decode takes no int8 KV cache")
     hb = cfg.hybrid
     nsuper = cfg.num_layers // hb.attn_every
     one = ssm.init_mamba2_cache(cfg, batch, cfg.cdtype, device)

@@ -22,7 +22,8 @@ the same numpy tokens go through both packages:
   Random draws differ across frameworks by construction (a
   ``torch.Generator`` against ``jax.random``), so draws are compared as
   sets, not one by one;
-* ``launch.serve --smoke --device cpu`` serves every request;
+* ``launch.serve --arch zamba2-2.7b --smoke --device cpu`` serves every
+  request;
 * the configs are the reference's, number for number.
 """
 
@@ -358,7 +359,7 @@ def test_perplexity_matches_reference():
 
 
 def test_serve_launcher_serves_every_request(capsys):
-    tserve.main(["--smoke", "--device", "cpu"])
+    tserve.main(["--arch", ARCH, "--smoke", "--device", "cpu"])
     out = capsys.readouterr().out
     assert out.startswith("served 8/8 requests, 128 tokens"), out
 
@@ -383,10 +384,17 @@ def test_serve_loop_greedy_outputs_match_forward(f32):
         assert r["outputs"][rid] == seq[len(prompt):]
 
 
-def test_other_families_raise():
-    cfg = tconfigs.get_smoke("gemma-2b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.init(0, cfg, "cpu")
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "kimi-k2-1t-a32b",
+                                  "xlstm-125m", "qwen2-vl-7b",
+                                  "seamless-m4t-medium"])
+def test_other_families_raise(arch):
+    """The families still unported (moe, ssm, vlm, audio) raise; the
+    dense family runs (``tests/test_torch_dense.py``)."""
+    cfg = tconfigs.get_smoke(arch)
+    for call in (lambda: tmodel.init(0, cfg, "cpu"),
+                 lambda: tmodel.init_cache(cfg, 2, 8, "cpu")):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            call()
 
 
 @pytest.mark.parametrize("arch", jconfigs.list_archs())
