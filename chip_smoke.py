@@ -33,9 +33,12 @@ Run from the root of a checkout.  It
    transformer path's shapes, the reference's sweep shapes, head dims 80
    and 256 over several KV tiles, a query group of 8 over uneven key
    splits with ragged lengths down to 0, and in model layout through
-   ``kernels.ops``, there also at every call shape of paths (p) and (q)
-   (each dense config's prefill and decode, gemma's windowed forward,
-   ring, int8 and training calls); rmsnorm and ssd_chunk in f32 and
+   ``kernels.ops``, there also at every call shape of paths (p), (q),
+   (r) and (t) (each config's prefill and decode, gemma's windowed
+   forward, ring, int8 and training calls, olmoe's training, the step
+   checks' forwards and the f32 layers' against the CPU); rmsnorm at
+   those paths' rows and widths and the xLSTM's (768, 1536); rmsnorm
+   and ssd_chunk in f32 and
    bf16, element-wise,
    at zamba2's path shapes, the reference's sweep shapes, with ``heads >
    1``, at every width of the zoo's rmsnorm configs and widths the
@@ -146,8 +149,25 @@ Run from the root of a checkout.  It
    depth, deepseek-coder-33b and granite-34b at full width and 8 layers
    (one card holds neither's 62 or 88 f32 layers): each a prefill held
    against ``serve_step`` and ``launch/serve.py``'s loop; deepseek must
-   launch rmsnorm, the LayerNorm archs none; (g), (p) and (q) each trace
-   a prefill and 4 serve steps;
+   launch rmsnorm, the LayerNorm archs none; (r) the MoE family:
+   olmoe-1b-7b at full width and depth (f32 params) and kimi-k2-1t-a32b
+   at full width with its bf16 params and 2 layers (its first_k_dense
+   layer and one MoE layer of 384 experts, drawn in chunks), each a
+   prefill, ``serve_step`` held against the forward in the no-drop
+   regime with the tokens whose top-k experts flip between the two
+   counted and left out, and ``launch/serve.py``'s loop; olmoe's training
+   at 4 layers (the loss, aux loss included, falls); each arch's first
+   MoE layer in f32 against the CPU at the default capacity, held on the
+   tokens whose expert sets agree; (s) xlstm-125m at full size: prefill
+   (its mLSTM and sLSTM layers timed apart), ``serve_step`` against it,
+   the loop, 3 AdamW steps and one superblock against the CPU; rmsnorm
+   launches, the attention kernels never; (t) qwen2-vl-7b at full size:
+   prefill and the step check on M-RoPE positions whose t, h and w ids
+   differ (a patch grid, then text), the loop, one layer against the CPU
+   on such positions; (r)-(t)'s step checks also hold the argmax to the
+   forward's at 0.9 of positions, and each path launches exactly the
+   zoo kernels its family has; (g) and (p)-(t) each trace a prefill and
+   4 serve steps;
 4. traces one round of (c) with ``torch.profiler`` (device busy share,
    top kernels), with the sequential trainer and 4 clients and with the
    cohort trainer and 10, and prints the calibration
@@ -163,6 +183,7 @@ result.  Without a CUDA device, or outside a checkout, it exits 1.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -1631,12 +1652,18 @@ def check_ssd_rmsnorm(torch):
         # loads) and a wide one (one-pass kernel); then every other width
         # of the zoo's rmsnorm configs (one-pass, few rows), widths that
         # no one-pass instance takes (generic kernel: 1000, 65536) and a
-        # row start that is not 16-byte aligned (generic, scalar loads)
+        # row start that is not 16-byte aligned (generic, scalar loads);
+        # then paths (p)-(t)'s rows: prefill, decode, training and the
+        # f32 layers against the CPU, at d_model (gemma and olmoe 2048,
+        # kimi 7168, qwen2-vl 3584) and the xLSTM's out_norm (1536) and
+        # gn (768)
         for shape in ((2048, 2560), (2048, 5120), (4, 2560), (4, 5120),
                       (4, 64), (2, 7, 96), (1, 130, 32), (3, 100),
                       (8, 8192), (3, 128), (5, 256), (6, 2048), (7, 3584),
                       (4, 7168), (5, 1000), (2, 65536), "misaligned",
-                      (2048, 2048), (4, 2048), (512, 2048), (2048, 7168)):
+                      (2048, 2048), (4, 2048), (512, 2048), (2048, 7168),
+                      (2048, 3584), (4, 3584), (256, 3584), (2048, 1536),
+                      (4, 1536), (2048, 768), (4, 768), (512, 768)):
             if shape == "misaligned":  # a contiguous view at element 1
                 x = rn(3 * 2560 + 1, dtype=dtype)[1:].view(3, 2560)
             else:
@@ -3353,12 +3380,14 @@ def zoo_path(torch, cfg=None):
     return counts, stats
 
 
-def trace_zoo(torch, cfg, params, toks, steps: int = 4) -> dict:
-    """One warm prefill and ``steps`` serve steps of path (g) under
-    ``torch.profiler``: wall time, device busy time (sum of kernel self
-    times), their ratio, the kernels that took the most device time, and
-    the device time of each of the port's kernels on the path.  The
-    launch counts of these calls are not part of the path's."""
+def trace_zoo(torch, cfg, params, toks, steps: int = 4,
+              extra=None) -> dict:
+    """One warm prefill (with the batch keys ``extra`` beside the tokens)
+    and ``steps`` serve steps of a zoo path under ``torch.profiler``: wall
+    time, device busy time (sum of kernel self times), their ratio, the
+    kernels that took the most device time, and the device time of each
+    of the port's kernels on the path.  The launch counts of these calls
+    are not part of the path's."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import model
@@ -3373,7 +3402,7 @@ def trace_zoo(torch, cfg, params, toks, steps: int = 4) -> dict:
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if label == "prefill":
-                model.prefill(params, cfg, {"tokens": toks})
+                model.prefill(params, cfg, {"tokens": toks, **(extra or {})})
             else:
                 for t in range(steps):
                     model.serve_step(params, cfg,
@@ -3410,12 +3439,16 @@ def trace_zoo(torch, cfg, params, toks, steps: int = 4) -> dict:
 
 
 def zoo_vs_cpu(torch, cfg, layers=None, batch=CPU_BATCH, length=CPU_LEN,
-               label="(g)"):
+               label="(g)", positions=None, tol=CPU_TOL):
     """``layers`` of ``cfg`` (one superblock by default) at full width,
     f32 compute, TF32 off: the card's forward against the same forward on
     the CPU from the same weights, at ``batch`` x ``length`` tokens (for
-    zamba2 a full chunk and a padded one).  Greedy tokens (argmax at every
-    position) must be equal."""
+    zamba2 a full chunk and a padded one), with ``positions`` when given,
+    within ``tol`` of max(1, max |logits|).
+    Greedy tokens (argmax at every position) must be equal.  For a MoE
+    config, at its default capacity, the tokens whose top-k expert sets
+    differ between the card and the CPU (in any MoE layer) are counted
+    first, and the logits and greedy tokens held on the others."""
     from repro_torch.models import model, module
 
     import numpy as np
@@ -3425,26 +3458,73 @@ def zoo_vs_cpu(torch, cfg, layers=None, batch=CPU_BATCH, length=CPU_LEN,
     params = model.init(1, cfg, DEVICE)
     toks = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab, (batch, length)))
-    with torch.no_grad():
-        g, _ = model.forward(params, cfg, {"tokens": toks.to(DEVICE)})
+    extra = {} if positions is None else {"positions": positions}
+    with torch.no_grad(), routing() as ids_g:
+        g, _ = model.forward(params, cfg, {
+            k: v.to(DEVICE) for k, v in dict(extra, tokens=toks).items()})
         g = g.cpu()
+        ids_g = [i.cpu() for i in ids_g]
+    params = module.tree_map(lambda t: t.cpu(), params)
+    torch.cuda.empty_cache()
+    with torch.no_grad(), routing() as ids_c:
         t0 = time.perf_counter()
-        c, _ = model.forward(module.tree_map(lambda t: t.cpu(), params), cfg,
-                             {"tokens": toks})
+        c, _ = model.forward(params, cfg, dict(extra, tokens=toks))
         t_cpu = time.perf_counter() - t0
-    e = err(torch, g, c, CPU_TOL,
+    keep = routing_agree(torch, ids_g, ids_c, batch, length)
+    flips = int((~keep).sum())
+    if cfg.moe is not None:
+        print(f"      {label} top-k expert sets differ between the card and "
+              f"the CPU at {flips} of {batch * length} tokens ({len(ids_c)} "
+              "MoE layers); held on the others")
+        check(flips < batch * length, f"{label} every token's experts differ")
+    e = err(torch, g[keep], c[keep], tol,
             f"{label} depth {n} f32 {batch}x{length}: card vs CPU logits")
-    top2 = torch.topk(c, 2, dim=-1).values
+    top2 = torch.topk(c[keep], 2, dim=-1).values
     margin = float((top2[..., 0] - top2[..., 1]).min())
-    same = bool(torch.equal(g.argmax(-1), c.argmax(-1)))
-    print(f"      greedy tokens equal {same} over {batch * length} "
+    same = bool(torch.equal(g.argmax(-1)[keep], c.argmax(-1)[keep]))
+    print(f"      greedy tokens equal {same} over {int(keep.sum())} "
           f"positions (smallest top-2 margin on the CPU {margin:.3e}); CPU "
           f"forward {t_cpu:.2f} s")
     check(same, f"{label} greedy tokens differ between the card and the CPU")
     del params
     torch.cuda.empty_cache()
-    return {f"depth{n}_vs_cpu_max_abs_err": e, f"depth{n}_greedy_equal": same,
-            f"depth{n}_min_top2_margin": margin}
+    out = {f"depth{n}_vs_cpu_max_abs_err": e, f"depth{n}_greedy_equal": same,
+           f"depth{n}_min_top2_margin": margin}
+    if cfg.moe is not None:
+        out[f"depth{n}_expert_set_flips"] = flips
+    return out
+
+
+@contextlib.contextmanager
+def routing():
+    """The top-k expert ids (..., T, k) of every ``router_topk`` call made
+    inside, in call order (one per MoE layer a forward or a step)."""
+    from repro_torch.models import moe
+
+    ids, orig = [], moe.router_topk
+
+    def recorded(router_params, x2d, cfg):
+        out = orig(router_params, x2d, cfg)
+        ids.append(out[2].detach())
+        return out
+
+    moe.router_topk = recorded
+    try:
+        yield ids
+    finally:
+        moe.router_topk = orig
+
+
+def routing_agree(torch, a, b, batch: int, length: int):
+    """(batch, length) bool: the tokens whose top-k expert *sets* are the
+    same in every MoE layer of two recordings of one forward (all True
+    without MoE layers)."""
+    keep = torch.ones((batch, length), dtype=torch.bool)
+    for x, y in zip(a, b):
+        x, y = (t.cpu().reshape(batch, length, -1).sort(-1).values
+                for t in (x, y))
+        keep &= (x == y).all(-1)
+    return keep
 
 
 # path (g)'s gradient: zamba2's smoke config in f32, the card's loss_fn
@@ -3515,10 +3595,6 @@ DENSE_DEFAULT = "gemma-2b"
 Q_DEPTH = 8
 DENSE_Q = (("stablelm-3b", None), ("deepseek-coder-33b", Q_DEPTH),
            ("granite-34b", Q_DEPTH))
-# the dense archs whose norm is RMSNorm (the others' LayerNorm stays plain
-# PyTorch, in the reference and the port alike)
-DENSE_RMSNORM = frozenset({"gemma-2b", "deepseek-coder-33b"})
-DENSE_EXPECT = frozenset({"flash_attention", "decode_attention"})
 # (p) and (q) hold serve_step to the prefill within DENSE_STEP_TOL of
 # max|logits|: 3x the largest sound reading, stablelm-3b's 1.87e-2 over 32
 # bf16 layers (gemma-2b 7.1e-3, deepseek-coder-33b 1.2e-2, granite-34b
@@ -3548,13 +3624,15 @@ DENSE_CPU_BATCH, DENSE_CPU_LEN = 2, 128
 
 
 def dense_attention_shapes() -> tuple:
-    """The attention calls of paths (p) and (q), from the configs: each
-    dense arch's prefill (``PREFILL_BATCH`` x ``PREFILL_LEN``, causal), and
-    its decode over serve's cache (``SERVE_KW``'s batch and ``max_len``)
-    and over the step check's (``STEP_CHECK`` slots); gemma's windowed
-    forward and ring decode, its int8 cache's decode (the dequantized
-    cache, ``2 * INT8_STEPS`` slots) and its training forward.  Returns
-    (flash, decode) lists of (label, B, S, KV, G, D, window)."""
+    """The attention calls of paths (p), (q), (r) and (t), from the
+    configs: each arch's prefill (``PREFILL_BATCH`` x ``PREFILL_LEN``,
+    causal), and its decode over serve's cache (``SERVE_KW``'s batch and
+    ``max_len``) and over the step check's (``STEP_CHECK`` slots);
+    gemma's windowed forward and ring decode, its int8 cache's decode
+    (the dequantized cache, ``2 * INT8_STEPS`` slots) and its training
+    forward; (r) and (t)'s step-check forward over ``STEP_CHECK`` tokens,
+    their f32 layers against the CPU, and olmoe's training forward.
+    Returns (flash, decode) lists of (label, B, S, KV, G, D, window)."""
     from repro_torch import configs
 
     flash, decode = [], []
@@ -3572,6 +3650,21 @@ def dense_attention_shapes() -> tuple:
             decode += [(f"{arch} ring", WINDOW_BATCH, WINDOW, *h, 0),
                        (f"{arch} int8", PREFILL_BATCH, 2 * INT8_STEPS, *h,
                         0)]
+    # paths (r) and (t): the same prefill, step-check and serve calls,
+    # olmoe's training forward and each arch's f32 layer against the CPU
+    for arch in (MOE_DEFAULT, KIMI, VLM_ARCH):
+        c = configs.get_config(arch)
+        h = (c.num_kv_heads, c.q_per_kv, c.resolved_head_dim)
+        flash += [(f"{arch} prefill", PREFILL_BATCH, PREFILL_LEN, *h, 0),
+                  (f"{arch} step-check forward", PREFILL_BATCH, STEP_CHECK,
+                   *h, 0),
+                  (f"{arch} vs the CPU", DENSE_CPU_BATCH, DENSE_CPU_LEN, *h,
+                   0)]
+        decode += [(f"{arch} serve", SERVE_KW["batch"], SERVE_KW["max_len"],
+                    *h, 0),
+                   (f"{arch} step check", PREFILL_BATCH, STEP_CHECK, *h, 0)]
+        if arch == MOE_DEFAULT:
+            flash.append((f"{arch} train", TRAIN_BATCH, TRAIN_LEN, *h, 0))
     return flash, decode
 
 
@@ -3752,29 +3845,43 @@ def train_steps(torch, cfg, params, seqs, batch, steps, device):
     return params, losses, norms, secs, launched
 
 
-def dense_train(torch, cfg, params, task) -> dict:
-    """(p)'s training: ``TRAIN_STEPS`` AdamW steps of the full model at
-    ``TRAIN_BATCH`` x ``TRAIN_LEN`` tokens.  The loss must be finite and
-    fall, and flash attention and rmsnorm must launch in each step's
-    forward (once a layer, and for rmsnorm twice a layer and once more)."""
+def forward_launches(cfg) -> dict:
+    """The fewest launches of each zoo kernel one forward of ``cfg``'s
+    stack makes: flash attention once an attention layer, rmsnorm at
+    each RMSNorm (two a decoder layer and the final norm; the xLSTM's
+    ``out_norm`` and ``gn``, one a layer, its LayerNorms plain)."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        return {"rmsnorm": L}
+    out = {"flash_attention": L}
+    if cfg.norm == "rmsnorm":
+        out["rmsnorm"] = 2 * L + 1
+    return out
+
+
+def dense_train(torch, cfg, params, task, label="(p)") -> dict:
+    """A zoo path's training: ``TRAIN_STEPS`` AdamW steps of the model at
+    ``TRAIN_BATCH`` x ``TRAIN_LEN`` tokens.  The loss (with a MoE's aux
+    loss) must be finite and fall, and the stack's kernels must launch in
+    each step's forward (``forward_launches``)."""
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     _, losses, norms, secs, launched = train_steps(
         torch, cfg, params, task.train, TRAIN_BATCH, TRAIN_STEPS, DEVICE)
     peak = torch.cuda.max_memory_allocated() - base
-    print(f"  (p) training, {TRAIN_STEPS} AdamW steps of the full model at "
-          f"{TRAIN_BATCH}x{TRAIN_LEN}: losses {losses}, grad norms {norms}, "
-          f"s/step {secs}; peak memory above the weights {peak} B; launches "
-          f"per step {launched}; [{card_line()}]")
+    print(f"  {label} training, {TRAIN_STEPS} AdamW steps of {cfg.arch_id} "
+          f"({cfg.num_layers} layers) at {TRAIN_BATCH}x{TRAIN_LEN}: losses "
+          f"{losses}, grad norms {norms}, s/step {secs}; peak memory above "
+          f"the weights {peak} B; launches per step {launched}; "
+          f"[{card_line()}]")
     check(all(math.isfinite(x) for x in losses + norms),
-          "(p) a non-finite training loss or gradient norm")
-    check(losses[-1] < losses[0], f"(p) the training loss did not fall: "
+          f"{label} a non-finite training loss or gradient norm")
+    check(losses[-1] < losses[0], f"{label} the training loss did not fall: "
                                   f"{losses}")
-    L = cfg.num_layers
+    least = forward_launches(cfg)
     for n in launched:
-        check(n.get("flash_attention", 0) >= L
-              and n.get("rmsnorm", 0) >= 2 * L + 1,
-              f"(p) a training step's forward skipped a kernel: {n}")
+        check(all(n.get(k, 0) >= m for k, m in least.items()),
+              f"{label} a training step's forward skipped a kernel: {n}")
     return {"losses": losses, "grad_norms": norms, "s_per_step": secs,
             "peak_bytes": peak, "launches_per_step": launched}
 
@@ -3848,15 +3955,23 @@ def dense_report(torch, label, cfg, n_params, t_init, init_peak, serving,
     check(r["done"] == r["requests"], f"{what}: not every request served")
     check(all(0 <= t < cfg.vocab for out in r["outputs"].values()
               for t in out), f"{what}: served a token outside the vocabulary")
-    expect = DENSE_EXPECT | ({"rmsnorm"} if cfg.arch_id in DENSE_RMSNORM
-                             else set())
-    for k in expect:
-        check(counts.get(k, 0) > 0, f"{what}: never launched {k}")
-    if cfg.arch_id not in DENSE_RMSNORM:
-        check(counts.get("rmsnorm", 0) == 0,
-              f"{what}: launched rmsnorm on a LayerNorm arch")
-    check(counts.get("ssd_chunk", 0) == 0, f"{what}: launched ssd_chunk")
+    expect = family_kernels(cfg)
+    for k, n in counts.items():
+        check((n > 0) == (k in expect),
+              f"{what}: {k} launched {n} times (expected: {sorted(expect)})")
     return stats
+
+
+def family_kernels(cfg) -> frozenset:
+    """The port's kernels a zoo arch's prefill and serving launch: the
+    attention kernels wherever there is attention, rmsnorm wherever a
+    norm is an RMSNorm (LayerNorm stays plain PyTorch, in the reference
+    and the port alike; the xLSTM's ``out_norm`` and ``gn`` are RMSNorms
+    whatever ``cfg.norm``), and nothing else."""
+    if cfg.family == "ssm":
+        return frozenset({"rmsnorm"})
+    attn = frozenset({"flash_attention", "decode_attention"})
+    return attn | ({"rmsnorm"} if cfg.norm == "rmsnorm" else frozenset())
 
 
 def init_timed(torch, cfg):
@@ -3978,6 +4093,337 @@ def dense_q_path(torch, cfgs=None):
     return total, stats
 
 
+# paths (r), (s) and (t): the zoo's moe, ssm and vlm families at full
+# width, bf16 compute.  (r) olmoe-1b-7b at full depth (16 layers, f32
+# params, 27.7 GB) and its training at R_TRAIN_DEPTH layers (AdamW's
+# moments beside all 16 would pass 80 GB); kimi-k2-1t-a32b with its bf16
+# params at K_DEPTH of its 61 layers, the first_k_dense dense layer and
+# one MoE layer of 384 experts (39.2 GB: its 60 MoE layers take 2 TB);
+# (s) xlstm-125m and (t) qwen2-vl-7b at full size
+MOE_DEFAULT = "olmoe-1b-7b"
+KIMI = "kimi-k2-1t-a32b"
+R_TRAIN_DEPTH = 4
+K_DEPTH = 2
+XLSTM_ARCH = "xlstm-125m"
+VLM_ARCH = "qwen2-vl-7b"
+# the step checks' argmax agreement with the forward: (p) and (q)'s
+# lowest sound reading was deepseek-coder-33b's 0.906 (PR 23)
+STEP_AGREE = 0.9
+# (s)'s step check runs in f32, and it and (s)'s card-vs-CPU check are
+# held to XLSTM_F32_TOL of max |logits|.  xlstm-125m at full size grows
+# rounding ~1e3-fold (``rounding_floor``: weights moved by 1e-7 relative
+# move its f32 logits by 2.0e-4 of their max), so its f32 steps sit
+# 4.0e-4 from the forward and its superblock 1.2e-4 from the CPU (H100,
+# PR 24);
+# in bf16 decode parts from the forward by over half of max |logits|, in
+# the reference as in the port (tests/test_torch_xlstm.py::
+# test_full_size_bf16_decode_drifts_as_the_references).  The limit is 5x
+# the larger reading; a wrong state update misses by O(1)
+XLSTM_F32_TOL = 2e-3
+# (t)'s M-RoPE ids: a VLM_GRID x VLM_GRID patch grid (t 0, h and w the
+# patch's row and column), then text whose three ids continue from
+# VLM_GRID, as Qwen2-VL numbers an image followed by text
+VLM_GRID = 16
+
+
+def vision_positions(torch, batch: int, length: int):
+    """(batch, 3, length) int32 M-RoPE ids: an image's patch grid, then
+    text (``VLM_GRID``)."""
+    n = min(VLM_GRID * VLM_GRID, length)
+    j = torch.arange(length)
+    text = j - n + VLM_GRID
+    ids = torch.stack([torch.where(j < n, 0, text),
+                       torch.where(j < n, j // VLM_GRID, text),
+                       torch.where(j < n, j % VLM_GRID, text)])
+    return ids.to(torch.int32)[None].expand(batch, 3, length).contiguous()
+
+
+def family_serving(torch, label, cfg, params, positions=None) -> dict:
+    """(r), (s) and (t)'s serving half: a warm timed prefill of
+    ``PREFILL_BATCH`` x ``PREFILL_LEN`` tokens (with ``positions`` when
+    given), then ``STEP_CHECK`` teacher-forced ``serve_step`` calls (with
+    the same positions) against the forward over those tokens, within
+    ``DENSE_STEP_TOL`` and ``STEP_AGREE``.  A MoE takes the check in the
+    no-drop regime (capacity factor E/k: every token fits), where a
+    4 x 512 forward and a 4-token step drop different tokens by
+    construction; its tokens whose top-k expert sets differ between the
+    forward and the steps (bf16 rounds the two differently) are counted
+    and left out.  The xLSTM takes it in f32, within ``XLSTM_F32_TOL``:
+    its bf16 steps are reported beside their prefill, not held (see
+    ``XLSTM_F32_TOL``).  Then one prefill and 4 serve steps are traced."""
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import model
+
+    import numpy as np
+
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN)), device=DEVICE)
+    extra = {} if positions is None else {"positions": positions.to(DEVICE)}
+    prefill = make_prefill(cfg)
+    with torch.no_grad():
+        prefill(params, {"tokens": toks, **extra})  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": toks, **extra})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+    check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab)
+          and logits.dtype == cfg.cdtype,
+          f"{label} prefill logits {tuple(logits.shape)} {logits.dtype}")
+    check(bool(torch.isfinite(logits).all()),
+          f"{label} non-finite prefill logits")
+    pre = logits[:, :STEP_CHECK].float()
+    del logits
+
+    def at(t0, t1):
+        b = {"tokens": toks[:, t0:t1]}
+        if positions is not None:
+            b["positions"] = extra["positions"][..., t0:t1]
+        return b
+
+    def steps(c):
+        cache = model.init_cache(c, PREFILL_BATCH, STEP_CHECK, DEVICE)
+        with torch.no_grad(), routing() as ids:
+            out = [model.serve_step(params, c, at(t, t + 1), cache, t)[0]
+                   for t in range(STEP_CHECK)]
+        return torch.cat(out, dim=1).float(), ids
+
+    out = {"prefill_s": t_prefill,
+           "prefill_tokens_per_s": PREFILL_BATCH * PREFILL_LEN / t_prefill}
+    step_cfg, tol = cfg, DENSE_STEP_TOL
+    if cfg.moe is not None:
+        step_cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    if cfg.family == "ssm":
+        dec, _ = steps(cfg)
+        rel = float((dec - pre).abs().max()) / max(1.0, float(
+            pre.abs().max()))
+        print(f"  {label} bf16 serve_step vs the prefill, first "
+              f"{STEP_CHECK} positions: max |diff| / max |logits| {rel:.3e} "
+              "(not held: bf16 rounding grows through the recurrences, "
+              "in the reference too)")
+        out["bf16_step_vs_prefill_max_rel_err"] = rel
+        step_cfg, tol = cfg.replace(compute_dtype="float32"), XLSTM_F32_TOL
+    if step_cfg is cfg:
+        ref, ref_ids = pre, []
+    else:
+        with torch.no_grad(), routing() as ref_ids:
+            ref = model.forward(params, step_cfg,
+                                at(0, STEP_CHECK))[0].float()
+    if cfg.family == "ssm":
+        out["f32_rounding_floor"] = floor = rounding_floor(
+            torch, step_cfg, params, at(0, STEP_CHECK), ref)
+        print(f"  {label} weights moved by 1e-7 relative move the f32 "
+              f"forward's logits by {floor:.3e} of max |logits|")
+    dec, step_ids = steps(step_cfg)
+    n = len(ref_ids)  # MoE layers; the steps record them layer by layer
+    by_layer = [torch.stack(step_ids[i::n], dim=1) for i in range(n)]
+    keep = routing_agree(torch, ref_ids, by_layer, PREFILL_BATCH,
+                         STEP_CHECK).to(DEVICE)
+    flips = int((~keep).sum())
+    what = (f"{label} serve_step vs the forward, first {STEP_CHECK} "
+            f"positions, {step_cfg.compute_dtype}")
+    if cfg.moe is not None:
+        print(f"  {label} no-drop step check: top-k expert sets differ "
+              f"between the forward and the steps at {flips} of "
+              f"{keep.numel()} tokens ({n} MoE layers); held on the others")
+        check(flips < keep.numel(), f"{what}: every token's experts differ")
+        out["step_check_expert_set_flips"] = flips
+    out["step_vs_prefill_max_abs_err"] = err(torch, dec[keep], ref[keep],
+                                             tol, what)
+    agree = float((dec.argmax(-1) == ref.argmax(-1))[keep].float().mean())
+    print(f"  {label} serve_step argmax agrees with the forward at "
+          f"{agree:.4f} of positions (at least {STEP_AGREE})")
+    check(agree >= STEP_AGREE, f"{what}: argmax agreement {agree}")
+    out["step_vs_prefill_argmax_agree"] = agree
+    del dec, ref, pre
+    out["trace"] = trace_zoo(torch, cfg, params, toks, extra=extra)
+    dec_trace = out["trace"]["decode"]
+    print(f"  {label} a traced decode step: {1e3 * dec_trace['wall_s'] / 4:.3f}"
+          f" ms of wall, {dec_trace['busy_ms'] / 4:.3f} ms of device time")
+    return out
+
+
+def rounding_floor(torch, cfg, params, batch, ref) -> float:
+    """How far rounding alone moves ``cfg``'s outputs: max |logits' -
+    ``ref``| / max(1, max |ref|), where logits' is the forward on
+    ``batch`` with every weight moved by 1e-7 relative (seeded draws)
+    and ``ref`` the forward's own logits."""
+    from repro_torch.models import model, module
+
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    moved = module.tree_map(lambda t: t * (1 + 1e-7 * torch.randn(
+        t.shape, generator=gen, device=t.device, dtype=t.dtype)), params)
+    with torch.no_grad():
+        out = model.forward(moved, cfg, batch)[0].float()
+    return float((out - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def moe_path(torch, cfgs=None, train_depth=R_TRAIN_DEPTH):
+    """Path (r): olmoe-1b-7b at full width and depth, and kimi-k2-1t-a32b
+    at full width with its bf16 params and ``K_DEPTH`` layers, each
+    through ``family_serving`` and ``launch/serve.py``'s loop at its
+    defaults; olmoe's training (``TRAIN_STEPS`` AdamW steps at
+    ``train_depth`` layers); then each arch's first MoE layer (kimi's
+    after its dense one) in f32 against the CPU at the default capacity.
+    The launch counts are set to 0 just before each arch and read just
+    after its serving (and olmoe's training).  ``cfgs`` defaults to the
+    full configs with the cuts.  Returns (the summed counts, stats by
+    arch)."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticTextTask
+    from repro_torch.kernels import KERNELS, LAUNCHES, reset_launches
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model, module
+
+    if cfgs is None:
+        cfgs = [configs.get_config(MOE_DEFAULT),
+                configs.get_config(KIMI).replace(num_layers=K_DEPTH)]
+    total = {k: 0 for k in KERNELS}
+    stats = {}
+    for cfg in cfgs:
+        label = f"(r) {cfg.arch_id}"
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        params, t_init, n_params, init_peak = init_timed(torch, cfg)
+        serving = family_serving(torch, label, cfg, params)
+        r = serve(cfg, params, device=DEVICE, **SERVE_KW)
+        peak = torch.cuda.max_memory_allocated() - base
+        del params
+        torch.cuda.empty_cache()
+        st = dense_report(torch, "(r)", cfg, n_params, t_init, init_peak,
+                          serving, r, peak, dict(LAUNCHES))
+        print(f"  {label} serve loop: {1e3 * r['seconds'] / r['steps']:.3f} "
+              "ms a step")
+        if cfg.arch_id == MOE_DEFAULT:
+            tcfg = cfg.replace(num_layers=train_depth)
+            params = model.init(0, tcfg, DEVICE)
+            st["train_params"] = module.count_params(params)
+            st["train"] = dense_train(
+                torch, tcfg, params,
+                SyntheticTextTask(vocab=512, seq_len=TRAIN_LEN), label="(r)")
+            del params
+            torch.cuda.empty_cache()
+        st["launches"] = counts = dict(LAUNCHES)
+        for k, n in counts.items():
+            total[k] += n
+        st.update(zoo_vs_cpu(torch, cfg, layers=cfg.moe.first_k_dense + 1,
+                             batch=DENSE_CPU_BATCH, length=DENSE_CPU_LEN,
+                             label=label))
+        stats[cfg.arch_id] = st
+    return total, stats
+
+
+def xlstm_layer_times(torch, cfg, params) -> dict:
+    """Host seconds of the mLSTM and of the sLSTM layers in one warm
+    ``PREFILL_BATCH`` x ``PREFILL_LEN`` prefill, each layer synchronized
+    on both sides (the sLSTM a host loop of one cell a token)."""
+    from repro_torch.models import model, xlstm
+
+    import numpy as np
+
+    secs = {"mlstm": 0.0, "slstm": 0.0}
+    orig = {k: getattr(xlstm, f"apply_{k}") for k in secs}
+
+    def timed(kind):
+        def layer(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[kind](*args)
+            torch.cuda.synchronize()
+            secs[kind] += time.perf_counter() - t0
+            return out
+        return layer
+
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN)), device=DEVICE)
+    try:
+        for k in secs:
+            setattr(xlstm, f"apply_{k}", timed(k))
+        with torch.no_grad():
+            model.prefill(params, cfg, {"tokens": toks})
+    finally:
+        for k, fn in orig.items():
+            setattr(xlstm, f"apply_{k}", fn)
+    per = cfg.xlstm.slstm_every
+    n_s = cfg.num_layers // per
+    print(f"  (s) a {PREFILL_BATCH}x{PREFILL_LEN} prefill's layers: "
+          f"{cfg.num_layers - n_s} mLSTM {secs['mlstm']:.4f} s, {n_s} sLSTM "
+          f"{secs['slstm']:.4f} s ({PREFILL_LEN} cell steps each)")
+    return secs
+
+
+def xlstm_path(torch, cfg=None):
+    """Path (s): xlstm-125m at full size: ``family_serving`` (with the
+    mLSTM and sLSTM layers' shares of a prefill timed apart),
+    ``launch/serve.py``'s loop at its defaults, ``TRAIN_STEPS`` AdamW
+    steps, and one superblock in f32 against the CPU (within
+    ``XLSTM_F32_TOL``).  rmsnorm must
+    launch (the mLSTM's ``out_norm``, the sLSTM's ``gn``), the attention
+    kernels never.  The launch counts are set to 0 just before and read
+    just after.  Returns (counts, stats)."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticTextTask
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import serve
+
+    cfg = cfg or configs.get_config(XLSTM_ARCH)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    params, t_init, n_params, init_peak = init_timed(torch, cfg)
+    serving = family_serving(torch, "(s)", cfg, params)
+    serving["layer_seconds"] = xlstm_layer_times(torch, cfg, params)
+    r = serve(cfg, params, device=DEVICE, **SERVE_KW)
+    peak = torch.cuda.max_memory_allocated() - base
+    stats = dense_report(torch, "(s)", cfg, n_params, t_init, init_peak,
+                         serving, r, peak, dict(LAUNCHES))
+    stats["train"] = dense_train(
+        torch, cfg, params, SyntheticTextTask(vocab=512, seq_len=TRAIN_LEN),
+        label="(s)")
+    stats["launches"] = counts = dict(LAUNCHES)
+    del params
+    torch.cuda.empty_cache()
+    stats.update(zoo_vs_cpu(torch, cfg, layers=cfg.xlstm.slstm_every,
+                            batch=DENSE_CPU_BATCH, length=DENSE_CPU_LEN,
+                            label="(s)", tol=XLSTM_F32_TOL))
+    return counts, stats
+
+
+def vlm_path(torch, cfg=None):
+    """Path (t): qwen2-vl-7b at full size: ``family_serving`` with (B, 3,
+    S) M-RoPE positions whose t, h and w ids differ (``vision_positions``:
+    a patch grid, then text), ``launch/serve.py``'s loop at its defaults
+    ((B, 3, 1) positions), and one layer in f32 against the CPU on such
+    positions.  The launch counts are set to 0 just before and read just
+    after.  Returns (counts, stats)."""
+    from repro_torch import configs
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import serve
+
+    cfg = cfg or configs.get_config(VLM_ARCH)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    params, t_init, n_params, init_peak = init_timed(torch, cfg)
+    serving = family_serving(
+        torch, "(t)", cfg, params,
+        positions=vision_positions(torch, PREFILL_BATCH, PREFILL_LEN))
+    r = serve(cfg, params, device=DEVICE, **SERVE_KW)
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = dict(LAUNCHES)
+    stats = dense_report(torch, "(t)", cfg, n_params, t_init, init_peak,
+                         serving, r, peak, counts)
+    del params
+    torch.cuda.empty_cache()
+    stats.update(zoo_vs_cpu(
+        torch, cfg, layers=1, batch=DENSE_CPU_BATCH, length=DENSE_CPU_LEN,
+        label="(t)", positions=vision_positions(torch, DENSE_CPU_BATCH,
+                                                DENSE_CPU_LEN)))
+    return counts, stats
+
+
 def main_path(torch, rt):
     from repro_torch.kernels import KERNELS, LAUNCHES, reset_launches
 
@@ -4033,6 +4479,18 @@ def main_path(torch, rt):
           + ": prefill and launch/serve.py's loop")
     by_path["q"], q_stats = dense_q_path(torch)
     zoo_stats["dense"] = {"p": p_stats, "q": q_stats}
+
+    # (r) the MoE family, (s) xLSTM, (t) the VLM's M-RoPE
+    print(f"  (r) {MOE_DEFAULT}, {KIMI} ({K_DEPTH} layers): prefill and "
+          f"launch/serve.py's loop; {MOE_DEFAULT}'s training at "
+          f"{R_TRAIN_DEPTH} layers")
+    by_path["r"], r_stats = moe_path(torch)
+    print(f"  (s) {XLSTM_ARCH}: prefill, launch/serve.py's loop, training")
+    by_path["s"], s_stats = xlstm_path(torch)
+    print(f"  (t) {VLM_ARCH}: prefill with M-RoPE positions, "
+          "launch/serve.py's loop")
+    by_path["t"], t_stats = vlm_path(torch)
+    zoo_stats["families"] = {"r": r_stats, "s": s_stats, "t": t_stats}
 
     # (h) the scheme comparison under FLConfig's defaults, (i) semi-async
     # and sample weights
@@ -4145,7 +4603,7 @@ def main() -> int:
     records.update(check_attention(torch))
     records.update(check_ssd_rmsnorm(torch))
     launches, by_path, zoo_stats, scheme_recs = main_path(torch, rt)
-    print(f"paths (g), (p), (q) {json.dumps(zoo_stats)}")
+    print(f"paths (g), (p)-(t) {json.dumps(zoo_stats)}")
     print(f"paths (h)-(o) {json.dumps(scheme_recs)}")
     trace_round(torch)
     trace_round(torch, "j", trainer="cohort", per_round=10)

@@ -14,12 +14,19 @@ packages use the same layouts, so converting is a copy:
   "final_norm", "stack"}``, where the hybrid stack holds ``"mamba"`` and
   ``"mamba_norms"`` with every leaf stacked ``(nsuper, attn_every, ...)``
   (``A_log``, ``D`` and ``dt_bias`` f32 whatever the param type) and one
-  ``"shared"`` attention+MLP block; linears are ``{"w": (d_in, d_out)}``
-  or ``{"basis": (I, R), "coeff": (m, R, O)}``.
+  ``"shared"`` attention+MLP block; the MoE stack holds ``"dense_layers"``
+  (``first_k_dense`` of them) and ``"moe_layers"``, whose ``"moe"`` holds
+  ``"router": {"w"}`` (f32 whatever the param type), the expert tensors
+  ``"gate"``/``"up"`` (L, E, d, d_expert) and ``"down"``, and with a
+  shared expert ``"shared"``; the xLSTM stack holds ``"mlstm"`` stacked
+  ``(nsuper, slstm_every - 1, ...)`` (``"wif": {"w"}`` f32) and
+  ``"slstm"`` (``"r"``, and ``"bias"`` f32); linears are ``{"w": (d_in,
+  d_out)}`` or ``{"basis": (I, R), "coeff": (m, R, O)}``.
 
-Every leaf comes over as float32, the ``param_dtype`` of every zoo config.
-The caller turns the pytree into numpy first (``jax.device_get``), which
-keeps this module free of JAX.
+Every leaf keeps its type: float32, or bfloat16 (kimi-k2's
+``param_dtype``), which comes through float32 exactly.  The caller
+turns the pytree into numpy first (``jax.device_get``), which keeps this
+module free of JAX.
 """
 
 from __future__ import annotations
@@ -31,11 +38,16 @@ import torch
 
 
 def from_jax_params(tree: Any, device) -> Any:
-    """Nested dicts of numpy arrays -> the same dicts of float32 tensors on
-    ``device``."""
+    """Nested dicts of numpy arrays -> the same dicts of tensors on
+    ``device``: bfloat16 leaves (numpy's ``ml_dtypes`` type) stay
+    bfloat16, every other leaf becomes float32."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device) for k, v in tree.items()}
-    return torch.as_tensor(np.array(tree, np.float32), device=device)
+    t = torch.as_tensor(np.array(tree, np.float32), device=device)
+    if getattr(tree, "dtype", None) is not None and \
+            tree.dtype.name == "bfloat16":
+        return t.to(torch.bfloat16)
+    return t
 
 
 def to_numpy(tree: Any) -> Any:

@@ -7,9 +7,11 @@ Maintains a fixed decode batch; finished requests (length) are replaced
 from the queue — a miniature continuous-batching loop over
 :mod:`repro_torch.launch.steps`' ``serve_step``, as the reference's
 ``repro.launch.serve``.  Runs on the CUDA card unless given
-``--device cpu``.  The port serves the dense family (gemma-2b, the
-default, stablelm-3b, deepseek-coder-33b, granite-34b) and the hybrid
-one (zamba2-2.7b) so far.
+``--device cpu``.  The port serves every family of the zoo but the
+audio one: dense (gemma-2b, the default, stablelm-3b,
+deepseek-coder-33b, granite-34b), moe (olmoe-1b-7b, kimi-k2-1t-a32b),
+ssm (xlstm-125m), vlm (qwen2-vl-7b, whose M-RoPE takes ``(B, 3, 1)``
+positions, all three ids the shared position) and hybrid (zamba2-2.7b).
 """
 
 from __future__ import annotations
@@ -56,8 +58,11 @@ def serve(cfg, params, *, requests: int = 8, batch: int = 4,
                 active[s] = [next_req, list(queue[next_req]), 0]
                 outputs[next_req] = []
                 next_req += 1
-        tokens = torch.as_tensor(cur, device=dev)
-        logits, cache = step(params, {"tokens": tokens}, cache, pos)
+        batch = {"tokens": torch.as_tensor(cur, device=dev)}
+        if cfg.rope_type == "mrope":
+            batch["positions"] = torch.full((B, 3, 1), pos,
+                                            dtype=torch.int32, device=dev)
+        logits, cache = step(params, batch, cache, pos)
         gen = (torch.Generator(dev).manual_seed(pos)
                if temperature > 0 else None)
         nxt = sample_logits(gen, logits[:, -1], temperature=temperature,

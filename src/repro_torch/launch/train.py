@@ -4,8 +4,11 @@
 [--device cpu]``
 
 Runs on the CUDA card unless given ``--device cpu``; ``--smoke`` takes
-the reduced config.  Batches come from ``SyntheticTextTask`` through
-``lm_batches`` with numpy seed 0, as in the reference's launcher;
+the reduced config.  Every family of the zoo but the audio one trains
+(the vlm's vision tower is the reference's stub: it trains on token
+streams, and its M-RoPE positions default to text's).  Batches come
+from ``SyntheticTextTask`` through ``lm_batches`` with numpy seed 0, as
+in the reference's launcher;
 Heroes composition is a switch (``--composition``), and
 ``--ckpt-dir``/``--ckpt-every`` checkpoint ``{"params", "opt"}`` and
 resume from the newest checkpoint there.  A resumed run continues bit
@@ -71,6 +74,9 @@ def main(argv=None) -> None:
     if args.composition:
         cfg = cfg.replace(composition=CompositionConfig(
             enabled=True, max_width=2, rank=cfg.d_model // 4))
+    if cfg.family in ("vlm", "audio"):
+        print(f"note: {args.arch} uses stub frontends; training on synthetic "
+              "token streams with stub embeddings")
     dev = resolve_device(args.device)
     params = model.init(0, cfg, dev)
     print(f"{cfg.arch_id}: {count_params(params):,} params "

@@ -18,8 +18,10 @@ forward-only kernels (``kernels.ops.flash_attention`` and
 ``kernels.ops.decode_attention``) and on the CPU through the plain
 :func:`flash_attention` and :func:`decode_attention` here, with
 sliding-window attention (a ring-buffer cache of ``window`` slots in
-decode) and the int8 KV cache (per-token-per-head scales).  Not ported:
-M-RoPE and cross-attention (M-RoPE raises ``NotImplementedError``).
+decode) and the int8 KV cache (per-token-per-head scales).  Positions
+rotate by RoPE or, for qwen2-vl, by M-RoPE (:func:`mrope_angles`: (t, h,
+w) position ids, one per frequency section).  Not ported yet:
+cross-attention (the audio family's).
 """
 
 from __future__ import annotations
@@ -43,6 +45,26 @@ def rope_angles(positions: Tensor, head_dim: int,
     inv = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                   device=positions.device) / half)
     ang = positions.to(torch.float32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_angles(positions: Tensor, head_dim: int, theta: float,
+                 sections: Tuple[int, int, int]) -> Tuple[Tensor, Tensor]:
+    """Multimodal RoPE (Qwen2-VL): positions (B, 3, S) — (t, h, w) ids.
+
+    Frequency slot i takes its position id from the section it belongs
+    to; sections sum to head_dim//2.  Returns cos/sin (B, S, D/2)."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} != head_dim/2 {half}")
+    dev = positions.device
+    inv = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                  device=dev) / half)
+    sec_id = torch.cat([torch.full((s,), i, dtype=torch.long, device=dev)
+                        for i, s in enumerate(sections)])  # (half,)
+    # gather per-frequency positions: (B, 3, S) -> (B, S, half)
+    pos = positions.index_select(1, sec_id).transpose(-1, -2)
+    ang = pos.to(torch.float32) * inv
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -132,10 +154,12 @@ def default_positions(batch: int, seq: int, offset=0,
 
 
 def angles_for(cfg, positions: Tensor) -> Tuple[Tensor, Tensor]:
-    """positions: (B, S) for rope.  M-RoPE is not ported."""
+    """positions: (B, S) for rope, (B, 3, S) for mrope."""
+    d = cfg.resolved_head_dim
     if cfg.rope_type == "mrope":
-        raise NotImplementedError("M-RoPE is not ported (ROADMAP A11)")
-    return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        return mrope_angles(positions, d, cfg.rope_theta,
+                            cfg.mrope_sections)
+    return rope_angles(positions, d, cfg.rope_theta)
 
 
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,

@@ -10,18 +10,23 @@ Functions keyed off ``cfg.family``, mirroring the reference's:
   serve_step(params, cfg, batch, cache, cache_len) -> (logits, cache)
 
 The port runs the ``dense`` family (gemma-2b, stablelm-3b,
-deepseek-coder-33b, granite-34b) and the ``hybrid`` one (zamba2), with
-sliding-window attention and, for the dense family, the int8 KV cache;
-the moe, ssm, vlm and audio families raise ``NotImplementedError``
-(ROADMAP A11).  ``init`` and ``init_cache`` run on the CUDA card unless
-given ``device="cpu"``.  The RMSNorm, SSD-chunk and attention kernels are
+deepseek-coder-33b, granite-34b), the ``moe`` one (olmoe-1b-7b,
+kimi-k2-1t-a32b), the ``ssm`` one (xlstm-125m), the ``vlm`` one
+(qwen2-vl-7b, M-RoPE; its vision tower is the reference's stub: the
+batch may carry patch ``embeddings``) and the ``hybrid`` one (zamba2),
+with sliding-window attention and, for the attention stacks, the int8 KV
+cache; the audio family raises ``NotImplementedError`` (ROADMAP A11).
+``init`` and ``init_cache`` run on the CUDA card unless given
+``device="cpu"``.  The RMSNorm, SSD-chunk and attention kernels are
 forward-only; ``kernels.ops`` gives them the backward of their plain
-versions, so ``loss_fn`` trains and serving launches them alike.
+versions, so ``loss_fn`` trains and serving launches them alike.  The
+MoE layers' router aux loss reaches ``loss_fn`` through ``forward``.
 
 Batch keys: ``tokens`` (B, S) int, or ``embeddings`` (B, S, d) in their
-place; optionally ``positions`` (B, S); for ``loss_fn`` also ``labels``
-(B, S) and optionally ``loss_mask`` (B, S).  Positions count from 0 in
-``forward`` and are ``cache_len`` in ``serve_step``.
+place; optionally ``positions`` (B, S), or (B, 3, S) (t, h, w) ids for
+M-RoPE; for ``loss_fn`` also ``labels`` (B, S) and optionally
+``loss_mask`` (B, S).  Positions count from 0 in ``forward`` and are
+``cache_len`` in ``serve_step`` (all three ids, for M-RoPE).
 """
 
 from __future__ import annotations
@@ -37,14 +42,14 @@ from repro_torch.models import attention, layers, module, transformer
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
-PORTED_FAMILIES = ("dense", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "vlm", "hybrid")
 
 
 def _require_ported(cfg) -> None:
     if cfg.family not in PORTED_FAMILIES or cfg.encdec is not None:
         raise NotImplementedError(
             f"the {cfg.family} family is not ported (ROADMAP A11); the "
-            "port runs the dense and hybrid families")
+            f"port runs the {', '.join(PORTED_FAMILIES)} families")
 
 
 # ---------------------------------------------------------------------------
@@ -69,7 +74,9 @@ def init(seed: int, cfg, device=None) -> Params:
                                              cfg.pdtype)
     if cfg.family == "hybrid":
         p["stack"] = transformer.init_hybrid_stack(gen, cfg)
-    else:
+    elif cfg.family == "ssm":
+        p["stack"] = transformer.init_xlstm_stack(gen, cfg)
+    else:  # dense / moe / vlm
         p["stack"] = transformer.init_stack(gen, cfg)
     return p
 
@@ -97,10 +104,13 @@ def _input_embeddings(params, cfg, batch) -> Tensor:
     return x
 
 
-def _positions(batch, seq: int, batchsize: int, device):
+def _positions(cfg, batch, seq: int, batchsize: int, device):
     if "positions" in batch:
         return batch["positions"]
-    return attention.default_positions(batchsize, seq, device=device)
+    pos = attention.default_positions(batchsize, seq, device=device)
+    if cfg.rope_type == "mrope":  # text: t, h and w ids all equal
+        return pos[:, None, :].expand(pos.shape[0], 3, seq)
+    return pos
 
 
 def _unembed(params, cfg, x: Tensor) -> Tensor:
@@ -123,10 +133,14 @@ def forward(params: Params, cfg, batch: Dict[str, Tensor],
     _require_ported(cfg)
     x = _input_embeddings(params, cfg, batch)
     B, S, _ = x.shape
-    cos, sin = attention.angles_for(cfg, _positions(batch, S, B, x.device))
-    stack = (transformer.apply_hybrid if cfg.family == "hybrid"
-             else transformer.apply_stack)
-    x, aux = stack(params["stack"], cfg, x, cos, sin, skip_blocks)
+    if cfg.family == "ssm":  # xLSTM: no attention, no positions
+        x, aux = transformer.apply_xlstm(params["stack"], cfg, x)
+    else:
+        pos = _positions(cfg, batch, S, B, x.device)
+        cos, sin = attention.angles_for(cfg, pos)
+        stack = (transformer.apply_hybrid if cfg.family == "hybrid"
+                 else transformer.apply_stack)
+        x, aux = stack(params["stack"], cfg, x, cos, sin, skip_blocks)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     return _unembed(params, cfg, x), aux
 
@@ -146,13 +160,16 @@ def loss_fn(params: Params, cfg, batch: Dict[str, Tensor],
 def init_cache(cfg, batch: int, max_len: int, device=None) -> Dict[str, Any]:
     """Zeroed decode caches on ``device`` (the CUDA card unless given
     ``device="cpu"``); with a sliding window the KV cache is a ring of
-    ``min(max_len, window)`` slots."""
+    ``min(max_len, window)`` slots.  The xLSTM's recurrent state does not
+    grow with ``max_len``."""
     _require_ported(cfg)
     dev = resolve_device(device)
     cache_len = (min(max_len, cfg.sliding_window) if cfg.sliding_window
                  else max_len)
     if cfg.family == "hybrid":
         return transformer.init_hybrid_cache(cfg, batch, cache_len, dev)
+    if cfg.family == "ssm":
+        return transformer.init_xlstm_cache(cfg, batch, dev)
     return transformer.init_kv_cache(cfg, batch, cache_len, device=dev)
 
 
@@ -174,13 +191,19 @@ def serve_step(params: Params, cfg, batch: Dict[str, Tensor],
     updated in place and returned."""
     _require_ported(cfg)
     x = _input_embeddings(params, cfg, batch)
-    pos = batch.get("positions")
-    if pos is None:
-        pos = torch.full((x.shape[0], 1), int(cache_len), dtype=torch.int32,
-                         device=x.device)
-    cos, sin = attention.angles_for(cfg, pos)
-    decode = (transformer.decode_hybrid if cfg.family == "hybrid"
-              else transformer.decode_stack)
-    x, cache = decode(params["stack"], cfg, x, cache, cache_len, cos, sin)
+    if cfg.family == "ssm":
+        x, cache = transformer.decode_xlstm(params["stack"], cfg, x, cache)
+    else:
+        pos = batch.get("positions")
+        if pos is None:
+            shape = ((x.shape[0], 3, 1) if cfg.rope_type == "mrope"
+                     else (x.shape[0], 1))
+            pos = torch.full(shape, int(cache_len), dtype=torch.int32,
+                             device=x.device)
+        cos, sin = attention.angles_for(cfg, pos)
+        decode = (transformer.decode_hybrid if cfg.family == "hybrid"
+                  else transformer.decode_stack)
+        x, cache = decode(params["stack"], cfg, x, cache, cache_len, cos,
+                          sin)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     return _unembed(params, cfg, x), cache

@@ -33,11 +33,25 @@ Tensor = torch.Tensor
 Params = Dict[str, Any]
 
 
+# the most elements one f32 draw of :func:`normal` makes (256 MB)
+DRAW_CHUNK = 1 << 26
+
+
 def normal(gen: torch.Generator, shape, dtype, std: float = 1.0) -> Tensor:
-    """``std`` * standard normal draws from ``gen``, on its device."""
-    t = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return (std * t).to(dtype)
+    """``std`` * standard normal draws from ``gen``, on its device.  A
+    tensor of more than ``DRAW_CHUNK`` elements is filled in flat chunks
+    of that many draws, so its peak is itself and one f32 chunk: a bf16
+    expert stack of 5.6e9 elements never holds an f32 copy (22.5 GB)."""
+    n = math.prod(shape)
+    if n <= DRAW_CHUNK:
+        t = torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=torch.float32)
+        return (std * t).to(dtype)
+    out = torch.empty(n, dtype=dtype, device=gen.device)
+    for i in range(0, n, DRAW_CHUNK):
+        out[i:i + DRAW_CHUNK] = normal(gen, (min(DRAW_CHUNK, n - i),), dtype,
+                                       std)
+    return out.view(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -116,8 +130,20 @@ def maybe_factorized(gen, d_in: int, d_out: int, cfg, dtype) -> Params:
 
 
 def stacked_init(init_fn: Callable, gen, num: int, *args, **kwargs):
-    layers = [init_fn(gen, *args, **kwargs) for _ in range(num)]
-    return tree_map(lambda *xs: torch.stack(xs), *layers)
+    """``num`` draws of ``init_fn``, each leaf stacked ``(num, ...)``.
+    Each layer is written into the stack as soon as it is drawn, so the
+    peak is the stack and one layer; one layer is stacked without a
+    copy."""
+    first = init_fn(gen, *args, **kwargs)
+    if num == 1:
+        return tree_map(lambda x: x.unsqueeze(0).detach(), first)
+    out = tree_map(lambda x: x.new_empty((num, *x.shape)), first)
+    tree_map(lambda o, x: o[0].copy_(x), out, first)
+    del first
+    for i in range(1, num):
+        tree_map(lambda o, x: o[i].copy_(x), out,
+                 init_fn(gen, *args, **kwargs))
+    return out
 
 
 def count_params(params) -> int:

@@ -1,24 +1,31 @@
-"""Stack assembly for the zoo's dense and hybrid families, in PyTorch.
+"""Stack assembly for the zoo's families, in PyTorch.
 
 The reference scans its stacks with ``lax.scan`` over layer-stacked
 params; the port keeps the same stacked parameter tree and walks it with
 Python loops.
 
-  dense              identical decoder layers (attention + MLP, sequential
+  dense / vlm        identical decoder layers (attention + MLP, sequential
                      or ``parallel_block``), params stacked ``(L, ...)``
+  moe                ``first_k_dense`` dense layers (``dense_layers``)
+                     then MoE layers (``moe_layers``); the aux loss is
+                     summed over both
   hybrid (zamba2)    superblocks of ``attn_every`` Mamba2 layers, each
                      followed by one *shared* attention+MLP block (the same
                      params at every application — the sharing is the
                      point of the architecture)
+  ssm (xlstm)        superblocks of ``slstm_every - 1`` mLSTM layers and
+                     one sLSTM layer
 
-With ``cfg.remat`` and a gradient being recorded, each dense layer runs
-under ``torch.utils.checkpoint`` (non-reentrant), the reference's
-``jax.checkpoint`` around its scan body: activations are recomputed in
-the backward, and the numbers do not change.  Mamba2 params are stacked
-``(nsuper, attn_every, ...)`` as in the reference.  The reference's
-``constrain_residual`` (a sharding constraint on the residual stream) is
-a no-op without a device mesh and is left out.  The MoE and xLSTM stacks
-are not ported yet (ROADMAP A11).
+With ``cfg.remat`` and a gradient being recorded, each decoder layer and
+each mLSTM layer runs under ``torch.utils.checkpoint`` (non-reentrant),
+the reference's ``jax.checkpoint`` around its scan body: activations
+are recomputed in the backward, and the numbers do not change.  Mamba2
+params are stacked ``(nsuper, attn_every, ...)`` and mLSTM params
+``(nsuper, slstm_every - 1, ...)`` as in the reference.  The decode
+caches have real storage and are written in place (the reference
+broadcasts its initial caches and returns updated copies).  The
+reference's ``constrain_residual`` (a sharding constraint on the
+residual stream) is a no-op without a device mesh and is left out.
 """
 
 from __future__ import annotations
@@ -29,15 +36,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.estimator import tree_leaves, tree_map
-from repro_torch.models import attention, layers, module, ssm
+from repro_torch.models import attention, layers, module, ssm, xlstm
+from repro_torch.models import moe as moe_lib
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
-
-
-def _moe_unported() -> None:
-    raise NotImplementedError("the MoE family is not ported (ROADMAP A11); "
-                              "the port runs the dense and hybrid families")
 
 
 def _layer(tree, *idx):
@@ -60,29 +63,41 @@ def _unstack(tree) -> list:
 
 
 def init_decoder_layer(gen, cfg, use_moe: bool = False) -> Params:
-    if use_moe:
-        _moe_unported()
     dev = gen.device
-    return {
+    p = {
         "ln1": layers.init_norm(cfg.d_model, cfg.norm, cfg.pdtype, dev),
         "attn": attention.init_attention(gen, cfg),
         "ln2": layers.init_norm(cfg.d_model, cfg.norm, cfg.pdtype, dev),
-        "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
-                               cfg, cfg.pdtype),
     }
+    if use_moe:
+        p["moe"] = moe_lib.init_moe(gen, cfg, cfg.pdtype)
+    else:
+        p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                   cfg.activation, cfg, cfg.pdtype)
+    return p
+
+
+def _ffn(params: Params, cfg, h: Tensor):
+    """The layer's FFN on ``h``: (out, aux loss, or None for a dense
+    MLP)."""
+    if "moe" in params:
+        return moe_lib.apply_moe(params["moe"], cfg, h)
+    return layers.apply_mlp(params["mlp"], h, cfg.activation), None
 
 
 def decoder_layer(params: Params, cfg, x: Tensor, cos, sin,
-                  skip_blocks: bool = False) -> Tensor:
+                  skip_blocks: bool = False):
+    """Returns (x, aux loss: None for a dense layer)."""
     h = layers.apply_norm(params["ln1"], x, cfg.norm)
     attn_out = attention.self_attention(params["attn"], cfg, h, cos, sin,
                                         skip_masked_blocks=skip_blocks)
     if cfg.parallel_block:
-        return x + attn_out + layers.apply_mlp(params["mlp"], h,
-                                               cfg.activation)
+        ffn_out, aux = _ffn(params, cfg, h)
+        return x + attn_out + ffn_out, aux
     x = x + attn_out
     h2 = layers.apply_norm(params["ln2"], x, cfg.norm)
-    return x + layers.apply_mlp(params["mlp"], h2, cfg.activation)
+    ffn_out, aux = _ffn(params, cfg, h2)
+    return x + ffn_out, aux
 
 
 def decoder_layer_decode(params: Params, cfg, x: Tensor, ck, cv, cache_len,
@@ -96,25 +111,41 @@ def decoder_layer_decode(params: Params, cfg, x: Tensor, ck, cv, cache_len,
                                           cache_scales=scales)
     attn_out = res[0]
     if cfg.parallel_block:
-        out = x + attn_out + layers.apply_mlp(params["mlp"], h,
-                                              cfg.activation)
+        out = x + attn_out + _ffn(params, cfg, h)[0]
     else:
         x = x + attn_out
         h2 = layers.apply_norm(params["ln2"], x, cfg.norm)
-        out = x + layers.apply_mlp(params["mlp"], h2, cfg.activation)
+        out = x + _ffn(params, cfg, h2)[0]
     return (out, *res[1:])
 
 
 # ---------------------------------------------------------------------------
-# dense stack
+# dense / moe stacks
 # ---------------------------------------------------------------------------
 
 
 def init_stack(gen, cfg) -> Params:
     if cfg.moe is not None:
-        _moe_unported()
+        fkd = cfg.moe.first_k_dense
+        p: Params = {}
+        if fkd:
+            p["dense_layers"] = module.stacked_init(
+                lambda g: init_decoder_layer(g, cfg, use_moe=False), gen,
+                fkd)
+        p["moe_layers"] = module.stacked_init(
+            lambda g: init_decoder_layer(g, cfg, use_moe=True), gen,
+            cfg.num_layers - fkd)
+        return p
     return {"layers": module.stacked_init(
         lambda g: init_decoder_layer(g, cfg), gen, cfg.num_layers)}
+
+
+def _parts(params: Params, cfg) -> list:
+    """The stack's layer-stacked parts in stack order (dense first)."""
+    if cfg.moe is None:
+        return [params["layers"]]
+    return [params[k] for k in ("dense_layers", "moe_layers")
+            if k in params]
 
 
 def _recording(params) -> bool:
@@ -122,35 +153,43 @@ def _recording(params) -> bool:
         t.requires_grad for t in tree_leaves(params))
 
 
+def _run(remat: bool, fn, *args):
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def apply_stack(params: Params, cfg, x: Tensor, cos, sin,
                 skip_blocks: bool = False) -> Tuple[Tensor, Tensor]:
-    """Full-sequence dense stack.  Returns (x, aux loss = 0)."""
-    if cfg.moe is not None:
-        _moe_unported()
-    stacked = params["layers"]
-    remat = cfg.remat and _recording(stacked)
-    for lp in _unstack(stacked):
-        if remat:
-            x = checkpoint(decoder_layer, lp, cfg, x, cos, sin, skip_blocks,
-                           use_reentrant=False)
-        else:
-            x = decoder_layer(lp, cfg, x, cos, sin, skip_blocks)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    """Full-sequence dense or MoE stack.  Returns (x, aux loss summed
+    over the layers; 0 for a dense stack)."""
+    remat = cfg.remat and _recording(params)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for part in _parts(params, cfg):
+        for lp in _unstack(part):
+            x, a = _run(remat, decoder_layer, lp, cfg, x, cos, sin,
+                        skip_blocks)
+            if a is not None:
+                aux = aux + a
+    return x, aux
 
 
 def decode_stack(params: Params, cfg, x: Tensor, cache: Dict[str, Tensor],
                  cache_len, cos, sin) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """One token through the dense stack.  cache: {"k": (L,B,S,KV,D), "v":
-    same}, and for the int8 cache "k_scale"/"v_scale" (L,B,S,KV); each
-    layer's slot is written in place and the cache returned."""
-    if cfg.moe is not None:
-        _moe_unported()
+    """One token through the dense or MoE stack.  cache: {"k":
+    (L,B,S,KV,D), "v": same} stacked over *all* layers in stack order
+    (dense first), and for the int8 cache "k_scale"/"v_scale" (L,B,S,KV);
+    each layer's slot is written in place and the cache returned."""
     quant = "k_scale" in cache
-    for i, lp in enumerate(_unstack(params["layers"])):
-        scales = ((cache["k_scale"][i], cache["v_scale"][i]) if quant
-                  else None)
-        x = decoder_layer_decode(lp, cfg, x, cache["k"][i], cache["v"][i],
-                                 cache_len, cos, sin, scales)[0]
+    i = 0
+    for part in _parts(params, cfg):
+        for lp in _unstack(part):
+            scales = ((cache["k_scale"][i], cache["v_scale"][i]) if quant
+                      else None)
+            x = decoder_layer_decode(lp, cfg, x, cache["k"][i],
+                                     cache["v"][i], cache_len, cos, sin,
+                                     scales)[0]
+            i += 1
     return x, cache
 
 
@@ -274,4 +313,67 @@ def decode_hybrid(params: Params, cfg, x: Tensor, cache, cache_len, cos,
         x = _shared_block(shared, cfg, x, lambda p, hs: attention.
                           decode_self_attention(p, cfg, hs, ck, cv,
                                                 cache_len, cos, sin)[0])
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# xlstm stack
+# ---------------------------------------------------------------------------
+
+
+def init_xlstm_stack(gen, cfg) -> Params:
+    per = cfg.xlstm.slstm_every
+    if cfg.num_layers % per:
+        raise ValueError("layers must tile into superblocks")
+    nsuper = cfg.num_layers // per
+    m = module.stacked_init(lambda g: xlstm.init_mlstm(g, cfg, cfg.pdtype),
+                            gen, nsuper * (per - 1))
+    s = module.stacked_init(lambda g: xlstm.init_slstm(g, cfg, cfg.pdtype),
+                            gen, nsuper)
+    return {"mlstm": tree_map(
+        lambda a: a.reshape(nsuper, per - 1, *a.shape[1:]), m), "slstm": s}
+
+
+def apply_xlstm(params: Params, cfg, x: Tensor) -> Tuple[Tensor, Tensor]:
+    """Full-sequence xLSTM stack.  Returns (x, aux loss = 0)."""
+    remat = cfg.remat and _recording(params)
+    per = params["mlstm"]["conv_w"].shape[1]
+    mlstm = _unstack(tree_map(lambda a: a.flatten(0, 1), params["mlstm"]))
+    for s, sp in enumerate(_unstack(params["slstm"])):
+        for mp in mlstm[s * per:(s + 1) * per]:
+            x = _run(remat, xlstm.apply_mlstm, mp, cfg, x)
+        x = xlstm.apply_slstm(sp, cfg, x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init_xlstm_cache(cfg, batch: int, device=None) -> Dict[str, Any]:
+    """The mLSTM states stacked (nsuper, slstm_every - 1, ...) and the
+    sLSTM states (nsuper, ...), each with its own storage (decode writes
+    them in place)."""
+    per = cfg.xlstm.slstm_every
+    nsuper = cfg.num_layers // per
+    mc = xlstm.init_mlstm_cache(cfg, batch, cfg.cdtype, device)
+    sc = xlstm.init_slstm_state(cfg, batch, cfg.cdtype, device)
+    return {"mlstm": {k: a.expand(nsuper, per - 1, *a.shape).clone()
+                      for k, a in mc.items()},
+            "slstm": {k: a.expand(nsuper, *a.shape).clone()
+                      for k, a in sc.items()}}
+
+
+def decode_xlstm(params: Params, cfg, x: Tensor, cache):
+    """One token through the xLSTM stack; every layer's state is written
+    in place and the cache returned."""
+    mc, sc = cache["mlstm"], cache["slstm"]
+    nsuper, per = params["mlstm"]["conv_w"].shape[:2]
+    for s in range(nsuper):
+        for i in range(per):
+            x, new = xlstm.apply_mlstm_decode(
+                _layer(params["mlstm"], s, i), cfg, x,
+                {k: a[s, i] for k, a in mc.items()})
+            for k, a in new.items():
+                mc[k][s, i] = a
+        x, new = xlstm.apply_slstm_decode(_layer(params["slstm"], s), cfg, x,
+                                          {k: a[s] for k, a in sc.items()})
+        for k, a in new.items():
+            sc[k][s] = a
     return x, cache

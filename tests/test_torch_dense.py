@@ -28,7 +28,6 @@ through both packages:
 
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,11 +39,17 @@ from repro.models import attention as jattention
 from repro.models import model as jmodel
 from repro_torch import configs as tconfigs
 from repro_torch.configs.base import CompositionConfig as TComp
-from repro_torch.convert import from_jax_params
 from repro_torch.core.estimator import tree_leaves, tree_map
 from repro_torch.models import attention as tattention
 from repro_torch.models import model as tmodel
 from torch_threads import one_thread  # noqa: F401
+from torch_zoo_parity import batch as _batch
+from torch_zoo_parity import cfgs as _cfgs
+from torch_zoo_parity import close as _close
+from torch_zoo_parity import decode_both as _decode_both
+from torch_zoo_parity import grads_match
+from torch_zoo_parity import params as _params
+from torch_zoo_parity import tokens as _tokens
 
 DENSE = ("gemma-2b", "stablelm-3b", "deepseek-coder-33b", "granite-34b")
 TOL = 1e-4
@@ -54,27 +59,6 @@ TOL = 1e-4
 BF16_TOL = 6e-2
 # gradients in f32, each leaf relative to its own largest entry
 GRAD_TOL = 1e-4
-
-
-def _cfgs(arch, **kw):
-    return (jconfigs.get_smoke(arch).replace(**kw),
-            tconfigs.get_smoke(arch).replace(**kw))
-
-
-def _params(jcfg, seed=0):
-    jp = jmodel.init(jax.random.PRNGKey(seed), jcfg)
-    return jp, from_jax_params(jax.device_get(jp), "cpu")
-
-
-def _tokens(cfg, B, T, seed=0):
-    return np.random.default_rng(seed).integers(
-        0, cfg.vocab, (B, T)).astype(np.int32)
-
-
-def _close(got, want, tol):
-    np.testing.assert_allclose(got.float().numpy(),
-                               np.asarray(want, np.float32), atol=tol,
-                               rtol=tol)
 
 
 _F32 = {}
@@ -87,14 +71,6 @@ def _f32(arch):
         jcfg, tcfg = _cfgs(arch, compute_dtype="float32")
         _F32[arch] = (jcfg, tcfg, *_params(jcfg))
     return _F32[arch]
-
-
-def _batch(toks, labels=None, torch_side=False):
-    conv = torch.from_numpy if torch_side else jnp.asarray
-    b = {"tokens": conv(toks)}
-    if labels is not None:
-        b["labels"] = conv(labels)
-    return b
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -130,52 +106,10 @@ def test_bf16_forward_and_loss_match_reference(arch):
     np.testing.assert_allclose(float(loss), float(jloss), rtol=BF16_TOL)
 
 
-def _leaf(tree, path):
-    for k in path:
-        tree = tree[k.key]
-    return tree
-
-
 @pytest.mark.parametrize("arch", DENSE)
 def test_loss_fn_gradients_match_reference(arch):
     jcfg, tcfg, jp, tp = _f32(arch)
-    toks = _tokens(jcfg, 2, 40, seed=4)
-    labels = np.roll(toks, -1, axis=1)
-    jgrads = jax.grad(lambda p: jmodel.loss_fn(
-        p, jcfg, _batch(toks, labels))[0])(jp)
-    leaves = jax.tree_util.tree_leaves_with_path(jgrads)
-    tp = tree_map(lambda t: t.detach().clone().requires_grad_(), tp)
-    loss, _ = tmodel.loss_fn(tp, tcfg, _batch(toks, labels, True))
-    loss.backward()
-    assert len(leaves) == len(tree_leaves(tp))
-    for path, want in leaves:
-        want = np.asarray(want)
-        got = _leaf(tp, path).grad
-        assert got is not None, jax.tree_util.keystr(path)
-        np.testing.assert_allclose(
-            got.numpy(), want, rtol=GRAD_TOL,
-            atol=GRAD_TOL * float(np.abs(want).max()),
-            err_msg=jax.tree_util.keystr(path))
-
-
-def _decode_both(jcfg, tcfg, jp, tp, toks, max_len):
-    """Teacher-forced serve_step through both packages: (port logits
-    (B, T, V), reference logits, port cache, reference cache)."""
-    B, T = toks.shape
-    jstep = jax.jit(lambda p, b, c, n: jmodel.serve_step(p, jcfg, b, c, n))
-    jcache = jmodel.init_cache(jcfg, B, max_len)
-    tcache = tmodel.init_cache(tcfg, B, max_len, "cpu")
-    js, ts = [], []
-    with torch.no_grad():
-        for t in range(T):
-            jl, jcache = jstep(jp, {"tokens": jnp.asarray(toks[:, t:t + 1])},
-                               jcache, jnp.int32(t))
-            tl, tcache = tmodel.serve_step(
-                tp, tcfg, {"tokens": torch.from_numpy(toks[:, t:t + 1])},
-                tcache, t)
-            js.append(np.asarray(jl, np.float32))
-            ts.append(tl)
-    return torch.cat(ts, 1), np.concatenate(js, 1), tcache, jcache
+    grads_match(jcfg, tcfg, jp, tp, _tokens(jcfg, 2, 40, seed=4), GRAD_TOL)
 
 
 @pytest.mark.parametrize("arch", DENSE)
