@@ -20,7 +20,9 @@ its scalar tail's, its first case with a client axis for the client
 offset's, the first client-batched case of conv_rank, rank_apply and
 compose_apply with more than one client for their client offsets', the
 first bf16 flash case for the two faults of the bf16 flash
-kernel, the first
+kernel, the first flash case with per-row key counts for an ignored
+``kv_len``, the first flash case with fewer queries than keys,
+non-causal, for a launcher that aligns such a call as causal, the first
 decode case for the merge's, the first bf16 ssd_chunk case for the bf16
 SSD kernels', the first (f32) rmsnorm case for the one-pass rmsnorm's.
 Prints one line per fault (the case it failed at and its worst margin)
@@ -90,6 +92,15 @@ FAULTS = {
         "flash_attention.cu", r"if \(causal\) ok = ok && qpos >= kpos;",
         "if (causal) ok = ok && qpos + 1 >= kpos;", 1,
         "flash_attention bfloat16", "check_attention"),
+    "flash: kv_len ignored (every row sees all Sk keys)": (
+        "flash_attention.cu",
+        r"kv_len \? max\(0, min\(Sk, kv_len\[b / q_per_kv\]\)\) : Sk;",
+        "Sk;", 2,
+        "flash_attention float32 kv_len", "check_attention"),
+    "flash: a non-causal Sq != Sk call aligned as causal": (
+        "flash_attention.cu", r"q_per_kv, causal, window, st\)\);",
+        "q_per_kv, causal || Sq != Sk, window, st));", 2,
+        "flash_attention float32 Sq!=Sk", "check_attention"),
     "decode: last split dropped in the merge": (
         "decode_attention.cu", r"s < splits;", "s < splits - 1;", 3,
         "decode_attention", "check_attention"),

@@ -32,11 +32,17 @@ Run from the root of a checkout.  It
    two attention kernels in f32 and bf16, element-wise, at the
    transformer path's shapes, the reference's sweep shapes, head dims 80
    and 256 over several KV tiles, a query group of 8 over uneven key
-   splits with ragged lengths down to 0, and in model layout through
+   splits with ragged lengths down to 0, flash with fewer and more
+   queries than keys (non-causal first, then causal) and with a key
+   count a row (``kv_len`` 0, 1, inside a tile, a tile edge and every
+   key), and in model layout through
    ``kernels.ops``, there also at every call shape of paths (p), (q),
-   (r) and (t) (each config's prefill and decode, gemma's windowed
+   (r), (t) and (u) (each config's prefill and decode, gemma's windowed
    forward, ring, int8 and training calls, olmoe's training, the step
-   checks' forwards and the f32 layers' against the CPU); rmsnorm at
+   checks' forwards and the f32 layers' against the CPU; seamless's
+   non-causal encoder, its cross-attention's queries over the memory at
+   ragged counts, decode over the memory, filled and unfilled); compose
+   at the zoo's compose-then-matmul shapes; rmsnorm at
    those paths' rows and widths and the xLSTM's (768, 1536); rmsnorm
    and ssd_chunk in f32 and
    bf16, element-wise,
@@ -58,7 +64,9 @@ Run from the root of a checkout.  It
    (flash also at path (g)'s own call, decode also through
    ``kernels.ops`` on the model layout, rmsnorm also at path (g)'s
    decode shapes; flash, decode and rmsnorm also at path (p)'s own
-   prefill and decode calls on gemma-2b);
+   prefill and decode calls on gemma-2b; flash at path (u)'s encoder
+   and cross prefill, decode at its cross decode, compose at its
+   attention projection);
 3. drives the port's main paths, with the launch counts set to 0 just
    before each and read just after, each checked against the same run on
    the CPU (the plain versions, which the CPU tests hold to the JAX
@@ -164,9 +172,18 @@ Run from the root of a checkout.  It
    launches, the attention kernels never; (t) qwen2-vl-7b at full size:
    prefill and the step check on M-RoPE positions whose t, h and w ids
    differ (a patch grid, then text), the loop, one layer against the CPU
-   on such positions; (r)-(t)'s step checks also hold the argmax to the
+   on such positions; (u) seamless-m4t-medium at full size (the audio
+   family: 12 encoder and 12 decoder layers over stub frame embeddings):
+   a 4 x 512 prefill over 4 x 4096 frames of ragged valid length, the
+   memory prefilled into the cache and ``serve_step`` held against the
+   forward, the launches of one prefill (flash, 36) and one step
+   (decode, 24) against the formula, the loop, 3 AdamW steps, one
+   encoder and one decoder layer in f32 against the CPU, and the same
+   two layers with composition on, compose-then-matmul (16 compose
+   launches) against the factorized forward; (r)-(u)'s step checks also
+   hold the argmax to the
    forward's at 0.9 of positions, and each path launches exactly the
-   zoo kernels its family has; (g) and (p)-(t) each trace a prefill and
+   zoo kernels its family has; (g) and (p)-(u) each trace a prefill and
    4 serve steps;
 4. traces one round of (c) with ``torch.profiler`` (device busy share,
    top kernels), with the sequential trainer and 4 clients and with the
@@ -1251,12 +1268,13 @@ def _flat_decode(q, k, v, lengths):
 
 
 def _flat_flash(q, k, v):
-    """Model layout -> the flash kernel's rows (q (B,S,KV,G,D), k/v
-    (B,S,KV,D)), for the plain version."""
-    B, S, KV, G, D = q.shape
-    return (q.permute(0, 2, 3, 1, 4).reshape(B * KV * G, S, D).contiguous(),
-            k.permute(0, 2, 1, 3).reshape(B * KV, S, D).contiguous(),
-            v.permute(0, 2, 1, 3).reshape(B * KV, S, D).contiguous(), G)
+    """Model layout -> the flash kernel's rows (q (B,Sq,KV,G,D), k/v
+    (B,Sk,KV,D)), for the plain version."""
+    B, Sq, KV, G, D = q.shape
+    Sk = k.shape[1]
+    return (q.permute(0, 2, 3, 1, 4).reshape(B * KV * G, Sq, D).contiguous(),
+            k.permute(0, 2, 1, 3).reshape(B * KV, Sk, D).contiguous(),
+            v.permute(0, 2, 1, 3).reshape(B * KV, Sk, D).contiguous(), G)
 
 
 def _causal_pairs(sq: int, sk: int, window: int = 0) -> int:
@@ -1400,6 +1418,41 @@ def check_attention(torch):
                 _flash_math(q, k, v, causal, w, G), tol,
                 f"flash_attention {tn} q({BKV * G},{Sq},{D}) "
                 f"kv({BKV},{Sk},{D}) causal={causal} window={w}"))
+        # Sq != Sk: non-causal first (the cross-attention's alignment:
+        # every query sees every key), fewer and more queries than keys,
+        # then causal, queries aligned to the end of the keys
+        for BKV, G, Sq, Sk, D, causal in ((2, 2, 70, 300, 64, False),
+                                          (1, 2, 300, 70, 64, False),
+                                          (2, 1, 130, 257, 80, False),
+                                          (2, 2, 70, 300, 64, True)):
+            q, k, v = (rn(BKV * G, Sq, D, dtype=dtype),
+                       rn(BKV, Sk, D, dtype=dtype),
+                       rn(BKV, Sk, D, dtype=dtype))
+            keep("flash_attention", close(
+                torch, flash_attention(q, k, v, causal=causal, q_per_kv=G),
+                _flash_math(q, k, v, causal, 0, G), tol,
+                f"flash_attention {tn} Sq!=Sk q({BKV * G},{Sq},{D}) "
+                f"kv({BKV},{Sk},{D}) causal={causal}"))
+        # a key count a KV row: 0 (zeros), 1, inside a tile, a tile edge
+        # (64: the bf16 kernel's tile, two of the f32 kernel's) and every
+        # key; non-causal at Sq != Sk (the cross-attention's call), then
+        # causal at Sq == Sk
+        for BKV, G, Sq, Sk, D, causal in ((5, 2, 100, 300, 64, False),
+                                          (5, 1, 150, 150, 80, True)):
+            q, k, v = (rn(BKV * G, Sq, D, dtype=dtype),
+                       rn(BKV, Sk, D, dtype=dtype),
+                       rn(BKV, Sk, D, dtype=dtype))
+            counts = torch.tensor([0, 1, 37, 64, Sk], dtype=torch.int32,
+                                  device=dev)
+            got = flash_attention(q, k, v, causal=causal, q_per_kv=G,
+                                  kv_len=counts)
+            keep("flash_attention", close(
+                torch, got, _flash_math(q, k, v, causal, 0, G, counts), tol,
+                f"flash_attention {tn} kv_len {counts.tolist()} "
+                f"q({BKV * G},{Sq},{D}) kv({BKV},{Sk},{D}) "
+                f"causal={causal}"))
+            check(float(got[:G].float().abs().max()) == 0.0,
+                  f"flash_attention {tn}: a row of kv_len 0 is not zeros")
         for b, S, kv, g, d, w in ((1, 64, 1, 1, 32, 0), (2, 100, 2, 3, 32, 0),
                                   (1, 128, 4, 1, 64, 32),
                                   (2, 33, 1, 4, 16, 8)):
@@ -1451,6 +1504,41 @@ def check_attention(torch):
                 torch, got, want.reshape(got.shape), tol,
                 f"ops.decode_attention {tn} {label}: b={b} S={S} kv={kv} "
                 f"g={g} d={d}, {splits_of(b * kv, g, S)} splits"))
+        # path (u)'s calls, in model layout through kernels.ops: the
+        # encoder's non-causal flash, the decoder's causal one, the
+        # cross-attention's queries over the memory with a frame count a
+        # row, and decode over the self cache and over the memory
+        flash_calls, decode_calls = audio_attention_shapes()
+        for label, b, sq, sk, kv, g, d, causal, counts in flash_calls:
+            q = rn(b, sq, kv, g, d, dtype=dtype)
+            k, v = rn(b, sk, kv, d, dtype=dtype), rn(b, sk, kv, d,
+                                                     dtype=dtype)
+            n = (None if counts is None else torch.tensor(
+                counts, dtype=torch.int32, device=dev))
+            got = ops.flash_attention(q, k, v, causal=causal, kv_len=n)
+            qf, kf, vf, G = _flat_flash(q, k, v)
+            want = _flash_math(qf, kf, vf, causal, 0, G,
+                               None if n is None
+                               else n.repeat_interleave(kv))
+            keep("flash_attention", close(
+                torch, got, want.reshape(b, kv, g, sq, d).permute(
+                    0, 3, 1, 2, 4), tol,
+                f"ops.flash_attention {tn} {label}: b={b} Sq={sq} Sk={sk} "
+                f"kv={kv} g={g} d={d} causal={causal} kv_len={counts}"))
+            del q, k, v, got, want, qf, kf, vf
+        for label, b, S, kv, g, d, lengths in decode_calls:
+            q = rn(b, 1, kv, g, d, dtype=dtype)
+            k, v = rn(b, S, kv, d, dtype=dtype), rn(b, S, kv, d, dtype=dtype)
+            lens = (ri(1, S + 1, (b,)) if lengths is None else torch.tensor(
+                lengths, dtype=torch.int32, device=dev))
+            got = ops.decode_attention(q, k, v, lens)
+            want = _decode_math(*_flat_decode(q, k, v, lens))
+            keep("decode_attention", close(
+                torch, got, want.reshape(got.shape), tol,
+                f"ops.decode_attention {tn} {label}: b={b} S={S} kv={kv} "
+                f"g={g} d={d} lengths {lens.tolist()}, "
+                f"{splits_of(b * kv, g, S)} splits"))
+        torch.cuda.empty_cache()
 
     # no backward, as in the reference: asking for one raises
     for name, fn in (("decode_attention", lambda a: decode_attention(
@@ -1541,8 +1629,36 @@ def check_attention(torch):
             vg.permute(0, 2, 1, 3), enable_gqa=True),
         2 * (2 * qg.numel() + kg.numel() + vg.numel()) + 4 * B,
         4 * D * B * KV * G * S, PEAK_BF16_FLOPS, big=False)
+    # decode at path (u)'s cross-attention: seamless's 4 serve rows over
+    # the encoder memory (16 heads of 64, 4096 frames) at the prefill's
+    # ragged valid lengths, model layout, bf16; the bound counts the
+    # frames these lengths read
+    B, S, KV, G, D = 4, AUDIO_FRAMES, 16, 1, 64
+    qa = rn(B, 1, KV, G, D, dtype=bf)
+    ka, va = rn(B, S, KV, D, dtype=bf), rn(B, S, KV, D, dtype=bf)
+    la = torch.tensor(AUDIO_VALID, dtype=torch.int32, device=dev)
+    flat = _flat_decode(qa, ka, va, la)
+    keep("decode_attention", close(
+        torch, ops.decode_attention(qa, ka, va, la).reshape(B * KV * G, D),
+        _decode_math(*flat), ATTN_TOL["bfloat16"],
+        "ops.decode_attention bf16 path (u) cross decode"))
+    amask = (torch.arange(S, device=dev)[None, :] < la[:, None])[:, None,
+                                                                 None]
+    valid = int(la.sum())
+    cross_decode = time_kernel(
+        torch, "decode_attention", "path (u) cross decode, seamless",
+        f"q ({B},1,{KV},{G},{D}) memory ({B},{S},{KV},{D}) bf16, lengths "
+        f"{list(AUDIO_VALID)}", lambda: ops.decode_attention(qa, ka, va, la),
+        lambda: _decode_math(*flat),
+        lambda: F.scaled_dot_product_attention(
+            qa.view(B, KV * G, 1, D), ka.permute(0, 2, 1, 3),
+            va.permute(0, 2, 1, 3), attn_mask=amask),
+        2 * (2 * qa.numel() + 2 * valid * KV * D) + 4 * B,
+        4 * D * KV * G * valid, PEAK_BF16_FLOPS, big=False)
+    del qa, ka, va, flat
     records["decode_attention"] = dict(path, at_scale=real,
-                                       ops_model_layout=model, gemma=gemma)
+                                       ops_model_layout=model, gemma=gemma,
+                                       cross_decode=cross_decode)
     del q, k, v, kr, vr, qm
     torch.cuda.empty_cache()
 
@@ -1605,10 +1721,83 @@ def check_attention(torch):
             2 * 4 * q.numel(), 4 * D * pairs, PEAK_BF16_FLOPS, big=big)
         del q, k, v
         torch.cuda.empty_cache()
+    # flash at path (u)'s two new calls, bf16, kernel layout: the
+    # encoder's non-causal 4096 x 4096 (batch 4, 16 heads of 64), and the
+    # cross-attention's 512 decoder queries over the 4096-frame memory
+    # at the prefill's ragged valid lengths (a count a KV row); the
+    # bound counts the pairs and frames these lengths need
+    B, H, D = 4, 16, 64
+    for key, label, sq, counts in (
+            ("encoder", "path (u) encoder, seamless", AUDIO_FRAMES, None),
+            ("cross_prefill", "path (u) cross prefill, seamless",
+             PREFILL_LEN, AUDIO_VALID)):
+        sk = AUDIO_FRAMES
+        q = rn(B * H, sq, D, dtype=bf)
+        k, v = rn(B * H, sk, D, dtype=bf), rn(B * H, sk, D, dtype=bf)
+        n = (None if counts is None else torch.tensor(
+            counts, dtype=torch.int32, device=dev).repeat_interleave(H))
+        keys = B * H * sk if n is None else int(n.sum())
+        mask = (None if n is None else (torch.arange(sk, device=dev)[None]
+                                        < n[:, None]).view(B, H, 1, sk))
+        keep("flash_attention", close(
+            torch, flash_attention(q, k, v, causal=False, kv_len=n),
+            _flash_math(q, k, v, False, 0, 1, n), ATTN_TOL["bfloat16"],
+            f"flash_attention bf16 {label}"))
+        extra[key] = time_kernel(
+            torch, "flash_attention", label,
+            f"q ({B * H},{sq},{D}) kv ({B * H},{sk},{D}) bf16 non-causal"
+            + ("" if counts is None else f", kv_len {list(counts)} a row"),
+            lambda: flash_attention(q, k, v, causal=False, kv_len=n),
+            lambda: _flash_math(q, k, v, False, 0, 1, n),
+            lambda: F.scaled_dot_product_attention(
+                q.view(B, H, sq, D), k.view(B, H, sk, D), v.view(B, H, sk, D),
+                attn_mask=mask),
+            2 * (2 * q.numel() + 2 * keys * D) + (0 if n is None else 4 *
+                                                  n.numel()),
+            4 * D * sq * keys, PEAK_BF16_FLOPS, big=key == "encoder")
+        del q, k, v, mask
+        torch.cuda.empty_cache()
     records["flash_attention"] = dict(path, **extra)
     for name in records:
         records[name]["max_abs_err"] = maxerr[name]
+    records["compose_zoo"] = zoo_compose(torch, rn)
     return records
+
+
+# the zoo's compose-then-matmul shapes: seamless-m4t-medium's factorized
+# linears at max width 2, rank d / 4 (d 1024): basis (1, I, 256) x coeff
+# (4, 256, O) for the attention projections (I = O = 512), the MLP's up
+# (512 -> 2048) and down (2048 -> 512)
+ZOO_COMPOSE = (("attention projection", 512, 512), ("mlp up", 512, 2048),
+               ("mlp down", 2048, 512))
+
+
+def zoo_compose(torch, rn) -> dict:
+    """compose at the zoo's compose-then-matmul shapes (``ZOO_COMPOSE``,
+    f32), held against its plain version within ``DENSE_TOL`` and timed
+    at the attention projection's."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.compose import compose_kernel
+
+    print("phase 2: compose at the zoo's compose-then-matmul shapes")
+    worst, rec = 0.0, None
+    for label, I, O in ZOO_COMPOSE:
+        v, u = rn(1, I, 256), rn(4, 256, O)
+        worst = max(worst, err(
+            torch, compose_kernel(v, u), ref.compose_ref(v, u), DENSE_TOL,
+            f"compose zoo {label}: basis (1,{I},256) coeff (4,256,{O})"))
+        if rec is None:
+            uf = u.transpose(0, 1).reshape(256, 4 * O).contiguous()
+            rec = time_kernel(
+                torch, "compose", f"zoo {label}",
+                f"basis (1,{I},256) x coeff (4,256,{O}) -> (1,{I},{4 * O})",
+                lambda v=v, u=u: compose_kernel(v, u),
+                lambda v=v, u=u: ref.compose_ref(v, u),
+                lambda v=v, uf=uf: torch.matmul(v, uf),
+                4 * (v.numel() + u.numel() + I * 4 * O), 2 * I * 256 * 4 * O,
+                PEAK_F32_FLOPS, big=False)
+    rec["max_abs_err"] = worst
+    return rec
 
 
 @nan_empty
@@ -3383,7 +3572,9 @@ def zoo_path(torch, cfg=None):
 def trace_zoo(torch, cfg, params, toks, steps: int = 4,
               extra=None) -> dict:
     """One warm prefill (with the batch keys ``extra`` beside the tokens)
-    and ``steps`` serve steps of a zoo path under ``torch.profiler``: wall
+    and ``steps`` serve steps (an enc-dec model's over the memory of
+    ``extra``'s frames, prefilled before) of a zoo path under
+    ``torch.profiler``: wall
     time, device busy time (sum of kernel self times), their ratio, the
     kernels that took the most device time, and the device time of each
     of the port's kernels on the path.  The launch counts of these calls
@@ -3397,6 +3588,10 @@ def trace_zoo(torch, cfg, params, toks, steps: int = 4,
     for label in ("prefill", "decode"):
         cache = (model.init_cache(cfg, B, steps, DEVICE)
                  if label == "decode" else None)
+        if cache is not None and "enc_embeddings" in (extra or {}):
+            with torch.no_grad():  # the steps read the encoded memory
+                model.prefill(params, cfg, {"tokens": toks[:, :1], **extra},
+                              cache)
         torch.cuda.synchronize()
         with torch.no_grad(), profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3439,12 +3634,13 @@ def trace_zoo(torch, cfg, params, toks, steps: int = 4,
 
 
 def zoo_vs_cpu(torch, cfg, layers=None, batch=CPU_BATCH, length=CPU_LEN,
-               label="(g)", positions=None, tol=CPU_TOL):
+               label="(g)", positions=None, tol=CPU_TOL, extra=None):
     """``layers`` of ``cfg`` (one superblock by default) at full width,
     f32 compute, TF32 off: the card's forward against the same forward on
     the CPU from the same weights, at ``batch`` x ``length`` tokens (for
-    zamba2 a full chunk and a padded one), with ``positions`` when given,
-    within ``tol`` of max(1, max |logits|).
+    zamba2 a full chunk and a padded one), with ``positions`` when given
+    and the CPU tensors of ``extra`` beside them (an enc-dec model's
+    frames and mask), within ``tol`` of max(1, max |logits|).
     Greedy tokens (argmax at every position) must be equal.  For a MoE
     config, at its default capacity, the tokens whose top-k expert sets
     differ between the card and the CPU (in any MoE layer) are counted
@@ -3458,7 +3654,9 @@ def zoo_vs_cpu(torch, cfg, layers=None, batch=CPU_BATCH, length=CPU_LEN,
     params = model.init(1, cfg, DEVICE)
     toks = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab, (batch, length)))
-    extra = {} if positions is None else {"positions": positions}
+    extra = dict(extra or {})
+    if positions is not None:
+        extra["positions"] = positions
     with torch.no_grad(), routing() as ids_g:
         g, _ = model.forward(params, cfg, {
             k: v.to(DEVICE) for k, v in dict(extra, tokens=toks).items()})
@@ -3814,11 +4012,14 @@ def int8_check(torch, cfg, params) -> float:
 def train_steps(torch, cfg, params, seqs, batch, steps, device):
     """``steps`` steps of the launcher's step function (AdamW, cosine
     schedule over the steps, warm-up 5) on batches drawn from ``seqs`` by
-    ``lm_batches`` with numpy seed 0.  Returns (params, losses, grad
-    norms, per-step seconds, per-step launches)."""
+    ``lm_batches`` with numpy seed 0 (for the audio family with the
+    launcher's stub frames: ``AUDIO_TRAIN_FRAMES`` of them from a
+    generator seeded by the step, all valid).  Returns (params, losses,
+    grad norms, per-step seconds, per-step launches)."""
     from repro_torch.data import lm_batches
     from repro_torch.launch.steps import make_train_step
     from repro_torch.kernels import LAUNCHES
+    from repro_torch.models.frontends import audio_frame_embeddings
     from repro_torch.optim import cosine_schedule, make_optimizer
 
     import numpy as np
@@ -3828,10 +4029,14 @@ def train_steps(torch, cfg, params, seqs, batch, steps, device):
     step = make_train_step(cfg, opt)
     rng = np.random.default_rng(0)
     losses, norms, secs, launched = [], [], [], []
-    for _ in range(steps):
+    for i in range(steps):
         toks, labels = lm_batches(seqs, batch, rng)
         b = {"tokens": torch.as_tensor(toks % cfg.vocab, device=device),
              "labels": torch.as_tensor(labels % cfg.vocab, device=device)}
+        if cfg.family == "audio":
+            b.update(audio_frame_embeddings(
+                torch.Generator(device).manual_seed(i), batch,
+                AUDIO_TRAIN_FRAMES, cfg.d_model))
         before = dict(LAUNCHES)
         if device != "cpu":
             torch.cuda.synchronize()
@@ -3847,12 +4052,15 @@ def train_steps(torch, cfg, params, seqs, batch, steps, device):
 
 def forward_launches(cfg) -> dict:
     """The fewest launches of each zoo kernel one forward of ``cfg``'s
-    stack makes: flash attention once an attention layer, rmsnorm at
+    stack makes: flash attention once an attention layer (an enc-dec
+    decoder layer has two), rmsnorm at
     each RMSNorm (two a decoder layer and the final norm; the xLSTM's
     ``out_norm`` and ``gn``, one a layer, its LayerNorms plain)."""
     L = cfg.num_layers
     if cfg.family == "ssm":
         return {"rmsnorm": L}
+    if cfg.family == "audio":  # encoder, decoder self and cross
+        return {"flash_attention": cfg.encdec.num_encoder_layers + 2 * L}
     out = {"flash_attention": L}
     if cfg.norm == "rmsnorm":
         out["rmsnorm"] = 2 * L + 1
@@ -3964,10 +4172,11 @@ def dense_report(torch, label, cfg, n_params, t_init, init_peak, serving,
 
 def family_kernels(cfg) -> frozenset:
     """The port's kernels a zoo arch's prefill and serving launch: the
-    attention kernels wherever there is attention, rmsnorm wherever a
-    norm is an RMSNorm (LayerNorm stays plain PyTorch, in the reference
-    and the port alike; the xLSTM's ``out_norm`` and ``gn`` are RMSNorms
-    whatever ``cfg.norm``), and nothing else."""
+    attention kernels wherever there is attention (the audio family's
+    encoder, decoder and cross-attention alike), rmsnorm wherever a norm
+    is an RMSNorm (LayerNorm stays plain PyTorch, in the reference and the
+    port alike: seamless launches none; the xLSTM's ``out_norm`` and
+    ``gn`` are RMSNorms whatever ``cfg.norm``), and nothing else."""
     if cfg.family == "ssm":
         return frozenset({"rmsnorm"})
     attn = frozenset({"flash_attention", "decode_attention"})
@@ -4138,13 +4347,17 @@ def vision_positions(torch, batch: int, length: int):
     return ids.to(torch.int32)[None].expand(batch, 3, length).contiguous()
 
 
-def family_serving(torch, label, cfg, params, positions=None) -> dict:
-    """(r), (s) and (t)'s serving half: a warm timed prefill of
+def family_serving(torch, label, cfg, params, positions=None,
+                   frames=None) -> dict:
+    """(r)-(u)'s serving half: a warm timed prefill of
     ``PREFILL_BATCH`` x ``PREFILL_LEN`` tokens (with ``positions`` when
-    given), then ``STEP_CHECK`` teacher-forced ``serve_step`` calls (with
-    the same positions) against the forward over those tokens, within
-    ``DENSE_STEP_TOL`` and ``STEP_AGREE``.  A MoE takes the check in the
-    no-drop regime (capacity factor E/k: every token fits), where a
+    given, and an enc-dec model's ``frames``: its ``enc_embeddings`` and
+    ``enc_mask``), then ``STEP_CHECK`` teacher-forced ``serve_step`` calls
+    (with the same positions; over the frames' memory, encoded into the
+    cache by ``model.prefill`` first) against the forward over those
+    tokens, within ``DENSE_STEP_TOL`` and ``STEP_AGREE``.  A MoE takes
+    the check in the no-drop regime (capacity factor E/k: every token
+    fits), where a
     4 x 512 forward and a 4-token step drop different tokens by
     construction; its tokens whose top-k expert sets differ between the
     forward and the steps (bf16 rounds the two differently) are counted
@@ -4159,6 +4372,7 @@ def family_serving(torch, label, cfg, params, positions=None) -> dict:
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN)), device=DEVICE)
     extra = {} if positions is None else {"positions": positions.to(DEVICE)}
+    extra.update(frames or {})
     prefill = make_prefill(cfg)
     with torch.no_grad():
         prefill(params, {"tokens": toks, **extra})  # warm-up
@@ -4184,6 +4398,9 @@ def family_serving(torch, label, cfg, params, positions=None) -> dict:
     def steps(c):
         cache = model.init_cache(c, PREFILL_BATCH, STEP_CHECK, DEVICE)
         with torch.no_grad(), routing() as ids:
+            if frames:
+                model.prefill(params, c, {"tokens": toks[:, :1], **frames},
+                              cache)
             out = [model.serve_step(params, c, at(t, t + 1), cache, t)[0]
                    for t in range(STEP_CHECK)]
         return torch.cat(out, dim=1).float(), ids
@@ -4424,6 +4641,216 @@ def vlm_path(torch, cfg=None):
     return counts, stats
 
 
+# path (u): the zoo's audio family, seamless-m4t-medium (arXiv:2308.11596)
+# at full size (12 encoder and 12 decoder layers, d_model 1024, 16 heads
+# of 64, d_ff 4096, an untied 256206-token vocabulary; f32 params, bf16
+# compute) over stub frame embeddings (``frontends.
+# audio_frame_embeddings``): the prefill's 4 rows hold AUDIO_FRAMES
+# frames (the config's encoder_seq) of which AUDIO_VALID are valid, from
+# a full memory down to one frame
+AUDIO_ARCH = "seamless-m4t-medium"
+AUDIO_FRAMES = 4096
+AUDIO_VALID = (4096, 3000, 2048, 1)
+# training: the launcher's 64 frames beside TRAIN_BATCH x TRAIN_LEN tokens
+AUDIO_TRAIN_FRAMES = 64
+# one encoder and one decoder layer in f32 against the CPU, at
+# DENSE_CPU_BATCH x DENSE_CPU_LEN tokens over AUDIO_CPU_FRAMES frames of
+# which AUDIO_CPU_VALID are valid (a shorter memory keeps the CPU's f32
+# encoder to seconds); the compose-then-matmul check takes the same batch
+AUDIO_CPU_FRAMES = 1024
+AUDIO_CPU_VALID = (1024, 700)
+
+
+def audio_attention_shapes() -> tuple:
+    """The attention calls of path (u), from seamless's config: its
+    prefill (encoder non-causal over the frames, decoder causal, the
+    cross-attention's queries over the memory with its valid counts), the
+    training step's, the f32 layers' against the CPU (and the
+    compose-then-matmul check's); decode over serve's self cache and the
+    step check's, and over the memory: the step check's ragged counts and
+    serve's unfilled memory (counts 0).  Returns (flash, decode) lists:
+    (label, B, Sq, Sk, KV, G, D, causal, counts or None) and (label, B,
+    S, KV, G, D, lengths or None: ragged)."""
+    from repro_torch import configs
+
+    c = configs.get_config(AUDIO_ARCH)
+    h = (c.num_kv_heads, c.q_per_kv, c.resolved_head_dim)
+    B, L, F = PREFILL_BATCH, PREFILL_LEN, AUDIO_FRAMES
+    tb, tl, tf = TRAIN_BATCH, TRAIN_LEN, AUDIO_TRAIN_FRAMES
+    cb, cl, cf = DENSE_CPU_BATCH, DENSE_CPU_LEN, AUDIO_CPU_FRAMES
+    flash = [("seamless encoder", B, F, F, *h, False, None),
+             ("seamless decoder", B, L, L, *h, True, None),
+             ("seamless cross", B, L, F, *h, False, AUDIO_VALID),
+             ("seamless train encoder", tb, tf, tf, *h, False, None),
+             ("seamless train decoder", tb, tl, tl, *h, True, None),
+             ("seamless train cross", tb, tl, tf, *h, False, (tf,) * tb),
+             ("seamless vs the CPU encoder", cb, cf, cf, *h, False, None),
+             ("seamless vs the CPU decoder", cb, cl, cl, *h, True, None),
+             ("seamless vs the CPU cross", cb, cl, cf, *h, False,
+              AUDIO_CPU_VALID)]
+    decode = [("seamless serve", SERVE_KW["batch"], SERVE_KW["max_len"], *h,
+               None),
+              ("seamless step check", B, STEP_CHECK, *h, None),
+              ("seamless cross decode", B, F, *h, AUDIO_VALID),
+              ("seamless serve cross, unfilled memory", SERVE_KW["batch"],
+               F, *h, (0,) * SERVE_KW["batch"])]
+    return flash, decode
+
+
+def audio_frames(torch, cfg, batch, frames, valid, seed=0) -> dict:
+    """Stub frames of ``cfg`` (``enc_embeddings`` and their prefix
+    ``enc_mask``, ``valid`` frames a row) from a generator on the card
+    seeded by ``seed``."""
+    from repro_torch.models.frontends import audio_frame_embeddings
+
+    return audio_frame_embeddings(
+        torch.Generator(DEVICE).manual_seed(seed), batch, frames,
+        cfg.d_model, torch.tensor(valid, device=DEVICE))
+
+
+def audio_launches(torch, cfg, params, frames) -> dict:
+    """The launches of one ``make_prefill`` call and of one ``serve_step``
+    over the frames' memory, against the formula: flash attention
+    ``num_encoder_layers + 2 * num_layers`` times a prefill (encoder,
+    decoder, cross), decode attention ``2 * num_layers`` a step (self,
+    cross), and nothing else.  Also the memory cache's bytes."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import model
+
+    import numpy as np
+
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN)), device=DEVICE)
+    before = dict(LAUNCHES)
+    make_prefill(cfg)(params, {"tokens": toks, **frames})
+    per_prefill = launch_diff(before)
+    cache = model.init_cache(cfg, PREFILL_BATCH, 1, DEVICE)
+    with torch.no_grad():
+        model.prefill(params, cfg, {"tokens": toks[:, :1], **frames}, cache)
+        before = dict(LAUNCHES)
+        model.serve_step(params, cfg, {"tokens": toks[:, :1]}, cache, 0)
+    per_step = launch_diff(before)
+    mem_bytes = sum(cache[k].numel() * cache[k].element_size()
+                    for k in ("mem_k", "mem_v"))
+    L, Le = cfg.num_layers, cfg.encdec.num_encoder_layers
+    want_prefill = {"flash_attention": Le + 2 * L}
+    want_step = {"decode_attention": 2 * L}
+    print(f"  (u) launches of one prefill {per_prefill} (formula "
+          f"{want_prefill}), of one serve step {per_step} (formula "
+          f"{want_step}); the memory cache holds {mem_bytes} B")
+    check(per_prefill == want_prefill,
+          f"(u) one prefill launched {per_prefill}, not {want_prefill}")
+    check(per_step == want_step,
+          f"(u) one serve step launched {per_step}, not {want_step}")
+    return {"launches_per_prefill": per_prefill,
+            "launches_per_serve_step": per_step,
+            "memory_cache_bytes": mem_bytes}
+
+
+def audio_compose_check(torch, cfg) -> dict:
+    """One encoder and one decoder layer of ``cfg`` at full width with
+    Heroes composition (``max_width`` 2, rank d / 4), f32, on the card:
+    the forward with ``set_compose_then_matmul(True)`` (each factorized
+    linear composed by the compose kernel, then multiplied) against the
+    factorized forward, within ``CPU_TOL`` of max |logits|; compose must
+    launch once per factorized linear (6 in the encoder layer, 10 in the
+    decoder layer) and nowhere in the factorized forward."""
+    from repro_torch.configs.base import CompositionConfig
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import model, module
+
+    import numpy as np
+
+    c = cfg.replace(num_layers=1, compute_dtype="float32",
+                    encdec=dataclasses.replace(cfg.encdec,
+                                               num_encoder_layers=1),
+                    composition=CompositionConfig(
+                        enabled=True, max_width=2, rank=cfg.d_model // 4))
+    params = model.init(3, c, DEVICE)
+    b = audio_frames(torch, c, DENSE_CPU_BATCH, AUDIO_CPU_FRAMES,
+                     AUDIO_CPU_VALID, seed=3)
+    b["tokens"] = torch.as_tensor(np.random.default_rng(3).integers(
+        0, c.vocab, (DENSE_CPU_BATCH, DENSE_CPU_LEN)), device=DEVICE)
+    out, launched = {}, {}
+    try:
+        for then in (False, True):
+            module.set_compose_then_matmul(then)
+            before = dict(LAUNCHES)
+            with torch.no_grad():
+                out[then] = model.forward(params, c, b)[0].float()
+            launched[then] = launch_diff(before)
+    finally:
+        module.set_compose_then_matmul(False)
+    e = err(torch, out[True], out[False], CPU_TOL,
+            "(u) one encoder and one decoder layer, composition max width "
+            "2, f32: compose-then-matmul vs factorized")
+    print(f"      launches: factorized {launched[False]}, compose-then-"
+          f"matmul {launched[True]}")
+    check(launched[True].get("compose", 0) == 16,
+          f"(u) compose-then-matmul launched compose "
+          f"{launched[True].get('compose', 0)} times, not 16")
+    check("compose" not in launched[False],
+          "(u) the factorized forward launched compose")
+    del params
+    torch.cuda.empty_cache()
+    return {"compose_vs_factorized_max_abs_err": e,
+            "compose_launches": launched[True]["compose"]}
+
+
+def audio_path(torch, cfg=None):
+    """Path (u): seamless-m4t-medium at full size through the zoo's entry
+    points: ``init`` (timed, its peak), ``family_serving`` over
+    ``AUDIO_FRAMES`` frames a row (``AUDIO_VALID`` valid), the launches of
+    one prefill and one step against the formula (``audio_launches``),
+    ``launch/serve.py``'s loop at ``SERVE_KW``, ``TRAIN_STEPS`` AdamW
+    steps at ``TRAIN_BATCH`` x ``TRAIN_LEN`` tokens and
+    ``AUDIO_TRAIN_FRAMES`` frames, one encoder and one decoder layer in
+    f32 against the CPU, and the compose-then-matmul check (compose
+    launches there).  The launch counts are set to 0 just before and read
+    just after.  ``cfg``
+    defaults to the full config.  Returns (counts, stats)."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticTextTask
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import serve
+
+    cfg = cfg or configs.get_config(AUDIO_ARCH)
+    label = "(u)"
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    params, t_init, n_params, init_peak = init_timed(torch, cfg)
+    frames = audio_frames(torch, cfg, PREFILL_BATCH,
+                          min(AUDIO_FRAMES, cfg.encdec.encoder_seq),
+                          [min(v, cfg.encdec.encoder_seq)
+                           for v in AUDIO_VALID])
+    serving = family_serving(torch, label, cfg, params, frames=frames)
+    serving["prefill_frames_per_s"] = (serving["prefill_tokens_per_s"]
+                                       * AUDIO_FRAMES / PREFILL_LEN)
+    serving.update(audio_launches(torch, cfg, params, frames))
+    r = serve(cfg, params, device=DEVICE, **SERVE_KW)
+    peak = torch.cuda.max_memory_allocated() - base
+    stats = dense_report(torch, label, cfg, n_params, t_init, init_peak,
+                         serving, r, peak, dict(LAUNCHES))
+    del frames
+    stats["train"] = dense_train(
+        torch, cfg, params, SyntheticTextTask(vocab=512, seq_len=TRAIN_LEN),
+        label=label)
+    del params
+    torch.cuda.empty_cache()
+    one = cfg.replace(encdec=dataclasses.replace(cfg.encdec,
+                                                 num_encoder_layers=1))
+    cpu_frames = audio_frames(torch, one, DENSE_CPU_BATCH, AUDIO_CPU_FRAMES,
+                              AUDIO_CPU_VALID, seed=1)
+    stats.update(zoo_vs_cpu(
+        torch, one, layers=1, batch=DENSE_CPU_BATCH, length=DENSE_CPU_LEN,
+        label=label, extra={k: t.cpu() for k, t in cpu_frames.items()}))
+    stats.update(audio_compose_check(torch, cfg))
+    stats["launches"] = counts = dict(LAUNCHES)
+    return counts, stats
+
+
 def main_path(torch, rt):
     from repro_torch.kernels import KERNELS, LAUNCHES, reset_launches
 
@@ -4490,7 +4917,12 @@ def main_path(torch, rt):
     print(f"  (t) {VLM_ARCH}: prefill with M-RoPE positions, "
           "launch/serve.py's loop")
     by_path["t"], t_stats = vlm_path(torch)
-    zoo_stats["families"] = {"r": r_stats, "s": s_stats, "t": t_stats}
+    print(f"  (u) {AUDIO_ARCH}: prefill over {AUDIO_FRAMES} frames a row, "
+          "the step check, launch/serve.py's loop, training, compose-then-"
+          "matmul")
+    by_path["u"], u_stats = audio_path(torch)
+    zoo_stats["families"] = {"r": r_stats, "s": s_stats, "t": t_stats,
+                             "u": u_stats}
 
     # (h) the scheme comparison under FLConfig's defaults, (i) semi-async
     # and sample weights
@@ -4600,10 +5032,14 @@ def main() -> int:
     sass_counts(rt)
 
     records = check_kernels(torch)
-    records.update(check_attention(torch))
+    attention = check_attention(torch)
+    zoo = records["compose"]["zoo"] = attention.pop("compose_zoo")
+    records["compose"]["max_abs_err"] = max(
+        records["compose"]["max_abs_err"], zoo["max_abs_err"])
+    records.update(attention)
     records.update(check_ssd_rmsnorm(torch))
     launches, by_path, zoo_stats, scheme_recs = main_path(torch, rt)
-    print(f"paths (g), (p)-(t) {json.dumps(zoo_stats)}")
+    print(f"paths (g), (p)-(u) {json.dumps(zoo_stats)}")
     print(f"paths (h)-(o) {json.dumps(scheme_recs)}")
     trace_round(torch)
     trace_round(torch, "j", trainer="cohort", per_round=10)
@@ -4625,7 +5061,8 @@ def main() -> int:
         })
         for extra in ("two_call_ms", "more_shapes", "at_scale", "path_g",
                       "ops_model_layout", "decode", "gemma",
-                      "launch_floor_ms",
+                      "launch_floor_ms", "encoder", "cross_prefill",
+                      "cross_decode", "zoo",
                       "no_grad", "cohort"):
             if extra in rec:
                 kernels[-1][extra] = rec[extra]

@@ -20,8 +20,11 @@ packages use the same layouts, so converting is a copy:
   ``"gate"``/``"up"`` (L, E, d, d_expert) and ``"down"``, and with a
   shared expert ``"shared"``; the xLSTM stack holds ``"mlstm"`` stacked
   ``(nsuper, slstm_every - 1, ...)`` (``"wif": {"w"}`` f32) and
-  ``"slstm"`` (``"r"``, and ``"bias"`` f32); linears are ``{"w": (d_in,
-  d_out)}`` or ``{"basis": (I, R), "coeff": (m, R, O)}``.
+  ``"slstm"`` (``"r"``, and ``"bias"`` f32); the enc-dec stack holds
+  ``"encoder"`` and ``"decoder"``, every leaf stacked ``(L, ...)`` (a
+  decoder layer's ``"self_attn"``, ``"ln_x"`` and ``"cross_attn"`` beside
+  its norms and MLP); linears are ``{"w": (d_in, d_out)}`` or
+  ``{"basis": (I, R), "coeff": (m, R, O)}``.
 
 Every leaf keeps its type: float32, or bfloat16 (kimi-k2's
 ``param_dtype``), which comes through float32 exactly.  The caller

@@ -1,21 +1,29 @@
 // flash_attention: blockwise streaming-softmax attention (forward only),
-// causal and sliding-window masks, GQA by index.
+// causal and sliding-window masks, per-row key counts, GQA by index.
 //
 //   s[b, i, j] = (q[b, i] . k[b / G, j]) * D^-0.5
-//   masked to -1e30 unless  j < Sk
+//   masked to -1e30 unless  j < n_b = min(Sk, kv_len[b / G]) (Sk without
+//                                     kv_len)
 //                      and  (not causal or i + q_offset >= j)
 //                      and  (window == 0 or i + q_offset - j < window)
 //   p = exp(s - m) against the running row max m, summed in f32 into l,
 //   rounded to v's type, and out[b, i] = (sum_j p_j v[b / G, j]) / l,
 //   q_offset = Sk - Sq
-//   q (BH, Sq, D), k/v (BKV, Sk, D) -> out (BH, Sq, D), BH = BKV * G
-//   f32 or bf16 in, f32 accumulation, output in q's type
+//   q (BH, Sq, D), k/v (BKV, Sk, D), kv_len (BKV,) int32 or null
+//   -> out (BH, Sq, D), BH = BKV * G
+//   f32 or bf16 in, f32 accumulation, output in q's type; a row with no
+//   visible key at all (kv_len 0) writes zeros
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_pallas
 // (body _flash_kernel): grid (BH, nq, nk) with the KV axis sequential and
 // f32 (m, l, acc) scratch in VMEM, masks computed from program ids, GQA
 // through the k/v index maps (KV never repeated in memory), p rounded to
-// v's type before p.v (`p.astype(v.dtype)`).
+// v's type before p.v (`p.astype(v.dtype)`).  The TPU kernel has no key
+// count: the reference runs its cross-attention (queries over an encoder
+// memory of ragged valid length) through its plain-JAX flash attention's
+// `valid_len`, which kv_len carries here.  A row's count only narrows the
+// key range its blocks walk: keys past it are neither staged nor scored,
+// and the tile that crosses it takes the edge mask, as the Sk edge does.
 //
 // What bounds it here: at training and prefill lengths, operations —
 // 4 FLOPs per unmasked (query, key) pair per head element against bytes
@@ -99,7 +107,8 @@ __global__ void __launch_bounds__(FlashMmaShape<NDC>::WARPS * 32,
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ out, int Sq, int Sk, int D,
+                 __nv_bfloat16* __restrict__ out,
+                 const int* __restrict__ kv_len, int Sq, int Sk, int D,
                  int q_per_kv, int causal, int window, float scale_log2,
                  int vec) {
   using Sh = FlashMmaShape<NDC>;
@@ -120,12 +129,14 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const long long kv_off = static_cast<long long>(b / q_per_kv) * Sk * D;
   const __nv_bfloat16* kb = k + kv_off;
   const __nv_bfloat16* vb = v + kv_off;
+  // the keys this row has: its count, at most Sk
+  const int nk = kv_len ? max(0, min(Sk, kv_len[b / q_per_kv])) : Sk;
 
   // key range any query of this tile can see
   const int q_first = q0 + q_offset;
   const int q_last = min(q0 + FM_BM, Sq) - 1 + q_offset;
-  int kv_lo = 0, kv_hi = Sk;
-  if (causal) kv_hi = min(Sk, q_last + 1);
+  int kv_lo = 0, kv_hi = nk;
+  if (causal) kv_hi = min(nk, q_last + 1);
   if (window > 0) kv_lo = max(0, q_first - window + 1);
   const int t_begin = kv_lo / BN;
   const int t_end = kv_hi > kv_lo ? (kv_hi + BN - 1) / BN : t_begin;
@@ -136,9 +147,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int k0 = t * BN;
     const long long off = static_cast<long long>(k0) * D;
     stage_rows<__nv_bfloat16, Sh::DP>(Ks + st * BN * LD, LD, kb + off, D,
-                                      Sk - k0, BN, D, vec, tid, NTHR);
+                                      nk - k0, BN, D, vec, tid, NTHR);
     stage_rows<__nv_bfloat16, Sh::DP>(Vs + st * BN * LD, LD, vb + off, D,
-                                      Sk - k0, BN, D, vec, tid, NTHR);
+                                      nk - k0, BN, D, vec, tid, NTHR);
   };
   if (t_begin < t_end) stage_kv(t_begin, 0);
   cp_async_commit();
@@ -222,7 +233,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
     // scale to the log2 domain; mask only tiles that cross a mask edge
     const int k0 = t * BN;
-    const bool edge = k0 + BN > Sk || (causal && k0 + BN - 1 > q0 + q_offset) ||
+    const bool edge = k0 + BN > nk || (causal && k0 + BN - 1 > q0 + q_offset) ||
                       (window > 0 && k0 < q_last - window + 1);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -234,7 +245,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
           if (edge) {
             const int kpos = k0 + 8 * i + 2 * tq + (j & 1);
             const int qpos = q0 + row0 + 16 * mt + g + 8 * (j >> 1) + q_offset;
-            bool ok = kpos < Sk;
+            bool ok = kpos < nk;
             if (causal) ok = ok && qpos >= kpos;
             if (window > 0) ok = ok && (qpos - kpos) < window;
             x = ok ? x : FA_NEG;
@@ -362,9 +373,9 @@ static size_t ffma_smem(int D) {
 template <int NJ>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out, int Sq,
-                  int Sk, int D, int q_per_kv, int causal, int window,
-                  float scale) {
+                  const float* __restrict__ v, float* __restrict__ out,
+                  const int* __restrict__ kv_len, int Sq, int Sk, int D,
+                  int q_per_kv, int causal, int window, float scale) {
   extern __shared__ float smem[];
   constexpr int SC = FA_BK / FA_TPR;  // scores per thread per tile
   const int DP = D + 1;
@@ -386,6 +397,8 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long kv_off = static_cast<long long>(b / q_per_kv) * Sk * D;
   const float* kb = k + kv_off;
   const float* vb = v + kv_off;
+  // the keys this row has: its count, at most Sk
+  const int nk = kv_len ? max(0, min(Sk, kv_len[b / q_per_kv])) : Sk;
 
   for (int e = t; e < FA_BQ * D; e += FA_THREADS) {
     const int rr = e / D;
@@ -396,8 +409,8 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int q_first = q0 + q_offset;
   const int q_last = min(q0 + FA_BQ, Sq) - 1 + q_offset;
-  int kv_lo = 0, kv_hi = Sk;
-  if (causal) kv_hi = min(Sk, q_last + 1);
+  int kv_lo = 0, kv_hi = nk;
+  if (causal) kv_hi = min(nk, q_last + 1);
   if (window > 0) kv_lo = max(0, q_first - window + 1);
 
   float m = FA_NEG, l = 0.f;
@@ -410,7 +423,7 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = t; e < FA_BK * D; e += FA_THREADS) {
       const int rr = e / D;
       const int d = e - rr * D;
-      const bool ok = k0 + rr < Sk;
+      const bool ok = k0 + rr < nk;
       const long long gi = static_cast<long long>(k0 + rr) * D + d;
       Ks[rr * DP + d] = ok ? kb[gi] : 0.f;
       Vs[rr * DP + d] = ok ? vb[gi] : 0.f;
@@ -431,7 +444,7 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < SC; ++c) {
       const int kpos = k0 + cl + FA_TPR * c;
-      bool ok = kpos < Sk;
+      bool ok = kpos < nk;
       if (causal) ok = ok && qpos >= kpos;
       if (window > 0) ok = ok && (qpos - kpos) < window;
       s[c] = ok ? s[c] * scale : FA_NEG;
@@ -507,9 +520,9 @@ static cudaError_t ensure_smem_attrs() {
 }
 
 static cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                              void* out, int BH, int Sq, int Sk, int D,
-                              int q_per_kv, int causal, int window,
-                              cudaStream_t stream) {
+                              void* out, const int* kv_len, int BH, int Sq,
+                              int Sk, int D, int q_per_kv, int causal,
+                              int window, cudaStream_t stream) {
   const float scale_log2 =
       static_cast<float>(1.0 / sqrt(static_cast<double>(D))) * FA_LOG2E;
   const int nq = (Sq + FM_BM - 1) / FM_BM;
@@ -528,8 +541,8 @@ static cudaError_t launch_mma(const void* q, const void* k, const void* v,
         static_cast<const __nv_bfloat16*>(q),                               \
         static_cast<const __nv_bfloat16*>(k),                               \
         static_cast<const __nv_bfloat16*>(v),                               \
-        static_cast<__nv_bfloat16*>(out), Sq, Sk, D, q_per_kv, causal,      \
-        window, scale_log2, vec ? 1 : 0);                                   \
+        static_cast<__nv_bfloat16*>(out), kv_len, Sq, Sk, D, q_per_kv,      \
+        causal, window, scale_log2, vec ? 1 : 0);                           \
     return cudaGetLastError();                                              \
   }
   FA_MMA_CHUNKS(FA_LAUNCH_MMA)
@@ -538,9 +551,9 @@ static cudaError_t launch_mma(const void* q, const void* k, const void* v,
 }
 
 static cudaError_t launch_ffma(const void* q, const void* k, const void* v,
-                               void* out, int BH, int Sq, int Sk, int D,
-                               int q_per_kv, int causal, int window,
-                               cudaStream_t stream) {
+                               void* out, const int* kv_len, int BH, int Sq,
+                               int Sk, int D, int q_per_kv, int causal,
+                               int window, cudaStream_t stream) {
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   const int nq = (Sq + FA_BQ - 1) / FA_BQ;
   if (nq > 65535) return cudaErrorInvalidConfiguration;
@@ -551,8 +564,8 @@ static cudaError_t launch_ffma(const void* q, const void* k, const void* v,
   if (nj <= N) {                                                           \
     flash_ffma_kernel<N><<<grid, FA_THREADS, smem, stream>>>(              \
         static_cast<const float*>(q), static_cast<const float*>(k),        \
-        static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, D, \
-        q_per_kv, causal, window, scale);                                  \
+        static_cast<const float*>(v), static_cast<float*>(out), kv_len,    \
+        Sq, Sk, D, q_per_kv, causal, window, scale);                       \
     return cudaGetLastError();                                             \
   }
   FA_FFMA_COLS(FA_LAUNCH_FFMA)
@@ -560,11 +573,12 @@ static cudaError_t launch_ffma(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it)
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it); kv_len
+// null or (BH / q_per_kv,) int32 on the device
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int BH, int Sq, int Sk, int D,
-                               int q_per_kv, int causal, int window,
-                               int dtype, void* stream) {
+                               void* out, const void* kv_len, int BH, int Sq,
+                               int Sk, int D, int q_per_kv, int causal,
+                               int window, int dtype, void* stream) {
   if (D < 1 || D > FA_MAX_D || q_per_kv < 1 || BH % q_per_kv != 0 ||
       window < 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -572,9 +586,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   const cudaError_t e = ensure_smem_attrs();
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* lens = static_cast<const int*>(kv_len);
   if (dtype == 0)
-    return static_cast<int>(launch_ffma(q, k, v, out, BH, Sq, Sk, D, q_per_kv,
-                                        causal, window, st));
-  return static_cast<int>(launch_mma(q, k, v, out, BH, Sq, Sk, D, q_per_kv,
-                                     causal, window, st));
+    return static_cast<int>(launch_ffma(q, k, v, out, lens, BH, Sq, Sk, D,
+                                        q_per_kv, causal, window, st));
+  return static_cast<int>(launch_mma(q, k, v, out, lens, BH, Sq, Sk, D,
+                                     q_per_kv, causal, window, st));
 }

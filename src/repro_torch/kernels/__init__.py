@@ -22,7 +22,8 @@ layer, whatever its client count.
                  the keys and shared by the query group, online softmax
                  (:mod:`repro_torch.kernels.decode_attention`)
   flash_attention   blockwise streaming-softmax attention with causal and
-                 window masks (:mod:`repro_torch.kernels.flash_attention`)
+                 window masks and per-row key counts
+                 (:mod:`repro_torch.kernels.flash_attention`)
   rmsnorm        per-row RMS normalisation, f32 statistics
                  (:mod:`repro_torch.kernels.rmsnorm`)
   ssd_chunk      the Mamba2 SSD intra-chunk block plus its carry-in
@@ -63,7 +64,7 @@ _SIGNATURES = {
     "compose_apply": ("compose_apply_f32", [_P] * 5 + [_I] * 9 + [_P]),
     "conv_rank": ("conv_rank_f32", [_P] * 4 + [_I] * 16 + [_P]),
     "decode_attention": ("decode_attention", [_P] * 7 + [_I] * 8 + [_P]),
-    "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 8 + [_P]),
+    "flash_attention": ("flash_attention", [_P] * 5 + [_I] * 8 + [_P]),
     "rmsnorm": ("rmsnorm", [_P] * 3 + [_I] * 3 + [_F, _P]),
     "ssd_chunk": ("ssd_chunk", [_P] * 7 + [_I] * 6 + [_P]),
 }

@@ -8,8 +8,12 @@ Layout (the kernel's): q ``(BH, Sq, D)``, k/v ``(BKV, Sk, D)`` with
 ``BH = BKV * q_per_kv`` (GQA by index: query row ``b`` reads KV row
 ``b // q_per_kv``; K/V are never repeated).  Queries align to the end of
 the keys (``q_offset = Sk - Sq``); masks are causal and sliding-window,
-computed from positions.  Model-layout callers go through
-:func:`repro_torch.kernels.ops.flash_attention`.
+computed from positions, and, with ``kv_len`` ``(BKV,)``, KV row ``b``
+has only its first ``kv_len[b]`` keys (the reference's ``valid_len``: an
+encoder memory of ragged valid length under cross-attention).  A query
+row that sees no key at all because of its count (``kv_len`` 0) gives
+zeros, in the kernel and its plain version alike.  Model-layout callers
+go through :func:`repro_torch.kernels.ops.flash_attention`.
 
 Forward only, as the reference's ``pallas_call`` is: the wrapper raises
 when asked to record a gradient.  The differentiable training path is the
@@ -18,6 +22,8 @@ flash_attention`.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -43,19 +49,27 @@ def attention_mask(sq: int, sk: int, causal: bool, window: int,
 
 
 def _flash_math(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
-                window: int = 0, q_per_kv: int = 1) -> Tensor:
+                window: int = 0, q_per_kv: int = 1,
+                kv_len: Optional[Tensor] = None) -> Tensor:
     """Plain version of the kernel: masked scores (-1e30) in f32,
     max-shifted exponentials, their f32 total; the exponentials rounded
     to v's type before the weighted sum (f32 accumulation), as the
     reference's kernel does (``p.astype(v.dtype)``), then divided by the
-    total.  In f32 the rounding is a no-op."""
+    total.  In f32 the rounding is a no-op.  With ``kv_len`` (BKV,), keys
+    ``j >= kv_len[b]`` of KV row ``b`` are masked too, and a row whose
+    count is 0 gives zeros."""
     BH, Sq, D = q.shape
     BKV, Sk, _ = k.shape
     qf = q.float().reshape(BKV, q_per_kv, Sq, D)
     s = torch.einsum("bgqd,bkd->bgqk", qf, k.float()) * (D ** -0.5)
-    s = torch.where(attention_mask(Sq, Sk, causal, window, q.device), s,
-                    NEG_INF)
+    mask = attention_mask(Sq, Sk, causal, window, q.device)
+    if kv_len is not None:
+        n = kv_len.to(q.device)[:, None, None, None]
+        mask = mask & (torch.arange(Sk, device=q.device) < n)
+    s = torch.where(mask, s, NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
+    if kv_len is not None:  # no key at all: zeros, as the kernel
+        p = p * (n > 0)
     l = p.sum(-1, keepdim=True)
     out = torch.einsum("bgqk,bkd->bgqd", p.to(v.dtype).float(), v.float())
     out = out / l.clamp(min=1e-30)
@@ -64,8 +78,10 @@ def _flash_math(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: int = 0, q_block: int = 128, kv_block: int = 128,
-                    q_per_kv: int = 1) -> Tensor:
-    """q (BH, Sq, D); k/v (BKV, Sk, D) -> (BH, Sq, D) in q's type.
+                    q_per_kv: int = 1,
+                    kv_len: Optional[Tensor] = None) -> Tensor:
+    """q (BH, Sq, D); k/v (BKV, Sk, D); kv_len None or (BKV,) int ->
+    (BH, Sq, D) in q's type.
 
     f32 or bf16; head_dim up to 256.  ``q_block`` and ``kv_block`` are
     accepted for signature parity with the reference; the kernel's tiling
@@ -81,12 +97,19 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                          f"with q_per_kv={q_per_kv}")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
+    if kv_len is not None and tuple(kv_len.shape) != (BKV,):
+        raise ValueError(f"flash_attention: kv_len {tuple(kv_len.shape)} "
+                         f"is not ({BKV},)")
     if not use_kernel(q):
-        return _flash_math(q, k, v, causal, window, q_per_kv)
+        return _flash_math(q, k, v, causal, window, q_per_kv, kv_len)
     check_operands("flash_attention", tuple(DTYPE_CODES), q=q, k=k, v=v)
+    if kv_len is not None:
+        check_operands("flash_attention", (torch.int32,), kv_len=kv_len)
+        if kv_len.device != q.device:
+            raise ValueError("flash_attention: kv_len is on another device")
     if D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head_dim {D} > {MAX_HEAD_DIM}")
     out = torch.empty_like(q)
-    launch("flash_attention", (q, k, v, out), BH, Sq, Sk, D, q_per_kv,
-           int(causal), window, DTYPE_CODES[q.dtype])
+    launch("flash_attention", (q, k, v, out, kv_len), BH, Sq, Sk, D,
+           q_per_kv, int(causal), window, DTYPE_CODES[q.dtype])
     return out

@@ -17,6 +17,8 @@ wrappers themselves stay forward-only, as the reference's
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.compose import (compose, compose_dense_apply,
@@ -74,17 +76,25 @@ class _PlainBackward(torch.autograd.Function):
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
-                    window: int = 0) -> Tensor:
-    """Model layout: q (B, S, KV, G, D), k/v (B, S, KV, D) ->
-    (B, S, KV, G, D)."""
-    B, S, KV, G, D = q.shape
-    qf = q.permute(0, 2, 3, 1, 4).reshape(B * KV * G, S, D).contiguous()
-    kf = k.permute(0, 2, 1, 3).reshape(B * KV, S, D).contiguous()
-    vf = v.permute(0, 2, 1, 3).reshape(B * KV, S, D).contiguous()
-    out = _PlainBackward.apply(flash_attention_kernel, _flash_math,
-                               dict(causal=causal, window=window,
-                                    q_per_kv=G), qf, kf, vf)
-    return out.reshape(B, KV, G, S, D).permute(0, 3, 1, 2, 4)
+                    window: int = 0,
+                    kv_len: Optional[Tensor] = None) -> Tensor:
+    """Model layout: q (B, Sq, KV, G, D), k/v (B, Sk, KV, D) -> (B, Sq,
+    KV, G, D); queries align to the end of the keys.  ``kv_len`` (B,)
+    keeps batch row ``b`` to its first ``kv_len[b]`` keys (every KV head
+    of the row: expanded to the kernel's (B * KV,) rows, as
+    :func:`decode_attention` expands ``lengths``)."""
+    B, Sq, KV, G, D = q.shape
+    Sk = k.shape[1]
+    qf = q.permute(0, 2, 3, 1, 4).reshape(B * KV * G, Sq, D).contiguous()
+    kf = k.permute(0, 2, 1, 3).reshape(B * KV, Sk, D).contiguous()
+    vf = v.permute(0, 2, 1, 3).reshape(B * KV, Sk, D).contiguous()
+    kw = dict(causal=causal, window=window, q_per_kv=G)
+    if kv_len is not None:
+        kw["kv_len"] = torch.repeat_interleave(
+            kv_len.to(device=q.device, dtype=torch.int32), KV)
+    out = _PlainBackward.apply(flash_attention_kernel, _flash_math, kw, qf,
+                               kf, vf)
+    return out.reshape(B, KV, G, Sq, D).permute(0, 3, 1, 2, 4)
 
 
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,

@@ -7,11 +7,15 @@ Maintains a fixed decode batch; finished requests (length) are replaced
 from the queue — a miniature continuous-batching loop over
 :mod:`repro_torch.launch.steps`' ``serve_step``, as the reference's
 ``repro.launch.serve``.  Runs on the CUDA card unless given
-``--device cpu``.  The port serves every family of the zoo but the
-audio one: dense (gemma-2b, the default, stablelm-3b,
-deepseek-coder-33b, granite-34b), moe (olmoe-1b-7b, kimi-k2-1t-a32b),
-ssm (xlstm-125m), vlm (qwen2-vl-7b, whose M-RoPE takes ``(B, 3, 1)``
-positions, all three ids the shared position) and hybrid (zamba2-2.7b).
+``--device cpu``.  The port serves every family of the zoo: dense
+(gemma-2b, the default, stablelm-3b, deepseek-coder-33b, granite-34b),
+moe (olmoe-1b-7b, kimi-k2-1t-a32b), ssm (xlstm-125m), vlm (qwen2-vl-7b,
+whose M-RoPE takes ``(B, 3, 1)`` positions, all three ids the shared
+position), hybrid (zamba2-2.7b) and audio (seamless-m4t-medium).  For the
+audio family each step's batch carries ``min(encoder_seq, 32)`` zero
+frames and an all-true mask, as the reference's loop does, and like it
+the loop never prefills the encoder memory: cross-attention reads the
+cache's empty, fully masked memory (ROADMAP C.14).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ def serve(cfg, params, *, requests: int = 8, batch: int = 4,
     next_req = done = steps = tokens_out = pos = 0
     cur = np.zeros((B, 1), np.int64)
     outputs = {}
+    se = min(cfg.encdec.encoder_seq, 32) if cfg.family == "audio" else 0
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -62,6 +67,11 @@ def serve(cfg, params, *, requests: int = 8, batch: int = 4,
         if cfg.rope_type == "mrope":
             batch["positions"] = torch.full((B, 3, 1), pos,
                                             dtype=torch.int32, device=dev)
+        if cfg.family == "audio":
+            batch["enc_embeddings"] = torch.zeros((B, se, cfg.d_model),
+                                                  device=dev)
+            batch["enc_mask"] = torch.ones((B, se), dtype=torch.bool,
+                                           device=dev)
         logits, cache = step(params, batch, cache, pos)
         gen = (torch.Generator(dev).manual_seed(pos)
                if temperature > 0 else None)
@@ -109,6 +119,9 @@ def main(argv=None) -> Dict[str, Any]:
 
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
+    if cfg.family == "audio":
+        print("enc-dec serving: decoder-side continuous batching with a "
+              "fixed encoder memory per request (stub embeddings)")
     dev = resolve_device(args.device)
     params = model.init(0, cfg, dev)
     r = serve(cfg, params, requests=args.requests, batch=args.batch,

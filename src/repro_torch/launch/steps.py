@@ -2,7 +2,9 @@
 
   train_step  — forward + backward (autograd) + optimizer update
                 (``launch/train.py``)
-  prefill     — full-sequence forward, without a graph
+  prefill     — full-sequence forward, without a graph (an enc-dec
+                model's ``model.prefill`` without a cache: the encoder,
+                then the decoder)
   serve_step  — one token against a cache, without a graph
                 (``launch/serve.py``)
 
@@ -48,7 +50,10 @@ def make_train_step(cfg, optimizer, skip_blocks: bool = False) -> Callable:
 def make_prefill(cfg, skip_blocks: bool = False) -> Callable:
     @torch.no_grad()
     def prefill(params, batch):
-        logits, _ = model.forward(params, cfg, batch, skip_blocks)
+        if cfg.family == "audio" or cfg.encdec is not None:
+            logits, _ = model.prefill(params, cfg, batch, cache=None)
+        else:
+            logits, _ = model.forward(params, cfg, batch, skip_blocks)
         return logits
 
     return prefill

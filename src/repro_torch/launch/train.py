@@ -4,11 +4,14 @@
 [--device cpu]``
 
 Runs on the CUDA card unless given ``--device cpu``; ``--smoke`` takes
-the reduced config.  Every family of the zoo but the audio one trains
-(the vlm's vision tower is the reference's stub: it trains on token
-streams, and its M-RoPE positions default to text's).  Batches come
-from ``SyntheticTextTask`` through ``lm_batches`` with numpy seed 0, as
-in the reference's launcher;
+the reduced config.  Every family of the zoo trains (the vlm's vision
+tower is the reference's stub: it trains on token streams, and its
+M-RoPE positions default to text's; the audio family's encoder takes
+``min(encoder_seq, 64)`` stub frames of 0.02 N(0, 1), drawn each step
+from a ``torch.Generator`` seeded by the step, so they differ from the
+reference's ``jax.random`` frames by construction, with an all-true
+mask).  Batches come from ``SyntheticTextTask`` through ``lm_batches``
+with numpy seed 0, as in the reference's launcher;
 Heroes composition is a switch (``--composition``), and
 ``--ckpt-dir``/``--ckpt-every`` checkpoint ``{"params", "opt"}`` and
 resume from the newest checkpoint there.  A resumed run continues bit
@@ -33,6 +36,7 @@ from repro_torch.core.estimator import tree_map
 from repro_torch.data import SyntheticTextTask, lm_batches
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import model
+from repro_torch.models.frontends import audio_frame_embeddings
 from repro_torch.models.module import count_params
 from repro_torch.optim import cosine_schedule, make_optimizer
 
@@ -107,6 +111,10 @@ def main(argv=None) -> None:
         toks, labels = lm_batches(task.train, args.batch, rng)
         batch = {"tokens": torch.as_tensor(toks % cfg.vocab, device=dev),
                  "labels": torch.as_tensor(labels % cfg.vocab, device=dev)}
+        if cfg.family == "audio":
+            batch.update(audio_frame_embeddings(
+                torch.Generator(dev).manual_seed(i), args.batch,
+                min(cfg.encdec.encoder_seq, 64), cfg.d_model))
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if i % 10 == 0 or i == args.steps - 1:
             print(f"step {i:4d}  loss {float(metrics['loss']):.4f}  "

@@ -20,8 +20,12 @@ forward-only kernels (``kernels.ops.flash_attention`` and
 sliding-window attention (a ring-buffer cache of ``window`` slots in
 decode) and the int8 KV cache (per-token-per-head scales).  Positions
 rotate by RoPE or, for qwen2-vl, by M-RoPE (:func:`mrope_angles`: (t, h,
-w) position ids, one per frequency section).  Not ported yet:
-cross-attention (the audio family's).
+w) position ids, one per frequency section).  The audio family's
+encoder runs :func:`self_attention` without the causal mask, and its
+decoder's :func:`cross_attention` attends over a precomputed encoder
+memory (:func:`encode_memory`) of ragged valid length: one query row
+through the decode kernel, more through the flash kernel with a key
+count a row.
 """
 
 from __future__ import annotations
@@ -300,3 +304,69 @@ def decode_self_attention(params: Params, cfg, x: Tensor, cache_k: Tensor,
     if cache_scales is not None:
         return out, cache_k, cache_v, cache_scales
     return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (the audio family's encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attention(gen, cfg) -> Params:
+    """Cross-attention projections: q from the decoder, k/v precomputed
+    from the memory."""
+    return init_attention(gen, cfg)
+
+
+def encode_memory(params: Params, cfg, mem: Tensor) -> Tuple[Tensor,
+                                                             Tensor]:
+    """Cross-attention K/V of the encoder output ``mem`` (B, Sm, d):
+    each (B, Sm, KV, D)."""
+    B, Sm, _ = mem.shape
+    hd = cfg.resolved_head_dim
+    k = module.linear(params["wk"], mem).reshape(B, Sm, cfg.num_kv_heads,
+                                                 hd)
+    v = module.linear(params["wv"], mem).reshape(B, Sm, cfg.num_kv_heads,
+                                                 hd)
+    return k, v
+
+
+def cross_attention(params: Params, cfg, x: Tensor, mem_k: Tensor,
+                    mem_v: Tensor, mem_mask: Optional[Tensor] = None
+                    ) -> Tensor:
+    """Decoder cross-attention over precomputed memory K/V.
+
+    x (B, Sq, d); mem_k/mem_v (B, Sm, KV, D); mem_mask (B, Sm) bool, all
+    True when None.  No RoPE on cross-attention (the seamless
+    convention).  The mask is read as its per-row count of valid frames,
+    the leading ones (ROADMAP C.14): the reference's ``valid_len`` at
+    ``Sq > 1``, and at ``Sq == 1`` the mask itself, which is the same on
+    a prefix mask.  On a CUDA tensor ``Sq == 1`` launches the decode
+    kernel with the counts as lengths and ``Sq > 1`` the flash kernel,
+    non-causal, with the counts as ``kv_len``; on the CPU the plain
+    :func:`decode_attention` and :func:`flash_attention` take the same
+    counts.
+    """
+    B, Sq, _ = x.shape
+    hd = cfg.resolved_head_dim
+    KV, G = cfg.num_kv_heads, cfg.q_per_kv
+    q = module.linear(params["wq"], x).reshape(B, Sq, KV, G, hd)
+    Sm = mem_k.shape[1]
+    if mem_mask is None:
+        counts = torch.full((B,), Sm, dtype=torch.int32, device=x.device)
+    else:
+        counts = mem_mask.to(x.device).sum(-1, dtype=torch.int32)
+    if use_kernel(x):
+        if Sq == 1:
+            out = ops.decode_attention(q, mem_k, mem_v, counts)
+        else:
+            out = ops.flash_attention(q, mem_k, mem_v, causal=False,
+                                      kv_len=counts)
+    elif Sq == 1:
+        valid = torch.arange(Sm, device=x.device)[None, :] < counts[:, None]
+        out = decode_attention(q, mem_k, mem_v, valid)
+    else:
+        out = flash_attention(q, mem_k, mem_v, causal=False,
+                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                              valid_len=counts)
+    out = out.reshape(B, Sq, cfg.num_heads * hd)
+    return module.linear(params["wo"], out)

@@ -69,6 +69,12 @@ def apply_mlp(params: Params, x: Tensor, activation: str) -> Tensor:
     return module.linear(params["down"], h)
 
 
+def mlp_flops(d: int, d_ff: int, activation: str, tokens: int) -> int:
+    """FLOPs of the MLP's products over ``tokens`` rows (2 per MAC)."""
+    n = 3 if activation in ("swiglu", "geglu") else 2
+    return 2 * n * d * d_ff * tokens
+
+
 # ---------------------------------------------------------------------------
 # embedding / unembedding
 # ---------------------------------------------------------------------------

@@ -9,24 +9,26 @@ Functions keyed off ``cfg.family``, mirroring the reference's:
   prefill(params, cfg, batch, cache)               -> (logits, cache)
   serve_step(params, cfg, batch, cache, cache_len) -> (logits, cache)
 
-The port runs the ``dense`` family (gemma-2b, stablelm-3b,
-deepseek-coder-33b, granite-34b), the ``moe`` one (olmoe-1b-7b,
-kimi-k2-1t-a32b), the ``ssm`` one (xlstm-125m), the ``vlm`` one
-(qwen2-vl-7b, M-RoPE; its vision tower is the reference's stub: the
-batch may carry patch ``embeddings``) and the ``hybrid`` one (zamba2),
-with sliding-window attention and, for the attention stacks, the int8 KV
-cache; the audio family raises ``NotImplementedError`` (ROADMAP A11).
-``init`` and ``init_cache`` run on the CUDA card unless given
-``device="cpu"``.  The RMSNorm, SSD-chunk and attention kernels are
+The port runs every family of the zoo: ``dense`` (gemma-2b,
+stablelm-3b, deepseek-coder-33b, granite-34b), ``moe`` (olmoe-1b-7b,
+kimi-k2-1t-a32b), ``ssm`` (xlstm-125m), ``vlm`` (qwen2-vl-7b, M-RoPE; its
+vision tower is the reference's stub: the batch may carry patch
+``embeddings``), ``hybrid`` (zamba2) and ``audio`` (seamless-m4t-medium,
+an encoder-decoder over stub frame embeddings, :mod:`.encdec`), with
+sliding-window attention and, for the decoder-only attention stacks, the
+int8 KV cache.  ``init`` and ``init_cache`` run on the CUDA card unless
+given ``device="cpu"``.  The RMSNorm, SSD-chunk and attention kernels are
 forward-only; ``kernels.ops`` gives them the backward of their plain
 versions, so ``loss_fn`` trains and serving launches them alike.  The
 MoE layers' router aux loss reaches ``loss_fn`` through ``forward``.
 
 Batch keys: ``tokens`` (B, S) int, or ``embeddings`` (B, S, d) in their
 place; optionally ``positions`` (B, S), or (B, 3, S) (t, h, w) ids for
-M-RoPE; for ``loss_fn`` also ``labels`` (B, S) and optionally
-``loss_mask`` (B, S).  Positions count from 0 in ``forward`` and are
-``cache_len`` in ``serve_step`` (all three ids, for M-RoPE).
+M-RoPE; for the audio family ``enc_embeddings`` (B, S_enc, d) and
+optionally ``enc_mask`` (B, S_enc) bool; for ``loss_fn`` also ``labels``
+(B, S) and optionally ``loss_mask`` (B, S).  Positions count from 0 in
+``forward`` and are ``cache_len`` in ``serve_step`` (all three ids, for
+M-RoPE).
 """
 
 from __future__ import annotations
@@ -37,16 +39,21 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import attention, layers, module, transformer
+from repro_torch.models import (attention, encdec, layers, module,
+                                transformer)
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "vlm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "vlm", "hybrid", "audio")
+
+
+def _is_encdec(cfg) -> bool:
+    return cfg.family == "audio" or cfg.encdec is not None
 
 
 def _require_ported(cfg) -> None:
-    if cfg.family not in PORTED_FAMILIES or cfg.encdec is not None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family} family is not ported (ROADMAP A11); the "
             f"port runs the {', '.join(PORTED_FAMILIES)} families")
@@ -72,7 +79,9 @@ def init(seed: int, cfg, device=None) -> Params:
     if not cfg.tie_embeddings:
         p["unembed"] = module.init_embedding(gen, cfg.vocab, cfg.d_model,
                                              cfg.pdtype)
-    if cfg.family == "hybrid":
+    if _is_encdec(cfg):
+        p["stack"] = encdec.init_encdec(gen, cfg)
+    elif cfg.family == "hybrid":
         p["stack"] = transformer.init_hybrid_stack(gen, cfg)
     elif cfg.family == "ssm":
         p["stack"] = transformer.init_xlstm_stack(gen, cfg)
@@ -118,6 +127,31 @@ def _unembed(params, cfg, x: Tensor) -> Tensor:
     return layers.unembed(table, x, cfg.logit_softcap)
 
 
+def _encode(params, cfg, batch) -> Tuple[Tensor, Optional[Tensor]]:
+    """The enc-dec encoder over the batch's ``enc_embeddings``: (memory,
+    the batch's ``enc_mask`` or None)."""
+    mem = batch["enc_embeddings"].to(cfg.cdtype)
+    enc_pos = attention.default_positions(mem.shape[0], mem.shape[1],
+                                          device=mem.device)
+    ecos, esin = attention.angles_for(cfg, enc_pos)
+    mem_mask = batch.get("enc_mask")
+    return (encdec.encode(params["stack"], cfg, mem, mem_mask, ecos, esin),
+            mem_mask)
+
+
+def _decode_train(params, cfg, batch, memory, mem_mask) -> Tensor:
+    """The enc-dec decoder over the batch's tokens, then the final norm
+    and the unembedding."""
+    x = _input_embeddings(params, cfg, batch)
+    B, S, _ = x.shape
+    cos, sin = attention.angles_for(cfg, _positions(cfg, batch, S, B,
+                                                    x.device))
+    x = encdec.decode_train(params["stack"], cfg, x, memory, mem_mask, cos,
+                            sin)
+    x = layers.apply_norm(params["final_norm"], x, cfg.norm)
+    return _unembed(params, cfg, x)
+
+
 # ---------------------------------------------------------------------------
 # forward (train / eval, full sequence)
 # ---------------------------------------------------------------------------
@@ -131,6 +165,10 @@ def forward(params: Params, cfg, batch: Dict[str, Tensor],
     tensor the flash-attention kernel skips such tiles whatever it
     says."""
     _require_ported(cfg)
+    if _is_encdec(cfg):
+        memory, mem_mask = _encode(params, cfg, batch)
+        return (_decode_train(params, cfg, batch, memory, mem_mask),
+                torch.zeros((), dtype=torch.float32, device=memory.device))
     x = _input_embeddings(params, cfg, batch)
     B, S, _ = x.shape
     if cfg.family == "ssm":  # xLSTM: no attention, no positions
@@ -164,6 +202,8 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> Dict[str, Any]:
     grow with ``max_len``."""
     _require_ported(cfg)
     dev = resolve_device(device)
+    if _is_encdec(cfg):
+        return encdec.init_encdec_cache(cfg, batch, max_len, dev)
     cache_len = (min(max_len, cfg.sliding_window) if cfg.sliding_window
                  else max_len)
     if cfg.family == "hybrid":
@@ -178,7 +218,20 @@ def prefill(params: Params, cfg, batch: Dict[str, Tensor],
             ) -> Tuple[Tensor, Optional[Dict[str, Any]]]:
     """Full-sequence forward.  As in the reference, the cache is handed
     back as it came: KV-cache write-back during prefill is modelled as
-    the forward pass."""
+    the forward pass.  An enc-dec model also encodes the memory and,
+    given a cache, writes each layer's cross K/V and the mask into it in
+    place (:func:`encdec.prefill_memory`); ``enc_mask`` defaults to all
+    frames."""
+    _require_ported(cfg)
+    if _is_encdec(cfg):
+        memory, mem_mask = _encode(params, cfg, batch)
+        if mem_mask is None:
+            mem_mask = torch.ones(memory.shape[:2], dtype=torch.bool,
+                                  device=memory.device)
+        if cache is not None:
+            cache = encdec.prefill_memory(params["stack"], cfg, memory,
+                                          mem_mask, cache)
+        return _decode_train(params, cfg, batch, memory, mem_mask), cache
     logits, _ = forward(params, cfg, batch)
     return logits, cache
 
@@ -201,7 +254,8 @@ def serve_step(params: Params, cfg, batch: Dict[str, Tensor],
             pos = torch.full(shape, int(cache_len), dtype=torch.int32,
                              device=x.device)
         cos, sin = attention.angles_for(cfg, pos)
-        decode = (transformer.decode_hybrid if cfg.family == "hybrid"
+        decode = (encdec.decode_step if _is_encdec(cfg)
+                  else transformer.decode_hybrid if cfg.family == "hybrid"
                   else transformer.decode_stack)
         x, cache = decode(params["stack"], cfg, x, cache, cache_len, cos,
                           sin)

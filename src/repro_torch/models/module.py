@@ -16,7 +16,9 @@ weight::
     y[(b,o)] = sum_a (x_a @ v) @ u_{ab}
 
 It is the reference's einsum (no Pallas kernel there), so it stays plain
-PyTorch here.
+PyTorch here.  The paper's own forward, composing the weight first and
+multiplying by it, is a switch (:func:`set_compose_then_matmul`); on a
+CUDA tensor it composes through the port's compose kernel.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.core.composition import CompositionSpec, init_factors
 from repro_torch.core.estimator import tree_leaves, tree_map
+from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -94,8 +97,36 @@ def init_factorized_linear(gen, d_in: int, d_out: int, max_width: int,
     return {"basis": v[0].to(dtype), "coeff": u[:m].to(dtype)}
 
 
+# Paper-faithful forward: materialise w_p = compose(v, u) then x @ w_p.
+# Default (False) is the factorized forward x@v@u, as in the reference.
+_COMPOSE_THEN_MATMUL = False
+
+
+def set_compose_then_matmul(value: bool) -> None:
+    global _COMPOSE_THEN_MATMUL
+    _COMPOSE_THEN_MATMUL = value
+
+
+def composed_weight(basis: Tensor, coeff: Tensor, p: int) -> Tensor:
+    """The composed p-width weight ``w[(a,i),(b,o)] = sum_r v[i,r]
+    u[(a,b),r,o]`` (paper Fig. 1; the reference's einsum
+    ``ir,abro->aibo``), (p*I, p*O) in f32: the compose kernel's (1, I,
+    p^2*O) product of the basis and the blocks on a CUDA tensor (its
+    plain version on the CPU), rearranged; differentiable through the
+    compose wrapper's backward.  The kernel composes in f32, so the
+    factors are taken in f32 whatever their type."""
+    I, R = basis.shape
+    O = coeff.shape[2]
+    w = ops.compose(basis.float()[None], coeff.float())  # (1, I, p*p*O)
+    return (w.reshape(I, p, p, O).permute(1, 0, 2, 3)
+            .reshape(p * I, p * O))
+
+
 def linear(params: Params, x: Tensor, width: int = 0) -> Tensor:
-    """Apply dense or factorized linear.  ``x``: (..., d_in)."""
+    """Apply dense or factorized linear.  ``x``: (..., d_in).  With
+    :func:`set_compose_then_matmul` on, a factorized linear composes its
+    weight first (:func:`composed_weight`, rounded to x's type) and
+    multiplies by it."""
     if "w" in params:
         return x @ params["w"].to(x.dtype)
     basis, coeff = params["basis"], params["coeff"]
@@ -107,11 +138,20 @@ def linear(params: Params, x: Tensor, width: int = 0) -> Tensor:
     *lead, d_in = x.shape
     if d_in != p * I:
         raise ValueError(f"x dim {d_in} != p*I = {p}*{I}")
+    if _COMPOSE_THEN_MATMUL:
+        return x @ composed_weight(basis, coeff, p).to(x.dtype)
     u = coeff.to(x.dtype).reshape(p, p, R, O)
     xa = x.reshape(*lead, p, I)
     z = torch.einsum("...ai,ir->...ar", xa, basis.to(x.dtype))
     y = torch.einsum("...ar,abro->...bo", z, u)
     return y.reshape(*lead, p * O)
+
+
+def linear_out_dim(params: Params, width: int = 0) -> int:
+    if "w" in params:
+        return params["w"].shape[1]
+    p = width or math.isqrt(params["coeff"].shape[0])
+    return p * params["coeff"].shape[2]
 
 
 def maybe_factorized(gen, d_in: int, d_out: int, cfg, dtype) -> Params:
@@ -148,3 +188,7 @@ def stacked_init(init_fn: Callable, gen, num: int, *args, **kwargs):
 
 def count_params(params) -> int:
     return sum(x.numel() for x in tree_leaves(params))
+
+
+def param_bytes(params) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(params))

@@ -42,6 +42,7 @@ from repro.models import sampling as jsampling
 from repro_torch import configs as tconfigs
 from repro_torch.configs.base import CompositionConfig as TComp
 from repro_torch.convert import from_jax_params
+from repro_torch.core.estimator import tree_leaves
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as tserve
 from repro_torch.models import model as tmodel
@@ -384,16 +385,16 @@ def test_serve_loop_greedy_outputs_match_forward(f32):
         assert r["outputs"][rid] == seq[len(prompt):]
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
-def test_other_families_raise(arch):
-    """The family still unported (audio) raises; the dense family runs
-    (``tests/test_torch_dense.py``), and so do the moe, ssm and vlm ones
-    (``tests/test_torch_{moe,xlstm,mrope}.py``)."""
+@pytest.mark.parametrize("arch", jconfigs.list_archs())
+def test_every_arch_inits(arch):
+    """Every family is ported: each arch's smoke config inits on the CPU,
+    and so does its cache (the families' parity tests are
+    ``tests/test_torch_{zoo,dense,moe,xlstm,mrope,encdec}.py``)."""
     cfg = tconfigs.get_smoke(arch)
-    for call in (lambda: tmodel.init(0, cfg, "cpu"),
-                 lambda: tmodel.init_cache(cfg, 2, 8, "cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            call()
+    params = tmodel.init(0, cfg, "cpu")
+    assert tmodule.count_params(params) > 0
+    assert all(t.device.type == "cpu"
+               for t in tree_leaves(tmodel.init_cache(cfg, 2, 8, "cpu")))
 
 
 @pytest.mark.parametrize("arch", jconfigs.list_archs())
