@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Planted faults in the composition, attention, SSD-chunk and RMSNorm
-kernels: does the smoke's phase 2 see them?
+kernels and in the merge over a cohort's shards: does the smoke see them?
 
     python3 chip_faults.py
 
 Run from the root of a checkout, on a machine with a CUDA device.  For
 each fault below it copies ``src/`` and ``chip_smoke.py`` into a fresh
-temporary directory, edits one line of one kernel source there (the
-checkout is not touched), and runs that kernel's phase 2 from
-``chip_smoke`` (``check_kernels``, ``check_attention`` or
-``check_ssd_rmsnorm``, which
-builds the edited kernel) in a process of its own.  Each fault must make
+temporary directory, edits one line of one kernel source (or of the
+port's merge) there (the checkout is not touched), and runs that
+kernel's phase 2 from ``chip_smoke`` (``check_kernels``,
+``check_attention`` or ``check_ssd_rmsnorm``, which builds the edited
+kernel), or path (v)'s first case (``check_mesh``: the merge over 8
+logical shards of the card), in a process of its own.  Each fault must make
 phase 2 fail at the first case that runs the edited code: the first
 conv_rank case for a dropped tap, its first stride-2 case for the
 padding's, the first rank_apply case for its column tiles', the first
@@ -24,7 +25,9 @@ kernel, the first flash case with per-row key counts for an ignored
 ``kv_len``, the first flash case with fewer queries than keys,
 non-causal, for a launcher that aligns such a call as causal, the first
 decode case for the merge's, the first bf16 ssd_chunk case for the bf16
-SSD kernels', the first (f32) rmsnorm case for the one-pass rmsnorm's.
+SSD kernels', the first (f32) rmsnorm case for the one-pass rmsnorm's, and path (v)'s
+first case for a shard fold that drops the last shard's partial and for a
+trainer's stack passed through to the merge whatever rows it asked for.
 Prints one line per fault (the case it failed at and its worst margin)
 and exits 1 unless every fault did.
 """
@@ -120,6 +123,15 @@ FAULTS = {
         r"<const float4\*>\(Ct \+ n \* SC_LD)",
         r"n < N - 1; ++n) {\n\1", 1,
         "ssd_chunk bfloat16", "check_ssd_rmsnorm"),
+    "merge: the shard fold drops the last shard's partial": (
+        "core/aggregation.py", r"for p in partials\[1:\]:",
+        "for p in partials[1:-1]:", 1,
+        "(v0) merge over 8 logical shards", "check_mesh"),
+    "merge: a stack passes through whatever its n_real": (
+        "fl/engine/collective.py",
+        r"rows == list\(range\(stack\.n_real\)\)",
+        "rows == list(range(len(rows)))", 1,
+        "(v0) merge over 8 logical shards", "check_mesh"),
     "rmsnorm: the row's last vector left out of the sum": (
         "rmsnorm.cu", r"for \(int v = 0; v < VPT; \+\+v\) ss \+= "
         r"sum_sq<T>\(xv\[v\]\);",
@@ -140,7 +152,8 @@ def plant(workdir: Path, source: str, pattern: str, repl: str,
     shutil.copytree(ROOT / "src", workdir / "src",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     shutil.copy(ROOT / "chip_smoke.py", workdir)
-    path = workdir / "src" / "repro_torch" / "csrc" / source
+    pkg = workdir / "src" / "repro_torch"
+    path = pkg / source if source.endswith(".py") else pkg / "csrc" / source
     text, n = re.subn(pattern, repl, path.read_text(), count=count)
     if n != count:
         raise RuntimeError(f"{source}: {pattern!r} found {n} times, not "
@@ -174,14 +187,14 @@ def main() -> int:
             failed = proc.returncode != 0 and "SmokeFailure" in out
             at_first = failed and bool(cases) and cases[-1] == first
             caught += at_first
-            print(f"fault [{name}]: phase 2 "
+            print(f"fault [{name}]: {FAULTS[name][5]} "
                   + (f"failed at its first case ({len(cases)} cases run): "
                      f"{cases[-1]}" if at_first else
                      f"did not fail at its first case {first!r}: exit "
                      f"{proc.returncode}, last case "
                      f"{cases[-1] if cases else None!r}"))
-    print(f"{caught} of {len(FAULTS)} planted faults failed phase 2 at "
-          "their first case")
+    print(f"{caught} of {len(FAULTS)} planted faults failed their check at "
+          "its first case")
     return 0 if caught == len(FAULTS) else 1
 
 

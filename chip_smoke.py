@@ -184,7 +184,17 @@ Run from the root of a checkout.  It
    hold the argmax to the
    forward's at 0.9 of positions, and each path launches exactly the
    zoo kernels its family has; (g) and (p)-(u) each trace a prefill and
-   4 serve steps;
+   4 serve steps; (v) step 9's multi-device part over logical shards of
+   the card (``sharding.fl.logical_devices``): (v0) the merge over 8
+   shards against the host rule and a trainer stack's hand-off, whole
+   and as a fastest-K subset; (v1) fedavg, heterofl, flanc and heroes on
+   the JAX package's ENGINE_SCRIPT schedule merged over 4 shards against
+   the host rules; (v2) heroes cohort with ``shard_server_state`` on 3
+   shards against one shard (coefficients in 3 slices, launches 3 times
+   the one-shard formula); (v3) an odd cohort against one shard; (v4)
+   fastest-K semi-async against the host rules; (v5) olmoe-1b-7b's MoE
+   layer through ``apply_moe_shardmap`` on a 2 x 4 grid against
+   ``moe.apply_moe``;
 4. traces one round of (c) with ``torch.profiler`` (device busy share,
    top kernels), with the sequential trainer and 4 clients and with the
    cohort trainer and 10, and prints the calibration
@@ -3372,6 +3382,424 @@ def telemetry_path(torch) -> tuple:
     return total, rec
 
 
+# path (v): step 9's multi-device part on logical shards of the card
+# (``sharding.fl.logical_devices``: one device listed once a shard): the
+# merge across shards, the sharded cohort trainer, the block-split server
+# state and the expert-parallel MoE.  One card proves the shard
+# arithmetic (padding to a multiple of the shard count, each shard's
+# ordered partials, their fold, the block slices, the masked clones);
+# NCCL and peer-to-peer copies need a second GPU.
+V_SHARDS = 4
+# max_width 3: 9 hidden and 3 anchored blocks, which 3 shards divide and
+# 4 do not; 4 clients a round pad to 6 rows, 2 of them masked clones
+V_SPLIT_SHARDS = 3
+V_TOL = 1e-5  # the JAX package's ENGINE_SCRIPT and SHARDED_SCRIPT
+# the JAX package's ENGINE_SCRIPT / SHARDED_SCRIPT schedule, and the
+# fastest-K semi-async one
+V_BASE = dict(num_clients=8, clients_per_round=3, eval_every=2, tau_fixed=2,
+              tau_max=15, estimate=True)
+V_ASYNC = dict(num_clients=10, clients_per_round=4, eval_every=100,
+               tau_fixed=3, tau_max=15, estimate=False,
+               round_mode="semi_async", async_k=2)
+V_PINS = dict(SCHEME_KNOBS)  # path (c)'s pinned auto
+V_ROUNDS, V2_ROUNDS, V4_EVENTS = 2, 3, 4
+V_SCHEMES = ("fedavg", "heterofl", "flanc", "heroes")
+V_EXPECT = ("compose", "conv_rank", "compose_apply")
+# (v5): olmoe-1b-7b's MoE layer at its widths (d_model 2048, 64 experts,
+# top-8, d_expert 1024), f32, capacity factor 8 so nothing drops, over 4
+# x 512 tokens (the zoo's prefill shape) on a 2 x 4 grid.  Both
+# formulations sum the same f32 products in other orders (TF32 off), and
+# a token whose top-8 set flips between the two router calls (their
+# logits are products of other shapes) is counted and left out
+V_MOE_ARCH = "olmoe-1b-7b"
+V_MOE_GRID = (2, 4)
+V_MOE_X = (4, 512)
+V_MOE_TOL = 1e-4
+V_MOE_MAX_FLIPS = 8
+
+
+def v_device(torch):
+    """The card, with its index (``cuda`` -> ``cuda:0``); the CPU when
+    rehearsed there."""
+    from repro_torch.sharding import fl as flsh
+
+    return flsh._concrete(DEVICE)
+
+
+def v_sync(torch) -> None:
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def v_peak_start(torch) -> int:
+    if DEVICE == "cpu":
+        return 0
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def v_peak(torch, base: int) -> int:
+    return 0 if DEVICE == "cpu" else torch.cuda.max_memory_allocated() - base
+
+
+def v_diff(a, b) -> float:
+    """The largest absolute difference of two params trees, split
+    coefficients made whole."""
+    from repro_torch.core.estimator import tree_leaves
+    from repro_torch.sharding import fl as flsh
+
+    return max(float((x - y).abs().max()) for x, y in zip(
+        tree_leaves(flsh.assemble(a)), tree_leaves(flsh.assemble(b))))
+
+
+def check_mesh(torch) -> dict:
+    """Path (v)'s first case, (v0): the merge over 8 logical shards of the
+    card, every shard holding a real client.  The JAX package's SCRIPT
+    (8 clients' random block subsets, ``masked_block_merge`` over the
+    shards against the host rule ``aggregate_coefficient``), and the
+    trainer's hand-off: a stack of 8 rows on the 8 shards merged whole
+    and as its first 4 rows (a fastest-K event), against plain means.
+    Fails if the shard fold drops a partial or a stack passes through
+    with rows the merge did not ask for."""
+    import numpy as np
+
+    from repro_torch.core import aggregation as agg
+    from repro_torch.fl.client import ClientResult
+    from repro_torch.fl.engine.collective import (CohortSlice, CohortStack,
+                                                  CollectiveMerger)
+    from repro_torch.sharding import fl as flsh
+
+    dev = v_device(torch)
+    with flsh.logical_devices(8, dev):
+        mesh = flsh.cohort_mesh(0, dev)
+    check(mesh is not None and mesh.size == 8, "(v0) no 8-shard mesh")
+    rng = np.random.default_rng(0)
+    nb, r, o = 9, 8, 64
+    prev = torch.tensor(rng.normal(size=(nb, r, o)), dtype=torch.float32,
+                        device=dev)
+    ids, blocks = [], []
+    for _ in range(8):
+        take = np.sort(rng.choice(nb, size=rng.integers(1, nb + 1),
+                                  replace=False))
+        ids.append(take)
+        blocks.append(torch.tensor(rng.normal(size=(len(take), r, o)),
+                                   dtype=torch.float32, device=dev))
+    host = agg.aggregate_coefficient(prev, blocks, ids)
+    dense, mask = agg.scatter_contributions_host(blocks, ids, nb)
+    merged = agg.masked_block_merge(flsh.split_rows(dense, mesh),
+                                    flsh.split_rows(mask, mesh), prev,
+                                    mesh=mesh)
+    errs = {"script": float((merged - host).abs().max())}
+    rows = torch.tensor(rng.normal(size=(8, nb, r, o)), dtype=torch.float32,
+                        device=dev)
+    stack = CohortStack([{"w": t} for t in flsh.split_rows(rows, mesh)], 8,
+                        mesh)
+    merger = CollectiveMerger(mesh)
+    zero = {"w": torch.zeros_like(rows[0])}
+
+    def results(js):
+        return {j: ClientResult(CohortSlice(stack, j), {}, 0.0, 0.0)
+                for j in js}
+
+    for label, js in (("stack", range(8)), ("stack first 4", range(4))):
+        got = merger.merge_dense_mean(zero, results(js))["w"]
+        errs[label] = float((got - rows[list(js)].mean(0)).abs().max())
+    err = max(errs.values())
+    print(f"  (v0) merge over 8 logical shards: max_abs_err {err:.3e} "
+          f"{json.dumps(errs)} (tolerance {V_TOL})")
+    check(err <= V_TOL, f"(v0) the merge over 8 shards differs: {errs}")
+    return errs
+
+
+def v_runner(torch, setup, scheme, shards, **knobs):
+    from repro_torch.fl import FLConfig, build_runner
+    from repro_torch.sharding import fl as flsh
+
+    dev = v_device(torch)
+    if shards > 1:
+        with flsh.logical_devices(shards, dev):
+            return build_runner(scheme, *setup, cfg=FLConfig(**knobs),
+                                device=dev)
+    return build_runner(scheme, *setup, cfg=FLConfig(**knobs), device=dev)
+
+
+def v_rounds(torch, runner, n: int) -> list:
+    secs = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        runner.run_round()
+        v_sync(torch)
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def v1_merge(torch) -> dict:
+    """(v1): the CNN at full width on ENGINE_SCRIPT's schedule (8
+    clients, 3 a round, so the rows pad to 4), each scheme's 2 rounds on
+    the collective merge over 4 shards against the same run on the host
+    rules: wall times equal, params within ``V_TOL``."""
+    from repro_torch.fl import build_image_setup
+
+    setup = build_image_setup(num_clients=8, device=v_device(torch))
+    rec = {}
+    for scheme in V_SCHEMES:
+        host = v_runner(torch, setup, scheme, 1, **V_BASE, **V_PINS,
+                        agg_backend="host")
+        mesh = v_runner(torch, setup, scheme, V_SHARDS, **V_BASE, **V_PINS)
+        check(host.merger is None and mesh.merger.mesh.size == V_SHARDS,
+              f"(v1 {scheme}) the merge is not over {V_SHARDS} shards")
+        hm, mm = (timed_merges(torch, r, DEVICE) for r in (host, mesh))
+        hs, ms = v_rounds(torch, host, V_ROUNDS), v_rounds(torch, mesh,
+                                                           V_ROUNDS)
+        for a, b in zip(host.history, mesh.history):
+            check(a.wall_time == b.wall_time
+                  and a.traffic_bytes == b.traffic_bytes,
+                  f"(v1 {scheme}) round {a.round}'s schedule differs")
+        diff = v_diff(host.params, mesh.params)
+        rec[scheme] = {"max_param_diff": diff,
+                       "merge_ms": [1e3 * t for t in mm],
+                       "host_merge_ms": [1e3 * t for t in hm],
+                       "s_per_round": ms, "host_s_per_round": hs}
+        print(f"  (v1 {scheme}) merge over {V_SHARDS} shards against the "
+              f"host rules: {json.dumps(rec[scheme])}")
+        check(diff <= V_TOL, f"(v1 {scheme}) params differ by {diff:.3e}")
+    return rec
+
+
+def v2_split(torch) -> dict:
+    """(v2): heroes, path (c)'s pinned auto, ``trainer="cohort"`` and
+    ``shard_server_state`` on 3 shards, 3 rounds of 4 of 10 clients,
+    against the same run on one shard: schedule, wall times and traffic
+    equal, accuracy within 2 test samples, every coefficient split into
+    3 slices after each round, and each composition kernel's training
+    launches equal to the per-shard formula (each shard runs each group
+    on its slice: 3 times ``expected_training_launches``)."""
+    from repro_torch.fl import build_image_setup
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.sharding import fl as flsh
+
+    setup = build_image_setup(num_clients=10, device=v_device(torch))
+    knobs = dict(num_clients=10, clients_per_round=4, eval_every=1,
+                 trainer="cohort", shard_server_state=True, **V_PINS)
+    n_test = int(setup[3]["labels"].shape[0])
+    runs = {}
+    for shards in (1, V_SPLIT_SHARDS):
+        runner = v_runner(torch, setup, "heroes", shards, **knobs)
+        rec = record_training(runner)
+        merges = timed_merges(torch, runner, DEVICE)
+        base = v_peak_start(torch)
+        before = dict(LAUNCHES)
+        secs, splits = [], []
+        for _ in range(V2_ROUNDS):
+            secs += v_rounds(torch, runner, 1)
+            splits.append([len(t["coeff"].parts)
+                           if isinstance(t["coeff"], flsh.SplitBlocks)
+                           else 1 for t in runner.params.values()])
+        counts = {k: n - before[k] for k, n in LAUNCHES.items()}
+        train = {k: counts[k] - rec["eval"][k] for k in COMPOSITION}
+        want = {k: shards * n for k, n in expected_training_launches(
+            runner, rec["assigns"], True).items()}
+        r = {"s_per_round": secs, "merge_ms": [1e3 * t for t in merges],
+             "peak_bytes": v_peak(torch, base), "slices": splits,
+             "training_launches": train, "expected": want,
+             "launches": {k: n for k, n in counts.items() if n},
+             "accuracy": [h.accuracy for h in runner.history]}
+        print(f"  (v2) heroes cohort, shard_server_state, {shards} "
+              f"shard{'s' if shards > 1 else ''}: {json.dumps(r)}")
+        check_run(torch, f"v2 {shards}", AssembledView(runner))
+        check(train == want, f"(v2 {shards}) training launches {train}, "
+              f"the per-shard formula {want}")
+        for k in V_EXPECT:
+            check(counts[k] > 0, f"(v2 {shards}) never launched {k}")
+        runs[shards] = (runner, r)
+    (one, r1), (split, r3) = runs[1], runs[V_SPLIT_SHARDS]
+    check(all(s == [V_SPLIT_SHARDS] * len(s) for s in r3["slices"]),
+          f"(v2) a coefficient is not split into {V_SPLIT_SHARDS}: "
+          f"{r3['slices']}")
+    for a, b in zip(one.history, split.history):
+        check((a.wall_time, a.traffic_bytes, a.makespan, a.mean_tau) ==
+              (b.wall_time, b.traffic_bytes, b.makespan, b.mean_tau),
+              f"(v2) round {a.round}'s schedule differs from one shard")
+        check(abs(a.accuracy - b.accuracy) <= 2.0 / n_test,
+              f"(v2) round {a.round}'s accuracy differs from one shard")
+    r3["max_param_diff_one_shard"] = v_diff(one.params, split.params)
+    print(f"  (v2) s/round {r3['s_per_round']} on {V_SPLIT_SHARDS} shards "
+          f"against {r1['s_per_round']} on one; merge ms "
+          f"{r3['merge_ms']} against {r1['merge_ms']}; peak memory above "
+          f"the start {r3['peak_bytes']} B against {r1['peak_bytes']} B; "
+          f"max param diff {r3['max_param_diff_one_shard']:.3e}; "
+          f"{card_line()}")
+    return {"split": r3, "one_shard": r1}
+
+
+class AssembledView:
+    """A runner's view for ``check_run`` with split coefficients whole."""
+
+    def __init__(self, runner):
+        from repro_torch.sharding import fl as flsh
+
+        self.history = runner.history
+        self.bound_state = runner.bound_state
+        self.params = flsh.assemble(runner.params)
+
+
+def v3_odd(torch) -> dict:
+    """(v3): an odd cohort, 3 of 8 clients on 4 shards (one masked clone
+    row), gives each client the params the cohort on one shard gives,
+    within ``V_TOL`` (fedavg, as SHARDED_SCRIPT; heroes pinned auto)."""
+    from repro_torch.core.estimator import tree_leaves
+    from repro_torch.fl import build_image_setup
+
+    setup = build_image_setup(num_clients=8, device=v_device(torch))
+    rec = {}
+    for scheme in ("fedavg", "heroes"):
+        coh = v_runner(torch, setup, scheme, V_SHARDS, **V_BASE, **V_PINS,
+                       trainer="cohort")
+        ref = v_runner(torch, setup, scheme, V_SHARDS, **V_BASE, **V_PINS,
+                       trainer="cohort", trainer_mesh_devices=1)
+        check(coh.trainer.mesh is not None and ref.trainer.mesh is None,
+              f"(v3 {scheme}) the trainers' shards are not 4 and 1")
+        _, a4 = coh.assignment.assign(coh.state, [0, 1, 2])
+        _, a1 = ref.assignment.assign(ref.state, [0, 1, 2])
+        r4 = coh.trainer.train_all(coh.state, a4)
+        r1 = ref.trainer.train_all(ref.state, a1)
+        worst, ok = 0.0, True
+        for n in r1:
+            for x, y in zip(tree_leaves(r4[n].host_params()),
+                            tree_leaves(r1[n].host_params())):
+                d = abs(x - y)
+                worst = max(worst, float(d.max()))
+                ok = ok and bool((d <= V_TOL + V_TOL * abs(y)).all())
+        rec[scheme] = worst
+        print(f"  (v3 {scheme}) 3 of 8 on {V_SHARDS} shards against one "
+              f"shard: max per-client param diff {worst:.3e}")
+        check(ok, f"(v3 {scheme}) per-client params differ: {worst:.3e}")
+    return rec
+
+
+def v4_async(torch) -> dict:
+    """(v4): fastest-K semi-async (the fastest 2 of 4 in flight, 10
+    clients, ``trainer="cohort"``), 4 events on the collective merge over
+    4 shards against the host rules: wall times equal, no ``CohortSlice``
+    left in flight after an event, params within ``V_TOL``; fedavg's
+    all-fresh event merges a strict subset of a trained stack through
+    the plain prep, not the stack as it lies."""
+    from repro_torch.fl import build_image_setup
+    from repro_torch.fl.engine.collective import CohortSlice
+
+    setup = build_image_setup(num_clients=10, device=v_device(torch))
+    rec = {}
+    for scheme in ("fedavg", "heroes"):
+        host = v_runner(torch, setup, scheme, V_SHARDS, **V_ASYNC, **V_PINS,
+                        agg_backend="host", trainer="cohort")
+        coll = v_runner(torch, setup, scheme, V_SHARDS, **V_ASYNC, **V_PINS,
+                        trainer="cohort")
+        seen = []  # (a strict subset of a stack's real rows, passed)
+        stacked = coll.merger._device_stacked
+
+        def spy(results, k_pad, stacked=stacked, seen=seen):
+            out = stacked(results, k_pad)
+            slices = [r.params for r in results.values()]
+            if all(isinstance(p, CohortSlice) for p in slices):
+                seen.append((len(slices) < slices[0].stack.n_real,
+                             out is not None))
+            return out
+
+        coll.merger._device_stacked = spy
+        for _ in range(V4_EVENTS):
+            a, b = host.run_round(), coll.run_round()
+            check(a.wall_time == b.wall_time,
+                  f"(v4 {scheme}) event {a.round}'s wall time differs")
+            check(not any(isinstance(t.result.params, CohortSlice)
+                          for t in coll.state.in_flight),
+                  f"(v4 {scheme}) a CohortSlice stayed in flight")
+        diff = v_diff(host.params, coll.params)
+        rec[scheme] = {"max_param_diff": diff, "subset_merges": seen,
+                       "stale": [h.stale for h in coll.history]}
+        print(f"  (v4 {scheme}) fastest-K on {V_SHARDS} shards against the "
+              f"host rules: {json.dumps(rec[scheme])}")
+        check(scheme != "fedavg" or ((True, False) in seen
+                                     and (True, True) not in seen),
+              f"(v4 {scheme}) no subset merge, or one passed: {seen}")
+        check(diff <= V_TOL, f"(v4 {scheme}) params differ by {diff:.3e}")
+    return rec
+
+
+def v5_moe(torch, cfg=None, x_shape=V_MOE_X) -> dict:
+    """(v5): ``apply_moe_shardmap`` on a 2 x 4 grid of the card against
+    the port's ``moe.apply_moe`` at olmoe-1b-7b's layer widths, tokens
+    whose top-8 set flips between the two router calls left out."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models.moe_shardmap import apply_moe_shardmap
+
+    dev = v_device(torch)
+    cfg = cfg or configs.get_config(V_MOE_ARCH)
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    base = v_peak_start(torch)
+    gen = torch.Generator(dev).manual_seed(0)
+    params = moe.init_moe(gen, cfg, torch.float32)
+    B, S = x_shape
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    grid = [[dev] * V_MOE_GRID[1]] * V_MOE_GRID[0]
+    with torch.no_grad():
+        y = apply_moe_shardmap(params, cfg, x, grid)
+        ref, _ = moe.apply_moe(params, cfg, x)
+        ms = {}
+        for label, fn in (("shardmap", lambda: apply_moe_shardmap(
+                params, cfg, x, grid)),
+                          ("apply_moe", lambda: moe.apply_moe(params, cfg,
+                                                              x))):
+            v_sync(torch)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            v_sync(torch)
+            ms[label] = 1e3 * (time.perf_counter() - t0) / 3
+        ids = moe.router_topk(params["router"], x, cfg)[2]
+        rows = B // V_MOE_GRID[0]
+        shard_ids = torch.cat([moe.router_topk(
+            params["router"], x[i * rows:(i + 1) * rows].reshape(-1,
+                                                                cfg.d_model),
+            cfg)[2].reshape(rows, S, -1) for i in range(V_MOE_GRID[0])])
+        keep = (ids.sort(-1).values == shard_ids.sort(-1).values).all(-1)
+    err = float((y - ref).abs().amax(-1)[keep].max())
+    rec = {"max_abs_err": err, "flips": int((~keep).sum()),
+           "tokens": B * S, "ms": ms, "peak_bytes": v_peak(torch, base),
+           "finite": bool(torch.isfinite(y).all()),
+           "expert_bytes": sum(params[k].numel() * 4
+                               for k in ("gate", "up", "down"))}
+    print(f"  (v5) {V_MOE_ARCH}'s MoE layer on a {V_MOE_GRID[0]}x"
+          f"{V_MOE_GRID[1]} grid against moe.apply_moe: {json.dumps(rec)} "
+          f"(tolerance {V_MOE_TOL}, at most {V_MOE_MAX_FLIPS} flips)")
+    check(rec["finite"] and tuple(y.shape) == (B, S, cfg.d_model),
+          "(v5) non-finite or misshapen output")
+    check(rec["flips"] <= V_MOE_MAX_FLIPS, f"(v5) {rec['flips']} flips")
+    check(err <= V_MOE_TOL, f"(v5) apply_moe_shardmap differs by {err:.3e}")
+    del params
+    return rec
+
+
+def mesh_path(torch) -> tuple:
+    """Path (v): (v0) the merge over 8 shards, (v1)-(v4) the CNN engine
+    over logical shards of the card, (v5) the expert-parallel MoE; launch
+    counts set to 0 just before and read just after.  Returns (launch
+    counts, records)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    recs = {"v0": check_mesh(torch)}
+    reset_launches()
+    recs["v1"] = v1_merge(torch)
+    recs["v2"] = v2_split(torch)
+    recs["v3"] = v3_odd(torch)
+    recs["v4"] = v4_async(torch)
+    recs["v5"] = v5_moe(torch)
+    counts = dict(LAUNCHES)
+    for k in V_EXPECT:
+        check(counts[k] > 0, f"(v) never launched {k}")
+    return counts, recs
+
+
 def serve_path(torch, model, params):
     """Path (e)'s serving half: compose the heroes weights once per width
     and greedy-decode ``SERVE_STEPS`` tokens for ``SERVE_BATCH`` prompts
@@ -4953,6 +5381,11 @@ def main_path(torch, rt):
     print(f"  (o) telemetry, {ROUNDS} rounds each, jsonl, beside the runs "
           "with it off")
     by_path["o"], scheme_recs["o"] = telemetry_path(torch)
+    # (v) step 9's multi-device part on logical shards of the card
+    print(f"  (v) the merge, the cohort trainer and the server state over "
+          f"logical shards of the card, and {V_MOE_ARCH}'s expert-parallel "
+          "MoE layer")
+    by_path["v"], scheme_recs["v"] = mesh_path(torch)
 
     for counts in by_path.values():
         for k, n in counts.items():

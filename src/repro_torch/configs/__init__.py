@@ -2,9 +2,8 @@
 
 The same ten configurations as the JAX package's ``configs``, and the
 same sliding-window variant for long contexts (:func:`config_for_shape`).
-Of their families the port runs ``dense`` (gemma-2b, stablelm-3b,
-deepseek-coder-33b, granite-34b) and ``hybrid`` (zamba2-2.7b) so far;
-the model zoo raises ``NotImplementedError`` for the others.
+The port's model zoo runs every family among them: dense, hybrid, moe,
+ssm, vlm and audio.
 """
 
 from __future__ import annotations

@@ -4,6 +4,12 @@ from repro_torch.core.aggregation import (  # noqa: F401
     aggregate_basis,
     aggregate_coefficient,
     blend,
+    fold_shards,
+    masked_block_mean,
+    masked_block_merge,
+    ordered_sum,
+    scatter_contribution,
+    scatter_contributions_host,
     zero_pad,
 )
 from repro_torch.core.composition import (  # noqa: F401

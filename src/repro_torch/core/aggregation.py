@@ -5,18 +5,32 @@
   over exactly the clients that trained it this round; blocks nobody
   trained keep their previous value.
 
-These are the per-client loops of the reference's ``agg_backend="host"``
-path.  On one device its ``"collective"`` backend computes the same merge
-bit for bit in a stacked form; the port runs these loops for both values
-and brings the stacked form, and the reference's ``masked_block_mean``
-(a ``psum`` over a device mesh), with the multi-device merge (ROADMAP
-queue A step 9).  Staleness and sample weights go through one function,
-:func:`blend`.
+Two forms:
+
+``aggregate_*``           — the per-client loops of the reference's
+                            ``agg_backend="host"`` path; on one device the
+                            engine runs them for both backends (the
+                            reference's ``"collective"`` backend gives the
+                            same state bit for bit there).
+``masked_block_merge``    — the stacked form: contributions laid out on a
+                            leading client axis, folded left to right by
+                            :func:`ordered_sum` (bit for bit the host loop
+                            without shards); over a cohort's shards each
+                            shard folds its rows and :func:`fold_shards`
+                            folds the partials in shard order (the
+                            reference's ``psum``, equal to the host loop
+                            to float tolerance).  ``masked_block_mean`` is
+                            the one-row-per-shard case.
+
+Zero rows are exact no-ops under IEEE addition, which makes the dense
+zero-padded contribution form (:func:`scatter_contributions_host`) equal
+to the sparse scatter form.  Staleness and sample weights go through one
+function, :func:`blend`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -104,3 +118,113 @@ def aggregate_coefficient(global_coeff: Tensor,
     denom = torch.where(trained, cnt, torch.ones_like(cnt))
     mean = acc / denom[:, None, None].to(acc.dtype)
     return torch.where(trained[:, None, None], mean, global_coeff)
+
+
+# ---------------------------------------------------------------------------
+# the stacked (collective) form
+# ---------------------------------------------------------------------------
+
+
+def ordered_sum(stacked: Tensor) -> Tensor:
+    """Sum over the leading axis with fixed left-to-right association:
+    bit for bit the loop ``acc = acc + stacked[k]`` from zeros (the host
+    rules' order), which ``torch.sum`` does not promise."""
+    acc = torch.zeros_like(stacked[0])
+    for row in stacked:
+        acc = acc + row
+    return acc
+
+
+def fold_shards(partials: Sequence[Tensor]) -> Tensor:
+    """The shards' ``psum``: their partials folded in shard order on the
+    first shard's device."""
+    total = partials[0]
+    for p in partials[1:]:
+        total = total + p.to(total.device)
+    return total
+
+
+def scatter_contribution(updated_blocks: Tensor, block_ids,
+                         num_blocks: int) -> Tuple[Tensor, Tensor]:
+    """One client's dense zero-padded contribution ``(num_blocks, R, O)``
+    and its mask ``(num_blocks,)``; duplicate ids add, as the host rule's
+    ``index_add`` does."""
+    dense, mask = scatter_contributions_host([updated_blocks], [block_ids],
+                                             num_blocks)
+    return dense[0], mask[0]
+
+
+def scatter_contributions_host(client_blocks, client_block_ids,
+                               num_blocks: int, dtype=None
+                               ) -> Tuple[Tensor, Tensor]:
+    """Stacked dense contributions ``(K, num_blocks, R, O)`` and masks
+    ``(K, num_blocks)`` of a cohort, built on the blocks' device with one
+    ``index_add`` for each (the JAX package builds them in numpy on the
+    host).  ``client_blocks`` is a sequence of per-client ``(m_n, R, O)``
+    tensors (``m_n`` may differ) or one stacked ``(K, m, R, O)`` tensor
+    with ``client_block_ids`` ``(K, m)``.  Duplicate ids within a client
+    accumulate; ``dtype`` casts the blocks first."""
+    if isinstance(client_blocks, torch.Tensor):
+        client_blocks = list(client_blocks.unbind(0))
+    ids = [np.asarray(i, np.int64).reshape(-1) for i in client_block_ids]
+    first = client_blocks[0]
+    dev, dt = first.device, dtype or first.dtype
+    k = len(client_blocks)
+    r, o = first.shape[-2:]
+    flat = torch.as_tensor(np.concatenate(
+        [j * num_blocks + i for j, i in enumerate(ids)]), device=dev)
+    rows = torch.cat([b.to(dt).reshape(-1, r, o) for b in client_blocks])
+    dense = torch.zeros((k * num_blocks, r, o), dtype=dt,
+                        device=dev).index_add_(0, flat, rows)
+    mask = torch.zeros((k * num_blocks,), dtype=torch.float32,
+                       device=dev).index_add_(
+                           0, flat, torch.ones(flat.shape[0], device=dev))
+    return dense.reshape(k, num_blocks, r, o), mask.reshape(k, num_blocks)
+
+
+Stack = Union[Tensor, Sequence[Tensor]]
+
+
+def _total(stack: Stack, sharded: bool) -> Tensor:
+    if not sharded:
+        return ordered_sum(stack)
+    return fold_shards([ordered_sum(s) for s in stack])
+
+
+def _masked_mean(total: Tensor, count: Tensor, prev_coeff: Tensor) -> Tensor:
+    prev_coeff = prev_coeff.to(total.device)
+    trained = count > 0
+    denom = torch.where(trained, count, torch.ones_like(count))
+    mean = total / denom[:, None, None].to(total.dtype)
+    return torch.where(trained[:, None, None], mean, prev_coeff)
+
+
+def masked_block_merge(dense_stack: Stack, mask_stack: Stack,
+                       prev_coeff: Tensor, mesh=None) -> Tensor:
+    """Eq. (5) over a stacked client axis: ordered fold, then the shard
+    fold.
+
+    Without ``mesh`` the stacks are single tensors and this reproduces
+    :func:`aggregate_coefficient` with ``weights=None`` bit for bit (the
+    same left-to-right additions; zero rows are no-ops).  With ``mesh``
+    (a :class:`~repro_torch.sharding.fl.CohortMesh`, in place of the JAX
+    package's ``axis_name``) they are sequences of per-shard stacks, each
+    on its shard's device: each shard folds its rows, and the partials are
+    folded in shard order (float tolerance against the host loop).
+    Returns the merged coefficient on the first shard's device.
+    """
+    sharded = mesh is not None
+    return _masked_mean(_total(dense_stack, sharded),
+                        _total(mask_stack, sharded), prev_coeff)
+
+
+def masked_block_mean(dense_contrib: Sequence[Tensor],
+                      mask: Sequence[Tensor], prev_coeff: Tensor,
+                      mesh) -> Tensor:
+    """Collective Eq. (5) with one client on each shard: the shard fold of
+    the dense contributions over the shard fold of the masks."""
+    if len(dense_contrib) != mesh.size:
+        raise ValueError(f"{len(dense_contrib)} contributions for "
+                         f"{mesh.size} shards")
+    return _masked_mean(fold_shards(dense_contrib), fold_shards(mask),
+                        prev_coeff)

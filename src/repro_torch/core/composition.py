@@ -120,7 +120,10 @@ def gather_blocks(coefficient: Tensor, block_ids) -> Tensor:
     """Reduced coefficient ``û``: gather ``(m, R, O)`` from ``(P^2, R, O)``.
 
     ``block_ids`` are host-side control indices, validated eagerly so an
-    id-bookkeeping bug raises instead of gathering the wrong block.
+    id-bookkeeping bug raises instead of gathering the wrong block.  A
+    coefficient split over a cohort's shards (one with a ``take_blocks``
+    method, the engine's split server state) gathers from the shards that
+    hold the blocks.
     """
     ids = np.asarray(block_ids)
     n = coefficient.shape[0]
@@ -128,6 +131,8 @@ def gather_blocks(coefficient: Tensor, block_ids) -> Tensor:
         raise ValueError(
             f"block ids out of range: got ids in [{ids.min()}, {ids.max()}] "
             f"for a coefficient with {n} blocks")
+    if hasattr(coefficient, "take_blocks"):
+        return coefficient.take_blocks(ids)
     idx = torch.as_tensor(ids.astype(np.int64), device=coefficient.device)
     return coefficient.index_select(0, idx)
 

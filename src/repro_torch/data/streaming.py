@@ -148,15 +148,23 @@ def round_batch_indices(seed: int, rnd: int, n: int, num_samples: int,
     return idx, est_idx
 
 
-def stack_client_shards(per_client: Sequence[np.ndarray],
-                        step_leading: bool = False) -> np.ndarray:
-    """Stack per-client batch arrays along a new client axis, as the JAX
-    package's ``stack_client_shards`` does for one device (one chunk):
-    ``(C, steps, ...)``, or with ``step_leading`` ``(steps, C, ...)``, the
-    layout the cohort step reads a step from.  Per-device chunks wait for
-    the cohort trainer across GPUs (ROADMAP queue A step 9)."""
-    stk = np.stack(per_client)
-    return np.moveaxis(stk, 0, 1) if step_leading else stk
+def stack_client_shards(per_client: Sequence[np.ndarray], chunks: int,
+                        step_leading: bool = False) -> List[np.ndarray]:
+    """Stack per-client batch arrays into ``chunks`` contiguous groups,
+    one per shard of the cohort: each chunk is stacked on its own, so the
+    full cohort batch never exists contiguously on the host.  A chunk is
+    ``(C/chunks, steps, ...)``, or with ``step_leading`` ``(steps,
+    C/chunks, ...)``, the layout the cohort step reads a step from;
+    ``chunks=1`` gives the one stack of the whole cohort."""
+    n = len(per_client)
+    if n % chunks:
+        raise ValueError(f"{n} clients not divisible into {chunks} chunks")
+    per = n // chunks
+    out = []
+    for c in range(chunks):
+        stk = np.stack(per_client[c * per:(c + 1) * per])
+        out.append(np.moveaxis(stk, 0, 1) if step_leading else stk)
+    return out
 
 
 def pack_arrays(arrays: Sequence[np.ndarray]):

@@ -82,8 +82,12 @@ class ClientResult:
 
     def host_params(self) -> Any:
         """Params copied to host numpy, for the checkpoint codec; during a
-        run results stay on the device."""
-        return tree_map(lambda t: t.detach().cpu().numpy(), self.params)
+        run results stay on the device.  A sharded cohort trainer hands
+        the collective merger rows of its per-shard stacks (``params``
+        with a ``materialize``), which this materializes first."""
+        mat = getattr(self.params, "materialize", None)
+        params = mat() if mat is not None else self.params
+        return tree_map(lambda t: t.detach().cpu().numpy(), params)
 
 
 def local_train(

@@ -11,14 +11,17 @@ client contribution is first blended toward the *current* global state::
 so a fully fresh client (w=1) merges exactly as in the synchronous rule
 and an infinitely stale one (w=0) is a no-op.
 
-The merges are the JAX package's host rules: per-client loops over the
-cohort in dispatch order.  Both ``agg_backend`` values run them: on one
-device the reference's ``"collective"`` backend gives the same state bit
-for bit, and its stacked form waits for the multi-device merge (ROADMAP
-queue A step 9), where a ``psum`` gives it work these loops cannot do.
-With ``edge_groups > 1`` on the collective backend the runner's
+Two merge paths share each rule.  On one device both ``agg_backend``
+values run the JAX package's host rules, per-client loops over the
+cohort in dispatch order (the reference's ``"collective"`` backend gives
+the same state bit for bit there); with ``edge_groups > 1`` on the
+collective backend the runner's
 :class:`~repro_torch.fl.population.hierarchy.HierarchicalMerger` also
-folds each edge group's partials beside the merge.
+folds each edge group's partials beside the merge.  On the collective
+backend over two or more shards (``agg_devices``) each rule routes
+through the runner's merger (``eng.merger.merge_*``,
+:mod:`repro_torch.fl.engine.collective`): stacked contributions, each
+shard's ordered fold, then the fold of the shard partials.
 
 On the collective backend each merge adds one to the telemetry counter
 ``aggregate.collective_calls[rule=...]`` under the rule the reference's
@@ -54,6 +57,13 @@ def count_merge(eng, rule: str) -> None:
     collective backend, for telemetry."""
     if eng.obs.enabled and eng.cfg.agg_backend == "collective":
         eng.obs.counter_add("aggregate.collective_calls", rule=rule)
+
+
+def mesh_merger(eng):
+    """The runner's merger when it merges over shards, else ``None``."""
+    merger = eng.merger
+    return merger if merger is not None and merger.mesh is not None \
+        else None
 
 
 def _mean_bound(state: ServerState, results, lr: float,
@@ -93,12 +103,20 @@ class DenseMeanAggregator(Aggregator):
 
     def aggregate(self, state, results, assigns, weights=None) -> ServerState:
         count_merge(self.eng, self.rule)
-        if self.eng.merger is not None:
-            self._edge_fold(state, results, weights)
+        merger = mesh_merger(self.eng)
+        if merger is not None:
+            params = self._merge_mesh(merger, state, results, weights)
+        else:
+            if self.eng.merger is not None:
+                self._edge_fold(state, results, weights)
+            params = self._merge(state, results, weights)
         return dataclasses.replace(
-            state, params=self._merge(state, results, weights),
+            state, params=params,
             bound_state=_mean_bound(state, results, self.eng.cfg.lr,
                                     clip=False))
+
+    def _merge_mesh(self, merger, state, results, weights):
+        return merger.merge_dense_mean(state.params, results, weights)
 
     def _edge_fold(self, state, results, weights) -> None:
         self.eng.merger.fold_dense_mean(state.params, results, weights)
@@ -126,6 +144,9 @@ class MaskedDenseAggregator(DenseMeanAggregator):
     def client_params(self, state: ServerState, n: int,
                       assignment: Assignment) -> Any:
         return self.eng.model.slice_dense(state.params, assignment["width"])
+
+    def _merge_mesh(self, merger, state, results, weights):
+        return merger.merge_masked_dense(state.params, results, weights)
 
     def _edge_fold(self, state, results, weights) -> None:
         self.eng.merger.fold_masked_dense(state.params, results, weights)
@@ -182,6 +203,13 @@ class FlancAggregator(Aggregator):
     def aggregate(self, state, results, assigns, weights=None) -> ServerState:
         count_merge(self.eng, self.rule)
         basis, coeffs = state.params["basis"], state.params["coeffs"]
+        merger = mesh_merger(self.eng)
+        if merger is not None:
+            widths = {n: assigns[n]["width"] for n in results}
+            basis, coeffs = merger.merge_flanc(basis, coeffs, results,
+                                               widths, weights)
+            return dataclasses.replace(
+                state, params={"basis": basis, "coeffs": coeffs})
 
         def contrib(n, name, key, prev):
             return blend(results[n].params[name][key],
@@ -233,6 +261,18 @@ class HeroesAggregator(Aggregator):
 
     def aggregate(self, state, results, assigns, weights=None) -> ServerState:
         count_merge(self.eng, self.rule)
+        merger = mesh_merger(self.eng)
+        if merger is not None:
+            new = merger.merge_factorized(state.params, self.eng.model.specs,
+                                          results, assigns, weights)
+        else:
+            new = self._merge_host(state, results, assigns, weights)
+        return dataclasses.replace(
+            state, params=new,
+            bound_state=_mean_bound(state, results, self.eng.cfg.lr,
+                                    clip=True))
+
+    def _merge_host(self, state, results, assigns, weights):
         if self.eng.merger is not None:
             self.eng.merger.fold_factorized(state.params, self.eng.model.specs,
                                             results, assigns, weights)
@@ -251,10 +291,7 @@ class HeroesAggregator(Aggregator):
                     [np.asarray(assigns[n][ids_key]) for n in results],
                     weights=ws),
             }
-        return dataclasses.replace(
-            state, params=new,
-            bound_state=_mean_bound(state, results, self.eng.cfg.lr,
-                                    clip=True))
+        return new
 
     def evaluate(self, state: ServerState) -> float:
         # the width-``eval_width`` sub-model built from the first blocks

@@ -46,6 +46,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from repro_torch.fl.engine.base import RoundLoop
+from repro_torch.fl.engine.collective import CohortSlice, plain_params
 from repro_torch.fl.types import InFlight, RoundLog, ServerState
 
 
@@ -234,6 +235,14 @@ class SemiAsyncRoundLoop(RoundLoop):
             for t in done:
                 obs.observe("staleness", float(state.round - t.dispatched))
         state = _merge(eng, state, results, assigns, weights, stale=stale)
+        # stragglers must not keep a sharded trainer's per-shard stacks
+        # alive across events: their results become plain tensors now,
+        # so each stack dies with its event
+        remaining = tuple(
+            dataclasses.replace(t, result=dataclasses.replace(
+                t.result, params=plain_params(t.result.params)))
+            if isinstance(t.result.params, CohortSlice) else t
+            for t in remaining)
 
         makespan = t_k - state.wall  # time since the previous aggregation
         wait = float(np.mean([t_k - t.finish for t in done]))

@@ -1,7 +1,7 @@
 """The engine runner: component wiring around an explicit ServerState.
 
 The runner owns the *static* collaborators — model, data partitions,
-heterogeneity model, the edge-group merger, the scheme components, the
+heterogeneity model, the collective merger, the scheme components, the
 device — and exactly ONE mutable slot: ``self.state``, the current
 :class:`~repro_torch.fl.types.ServerState`.  Each ``run_round`` installs
 the state returned by the loop and (when ``FLConfig.checkpoint_every`` is
@@ -29,35 +29,22 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import npz_ckpt
 from repro_torch.core import convergence
 from repro_torch.data.streaming import ClientDataLoader
+from repro_torch.fl.engine import collective
 from repro_torch.fl.engine import state as state_lib
 from repro_torch.fl.engine.base import (Aggregator, AssignmentPolicy,
                                         LocalTrainer, ParticipationScheduler,
                                         PayloadModel, RoundLoop)
 from repro_torch.fl.heterogeneity import HeterogeneityModel
 from repro_torch.fl.models import FLModelDef
-from repro_torch.fl.population.hierarchy import HierarchicalMerger
 from repro_torch.fl.population.schedulers import build_scheduler
 from repro_torch.fl.types import FLConfig, RoundLog, ServerState
 from repro_torch.obs import build_recorder
 
 
 def check_ported(cfg: FLConfig) -> None:
-    """Raise ``NotImplementedError`` for knob values this port does not
-    run yet, naming the ROADMAP step (queue A) that brings each in."""
+    """Raise ``ValueError`` for knob values no engine runs."""
     if cfg.agg_backend not in ("collective", "host"):
         raise ValueError(f"unknown agg_backend {cfg.agg_backend!r}")
-    later = []
-    if cfg.agg_backend == "collective" and cfg.agg_devices > 1:
-        later.append(f"agg_devices={cfg.agg_devices}: a merge across "
-                     "devices (step 9)")
-    if cfg.trainer_mesh_devices > 1:
-        later.append(f"trainer_mesh_devices={cfg.trainer_mesh_devices}: "
-                     "a cohort's clients trained across devices (step 9)")
-    if cfg.shard_server_state:
-        later.append("shard_server_state: server state sharded across "
-                     "devices (step 9)")
-    if later:
-        raise NotImplementedError("not ported yet: " + "; ".join(later))
     if cfg.clock_model not in ("dense", "rank_aware"):
         raise ValueError(f"unknown clock_model {cfg.clock_model!r} "
                          f"(expected 'dense' or 'rank_aware')")
@@ -99,13 +86,15 @@ class EngineRunner:
         self.P = next(iter(model.specs.values())).max_width
         self.factorized = factorized
         self.estimate = estimate
-        # the edge groups' partial folds beside the aggregators' merge
-        # (one device: the merged state is the flat merge's).  It records
-        # no telemetry: the aggregators count the merges
-        # (``aggregate.collective_calls``) the reference's merger counts
+        # the collective backend's merger: the merge over the cohort's
+        # shards when there are two or more (agg_devices), the edge
+        # groups' partial folds beside the host rules on one device, else
+        # None (the host rules alone).  It records no telemetry: the
+        # aggregators count the merges (``aggregate.collective_calls``)
+        # the reference's merger counts
         self.merger = None
-        if cfg.agg_backend == "collective" and cfg.edge_groups > 1:
-            self.merger = HierarchicalMerger(cfg.edge_groups)
+        if cfg.agg_backend == "collective":
+            self.merger = collective.build_merger(cfg, self.device)
 
         self.assignment = assignment
         self.payload = payload

@@ -37,6 +37,7 @@ import torch
 from repro_torch.core import convergence
 from repro_torch.fl.client import ClientResult
 from repro_torch.fl.types import InFlight, RoundLog, SchedState, ServerState
+from repro_torch.sharding import fl as flsh
 
 
 def _enc_obj(x: Any) -> Any:
@@ -87,7 +88,10 @@ def _on_device(tree: Any, device) -> Any:
 
 
 def state_to_payload(state: ServerState) -> Dict[str, Any]:
-    arrays: Dict[str, Any] = {"params": state.params}
+    # a coefficient split over a cohort's shards is saved whole; a restore
+    # brings it back whole on the run's device, and the next merge splits
+    # it again (as the JAX package's msgpack checkpoints do)
+    arrays: Dict[str, Any] = {"params": flsh.assemble(state.params)}
     if state.sched is not None:
         arrays["sched"] = {"counters": state.sched.counters,
                            "anchored": state.sched.anchored}

@@ -29,8 +29,14 @@ one ``trainer.cohort_shape`` count per group.  The port compiles nothing
 per shape, so it has no ``trainer.jit_recompiles`` counter.
 
 Results stay on the run's device; both merge backends consume them
-there.  Training a cohort across GPUs (the JAX package's mesh-sharded
-client axis, ``trainer_mesh_devices > 1``) is ROADMAP queue A step 9.
+there.  Over a cohort's shards (``trainer_mesh_devices``, the JAX
+package's mesh-sharded client axis) each group is padded with masked
+clone clients to a multiple of the shard count, each shard gets one host
+buffer and trains its contiguous client slice as its own ``vmap`` step
+on its own device, and, when the collective merger merges over shards
+too, the results are rows of the per-shard stacks
+(:class:`~repro_torch.fl.engine.collective.CohortSlice`), which the merge
+takes where they lie.
 """
 
 from __future__ import annotations
@@ -48,6 +54,8 @@ from repro_torch.data.streaming import (pack_arrays, round_batch_indices,
 from repro_torch.fl import client as client_lib
 from repro_torch.fl.client import ClientFns, ClientResult
 from repro_torch.fl.engine.base import Assignment, LocalTrainer
+from repro_torch.fl.engine.collective import CohortSlice, CohortStack
+from repro_torch.sharding import fl as flsh
 
 EST_KEYS = ("L", "sigma_sq", "grad_sq")
 
@@ -94,7 +102,19 @@ class CohortTrainer(LocalTrainer):
     on the first batch; the estimates take their four gradient
     evaluations the same way and :func:`repro_torch.core.estimator.
     estimates_from_grads` under ``vmap``.
+
+    Over a cohort's shards (``self.mesh``) the group is padded to a
+    multiple of the shard count with masked clones (client 0's batches,
+    tau 0, so a clone keeps its starting params and its row is zeroed at
+    the end), and each shard runs the steps above on its contiguous
+    slice, on its device, for the group's largest tau: its kernels see
+    its slice as their client axis.
     """
+
+    def setup(self, eng) -> None:
+        super().setup(eng)
+        self.mesh = flsh.cohort_mesh(eng.cfg.trainer_mesh_devices,
+                                     eng.device)
 
     def train_all(self, state, assigns: Dict[int, Assignment],
                   ) -> Dict[int, ClientResult]:
@@ -137,6 +157,8 @@ class CohortTrainer(LocalTrainer):
 
     def _prepare_group_inner(self, state, b_eff: int, ns: List[int],
                              assigns: Dict[int, Assignment]):
+        """Returns one packed host buffer per shard (one for the whole
+        group without shards) and the real clients' taus."""
         eng, cfg = self.eng, self.eng.cfg
         taus = [max(assigns[n]["tau"], 1) for n in ns]
         drawn = [eng.data.draw_round(n, seed=cfg.seed, rnd=state.round,
@@ -144,81 +166,139 @@ class CohortTrainer(LocalTrainer):
                                      estimate=eng.estimate,
                                      tau_pad=max(taus))
                  for n, tau in zip(ns, taus)]
+        # masked clones: client 0's batches at tau 0
+        clones = flsh.pad_cohort(len(ns), self.mesh) - len(ns)
+        drawn += [drawn[0]] * clones
         per_client = [[d[0] for d in drawn], [d[1] for d in drawn]]
         if eng.estimate:
             per_client += [[d[2][0] for d in drawn], [d[2][1] for d in drawn]]
-        return pack_arrays([np.asarray(taus)]
-                           + [stack_client_shards(a, step_leading=True)
-                              for a in per_client]), taus
+        chunks = flsh.mesh_size(self.mesh)
+        tau_chunks = np.split(np.asarray(taus + [0] * clones), chunks)
+        stacked = [stack_client_shards(a, chunks, step_leading=True)
+                   for a in per_client]
+        return [pack_arrays([tau_chunks[c]] + [a[c] for a in stacked])
+                for c in range(chunks)], taus
 
     def _train_group(self, state, width: int, ns: List[int],
                      assigns: Dict[int, Assignment], prep,
                      cal) -> Dict[int, ClientResult]:
         eng, cfg = self.eng, self.eng.cfg
-        (buf, layout), taus = prep
-        tau, *staged = unpack_tensors(torch.from_numpy(buf).to(eng.device),
-                                      layout)
-        key = eng.model.input_key
-        batches = [{key: x, "labels": y.long()}
-                   for x, y in zip(staged[0::2], staged[1::2])]
-        steps, est = batches[0], batches[1] if eng.estimate else None
-
+        packs, taus = prep
+        mesh = self.mesh or flsh.CohortMesh((eng.device,))
+        # each shard's buffer crosses to its device in one copy
+        bufs = flsh.assemble_from_host_shards([b for b, _ in packs], mesh)
         fns = ClientFns(eng.model, width, eng.factorized, cfg.forward_impl,
                         cal)
-        losses = torch.func.vmap(fns.loss)
-
-        def grads(params, batch):
-            """Per-client gradients of the stacked clients on a stacked
-            batch: autograd's of the summed per-client losses."""
-            return client_lib._grad(lambda p, b: losses(p, b).sum(), params,
-                                    batch)
-
-        params0 = tree_map(lambda *leaves: torch.stack(leaves),
-                           *[eng.aggregator.client_params(state, n,
-                                                          assigns[n])
-                             for n in ns])
-        params = params0
+        # masked clones start from client 0's params, at tau 0
+        clones = flsh.pad_cohort(len(ns), self.mesh) - len(ns)
+        client = [eng.aggregator.client_params(state, n, assigns[n])
+                  for n in ns]
+        client += [client[0]] * clones
+        all_taus = taus + [0] * clones
+        per = len(client) // len(packs)
+        staged = [self._stage_shard(buf, layout,
+                                    client[c * per:(c + 1) * per],
+                                    min(all_taus[c * per:(c + 1) * per]),
+                                    dev)
+                  for c, (buf, (_, layout), dev) in enumerate(
+                      zip(bufs, packs, mesh.devices))]
         obs = eng.obs
-        # (steps, C, B, ...): the group's largest tau, its clients (the
-        # port pads neither), the batch
-        lead = steps[key].shape
-        with obs.wall_span("trainer.device_step", clients=int(lead[1]),
+        # a shard's x as packed: (steps, C / shards, B, ...)
+        lead = packs[0][1][1][3]
+        with obs.wall_span("trainer.device_step", clients=len(client),
                            width=int(width), tau_pad=int(lead[0])):
-            for s in range(max(taus)):
-                g = grads(params, {k: v[s] for k, v in steps.items()})
-                new = tree_map(lambda p, gg: (p - cfg.lr * gg).detach(),
-                               params, g)
-                if s >= min(taus):  # a client past its tau keeps its params
-                    live = s < tau
-                    new = tree_map(lambda nw, old: torch.where(
-                        live.reshape((-1,) + (1,) * (nw.dim() - 1)), nw,
-                        old), new, params)
-                params = new
-
-            first = {k: v[0] for k, v in steps.items()}
-            with torch.no_grad():
-                loss_b, loss_a = losses(params0, first), losses(params,
-                                                                first)
+            shards = [self._step_shard(fns, sh, max(taus)) for sh in staged]
             if obs.enabled:
                 eng.sync_device()
         if obs.enabled:
             obs.counter_add("trainer.cohort_shape", width=int(width),
-                            clients=int(lead[1]), tau_pad=int(lead[0]),
+                            clients=len(client), tau_pad=int(lead[0]),
                             batch=int(lead[2]))
-        rows = [loss_b, loss_a]
-        if est is not None:
-            eb = [{k: v[i] for k, v in est.items()} for i in range(3)]
-            triple = torch.func.vmap(estimator.estimates_from_grads)(
-                [grads(params0, b) for b in eb], grads(params, eb[0]),
-                params, params0)
-            rows += [triple[k] for k in EST_KEYS]
-        rows = torch.stack(rows, 1).tolist()  # one device-to-host copy
+        rows = [row for sh in shards for row in self._estimate_shard(fns, sh)]
+        finals = [sh[1] for sh in shards]
         out = {}
+        merger = eng.merger
+        if (self.mesh is not None and merger is not None
+                and merger.mesh is not None):
+            # the merge takes the rows where they lie
+            stack = CohortStack(finals, len(ns), self.mesh)
+            for j, n in enumerate(ns):
+                out[n] = ClientResult(
+                    CohortSlice(stack, j), dict(zip(EST_KEYS, rows[j][2:])),
+                    rows[j][0], rows[j][1])
+            return out
         for j, n in enumerate(ns):
+            c, i = divmod(j, per)
             out[n] = ClientResult(
-                tree_map(lambda v, j=j: v[j], params),
+                tree_map(lambda v, i=i: v[i].to(eng.device), finals[c]),
                 dict(zip(EST_KEYS, rows[j][2:])), rows[j][0], rows[j][1])
         return out
+
+    def _stage_shard(self, buf: torch.Tensor, layout, client: list,
+                     t_min: int, device):
+        """One shard's packed batches ``buf`` (on ``device``) unpacked,
+        and its clients' starting params stacked there: ``(tau, t_min,
+        steps, estimate batches or None, params0)``, ``t_min`` its
+        clients' least tau (0 with a masked clone)."""
+        tau, *staged = unpack_tensors(buf, layout)
+        key = self.eng.model.input_key
+        batches = [{key: x, "labels": y.long()}
+                   for x, y in zip(staged[0::2], staged[1::2])]
+        params0 = tree_map(lambda *leaves: torch.stack(leaves).to(device),
+                           *client)
+        return (tau, t_min, batches[0],
+                batches[1] if self.eng.estimate else None, params0)
+
+    def _step_shard(self, fns: ClientFns, staged, steps_max: int):
+        """One shard's clients trained on their device for ``steps_max``
+        steps, the group's largest tau (a client past its tau, and a
+        masked clone at tau 0, keeps its params; the clones' rows are
+        zeroed at the end), then the losses before and after on the first
+        batch.  Returns ``(params0, params, [loss_before, loss_after],
+        estimate batches or None)``."""
+        lr = self.eng.cfg.lr
+        tau, t_min, steps, est, params0 = staged
+        losses = torch.func.vmap(fns.loss)
+        params = params0
+        for s in range(steps_max):
+            g = _cohort_grads(losses, params,
+                              {k: v[s] for k, v in steps.items()})
+            new = tree_map(lambda p, gg: (p - lr * gg).detach(), params, g)
+            if s >= t_min:  # a client past its tau keeps its params
+                live = s < tau
+                new = tree_map(lambda nw, old: torch.where(
+                    live.reshape((-1,) + (1,) * (nw.dim() - 1)), nw,
+                    old), new, params)
+            params = new
+        if t_min == 0:  # zero the masked clones' rows
+            live = tau > 0
+            params = tree_map(lambda v: torch.where(
+                live.reshape((-1,) + (1,) * (v.dim() - 1)), v,
+                torch.zeros_like(v)), params)
+        first = {k: v[0] for k, v in steps.items()}
+        with torch.no_grad():
+            rows = [losses(params0, first), losses(params, first)]
+        return params0, params, rows, est
+
+    def _estimate_shard(self, fns: ClientFns, shard) -> list:
+        """Per client of a stepped shard ``[loss_before, loss_after,
+        *estimates]``: the estimates take their four gradient evaluations
+        under ``vmap``; one device-to-host copy."""
+        params0, params, rows, est = shard
+        if est is not None:
+            losses = torch.func.vmap(fns.loss)
+            eb = [{k: v[i] for k, v in est.items()} for i in range(3)]
+            triple = torch.func.vmap(estimator.estimates_from_grads)(
+                [_cohort_grads(losses, params0, b) for b in eb],
+                _cohort_grads(losses, params, eb[0]), params, params0)
+            rows = rows + [triple[k] for k in EST_KEYS]
+        return torch.stack(rows, 1).tolist()
+
+
+def _cohort_grads(losses, params, batch):
+    """Per-client gradients of the stacked clients on a stacked batch:
+    autograd's of the summed per-client losses (``losses`` vmapped)."""
+    return client_lib._grad(lambda p, b: losses(p, b).sum(), params, batch)
 
 
 class ProximalTrainer(LocalTrainer):

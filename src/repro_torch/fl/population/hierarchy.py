@@ -18,9 +18,12 @@ totals to float tolerance only (the re-association the carry chain
 avoids for the merged state).  Flanc's per-width rule keeps the flat
 merge and produces no partials, as in the reference.
 
-Across devices the hierarchy is the device mesh (the JAX package's
-``psum`` tree); that waits for the multi-GPU merge (ROADMAP queue A
-step 9).
+Over a cohort's shards (``agg_devices``) the hierarchy IS the shards:
+each shard is an edge aggregator for its contiguous client slice (its
+ordered fold) and the fold of the shard partials is the server combine.
+The merger then defers to the flat mesh merge of
+:class:`~repro_torch.fl.engine.collective.CollectiveMerger`, as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 
 from repro_torch.core.aggregation import as_index, blend, zero_pad
 from repro_torch.fl.engine.aggregators import weight_of
+from repro_torch.fl.engine.collective import CollectiveMerger
 
 Tensor = torch.Tensor
 
@@ -69,11 +73,15 @@ def grouped_ordered_fold(stacked: Tensor, group_size: int):
     return total, torch.stack(partials)
 
 
-class HierarchicalMerger:
-    """Per-group partials of the cohort's contributions (the edge tier's
-    uploads) beside the flat host merge, which stays the merged state."""
+class HierarchicalMerger(CollectiveMerger):
+    """On one device (``mesh=None``): per-group partials of the cohort's
+    contributions (the edge tier's uploads, ``fold_*``) beside the flat
+    host merge, which stays the merged state.  Over shards: the flat mesh
+    merge (``merge_*``), the shards being the edge tier."""
 
-    def __init__(self, edge_groups: int = 2):
+    def __init__(self, edge_groups: int = 2, mesh=None,
+                 shard_blocks: bool = False):
+        super().__init__(mesh, shard_blocks=shard_blocks)
         self.edge_groups = max(int(edge_groups), 1)
         self.last_partials = None
 

@@ -6,8 +6,8 @@ is the explicit round state that ``RoundLoop.run_round(state) ->
 ``LocalTrainer`` / ``Aggregator`` contracts.  They live here (below
 :mod:`repro_torch.fl.engine`) so policy modules can share the data model
 without import cycles.  ``FLConfig`` keeps the JAX package's knobs and
-defaults; the engine raises ``NotImplementedError`` for values this port
-does not run yet (``repro_torch.fl.engine.runner.check_ported``).
+defaults; the engine raises ``ValueError`` for values no engine runs
+(``repro_torch.fl.engine.runner.check_ported``).
 """
 
 from __future__ import annotations
@@ -122,17 +122,17 @@ class FLConfig:
     # Evaluation streams the test set in slices of this many samples;
     # <= 0 evaluates the full test batch in one forward.
     eval_batch_size: int = 0
-    # Aggregation backend: "collective" (the default) or "host".  The JAX
-    # package merges the stacked cohort in one pass on the collective
-    # backend and with per-client loops on the host one, bitwise equal on
-    # one device; the port runs the loops for both.  agg_devices caps the
-    # JAX package's merge mesh (0 => all local devices); the port merges
-    # on the run's device and raises for agg_devices > 1.
+    # Aggregation backend: "collective" (the default) or "host".  On one
+    # device both run the per-client host loops (the JAX package's
+    # collective merge equals them bit for bit there); over two or more
+    # shards the collective backend merges the stacked cohort shard by
+    # shard and folds the partials (repro_torch.fl.engine.collective).
+    # agg_devices caps the merge's shards (0 => all local devices,
+    # repro_torch.sharding.fl.cohort_mesh).
     agg_backend: str = "collective"
     agg_devices: int = 0
-    # The JAX package's cohort mesh (the client axis sharded over that
-    # many devices; 0 => all local devices).  The port trains a cohort on
-    # the run's device and raises for trainer_mesh_devices > 1.
+    # The cohort trainer's shards (the client axis split over that many
+    # devices; 0 => all local devices, 1 => one).
     trainer_mesh_devices: int = 0
     # Sample-count-weighted aggregation: weight every client's merge
     # contribution by its shard size (K * s_n / sum(s) through the
@@ -172,8 +172,10 @@ class FLConfig:
     # on the collective backend; the merged state is the flat merge's and
     # each group's partial fold is kept (runner.merger.last_partials).
     edge_groups: int = 0
-    # Server state sharded across devices: the engine raises
-    # NotImplementedError for True (the multi-GPU merge, ROADMAP step 9).
+    # Keep each factorized coefficient split over its block axis across
+    # the merge's shards, where the block count divides the shard count
+    # (repro_torch.sharding.fl.SplitBlocks); dense and per-width states
+    # stay whole.
     shard_server_state: bool = False
     # Save the ServerState every checkpoint_every rounds under
     # checkpoint_dir, keeping the newest checkpoint_keep (0: never).

@@ -45,18 +45,8 @@ from repro_torch.models import (attention, encdec, layers, module,
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "vlm", "hybrid", "audio")
-
-
 def _is_encdec(cfg) -> bool:
     return cfg.family == "audio" or cfg.encdec is not None
-
-
-def _require_ported(cfg) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported (ROADMAP A11); the "
-            f"port runs the {', '.join(PORTED_FAMILIES)} families")
 
 
 # ---------------------------------------------------------------------------
@@ -67,7 +57,6 @@ def _require_ported(cfg) -> None:
 def init(seed: int, cfg, device=None) -> Params:
     """Random parameters from ``seed``, drawn on ``device`` (the CUDA card
     unless given ``device="cpu"``) by a generator living there."""
-    _require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(dev).manual_seed(seed)
     p: Params = {
@@ -164,7 +153,6 @@ def forward(params: Params, cfg, batch: Dict[str, Tensor],
     the window mask entirely (the same logits, fewer FLOPs); on a CUDA
     tensor the flash-attention kernel skips such tiles whatever it
     says."""
-    _require_ported(cfg)
     if _is_encdec(cfg):
         memory, mem_mask = _encode(params, cfg, batch)
         return (_decode_train(params, cfg, batch, memory, mem_mask),
@@ -200,7 +188,6 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> Dict[str, Any]:
     ``device="cpu"``); with a sliding window the KV cache is a ring of
     ``min(max_len, window)`` slots.  The xLSTM's recurrent state does not
     grow with ``max_len``."""
-    _require_ported(cfg)
     dev = resolve_device(device)
     if _is_encdec(cfg):
         return encdec.init_encdec_cache(cfg, batch, max_len, dev)
@@ -222,7 +209,6 @@ def prefill(params: Params, cfg, batch: Dict[str, Tensor],
     given a cache, writes each layer's cross K/V and the mask into it in
     place (:func:`encdec.prefill_memory`); ``enc_mask`` defaults to all
     frames."""
-    _require_ported(cfg)
     if _is_encdec(cfg):
         memory, mem_mask = _encode(params, cfg, batch)
         if mem_mask is None:
@@ -242,7 +228,6 @@ def serve_step(params: Params, cfg, batch: Dict[str, Tensor],
     """One new token given a populated cache.  batch["tokens"]: (B, 1);
     ``cache_len`` (an int) tokens are already in the cache, which is
     updated in place and returned."""
-    _require_ported(cfg)
     x = _input_embeddings(params, cfg, batch)
     if cfg.family == "ssm":
         x, cache = transformer.decode_xlstm(params["stack"], cfg, x, cache)

@@ -15,8 +15,9 @@ The aux load-balance loss follows Switch: E * sum_e f_e * p_e.
 The top-k is a stable descending sort, so tied probabilities rank the
 lower expert id first, as ``jax.lax.top_k`` does: the combine tensor
 fills slots in that order.  The reference's ``moe_shardmap`` branch
-(weight-stationary expert parallelism over a device mesh) is not ported:
-it needs several devices (ROADMAP A step 9, multi-GPU).
+(weight-stationary expert parallelism over a device mesh) is the port's
+:func:`repro_torch.models.moe_shardmap.apply_moe_shardmap`, called as a
+function: :func:`apply_moe` does not route there.
 """
 
 from __future__ import annotations

@@ -264,7 +264,7 @@ def test_round_batch_indices_match_reference(tau, tau_pad, estimate):
 @pytest.mark.parametrize("step_leading", [False, True])
 def test_stack_client_shards_matches_reference(step_leading):
     per = _rand(1, (4, 16, 3), (4, 16, 3), (4, 16, 3))
-    got = stack_client_shards(per, step_leading=step_leading)
+    (got,) = stack_client_shards(per, 1, step_leading=step_leading)
     want = j_stack(per, 1, step_leading=step_leading)
     assert len(want) == 1
     np.testing.assert_array_equal(got, want[0])

@@ -32,6 +32,7 @@ from repro_torch.fl import build_runner as t_build
 from repro_torch.fl import client as tclient
 from repro_torch.fl import summarize
 from repro_torch.fl.heterogeneity import HeterogeneityModel as THet
+from repro_torch.sharding import SplitBlocks, logical_devices
 from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 PIN = dict(conv_rank_overhead=1.0, fused_compose_gain=0.5)
@@ -174,17 +175,25 @@ def test_config_keeps_reference_defaults():
     assert dataclasses.asdict(JConfig()) == dataclasses.asdict(TConfig())
 
 
-@pytest.mark.parametrize("knob,match", [
-    (dict(trainer_mesh_devices=2), "trainer_mesh_devices.*step 9"),
-    (dict(shard_server_state=True), "shard_server_state.*step 9"),
-    (dict(agg_devices=2), "agg_devices.*step 9"),
+@pytest.mark.parametrize("knob,check", [
+    (dict(trainer_mesh_devices=2, trainer="cohort"),
+     lambda r: r.trainer.mesh.size == 2),
+    (dict(shard_server_state=True),
+     lambda r: all(isinstance(t["coeff"], SplitBlocks)
+                   for t in r.params.values())),
+    (dict(agg_devices=2), lambda r: r.merger.mesh.size == 2),
 ])
-def test_unported_knobs_raise(knob, match):
-    """What is still unported raises, naming its ROADMAP step."""
-    tm, tx, ty, tt = t_setup(num_clients=4, device="cpu")
-    cfg = TConfig(**{"num_clients": 4, **knob})
-    with pytest.raises(NotImplementedError, match=match):
-        t_build("heroes", tm, tx, ty, tt, cfg=cfg, device="cpu")
+def test_step9_knobs_run(knob, check):
+    """Step 9's multi-device knobs build on four logical shards of the
+    CPU and run a round (at max_width 4, whose 16 hidden and 4 anchored
+    blocks split over 4 shards)."""
+    tm, tx, ty, tt = t_setup(num_clients=4, max_width=4, device="cpu")
+    cfg = TConfig(**{"num_clients": 4, "clients_per_round": 2, **knob})
+    with logical_devices(4, "cpu"):
+        r = t_build("heroes", tm, tx, ty, tt, cfg=cfg, device="cpu")
+    with r:
+        assert r.run_round().round == 1
+        assert check(r)
 
 
 @pytest.mark.parametrize("knob", [

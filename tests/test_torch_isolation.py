@@ -40,7 +40,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert {"repro_torch.models.model", "repro_torch.models.ssm",
             "repro_torch.launch.serve", "repro_torch.configs",
             "repro_torch.kernels.ssd_chunk",
-            "repro_torch.kernels.rmsnorm"} <= set(mods)
+            "repro_torch.kernels.rmsnorm", "repro_torch.sharding.fl",
+            "repro_torch.fl.engine.collective",
+            "repro_torch.models.moe_shardmap"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
