@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Planted faults in the composition, attention, SSD-chunk and RMSNorm
-kernels and in the merge over a cohort's shards: does the smoke see them?
+kernels, in the merge over a cohort's shards and in the production mesh's
+rules, context and local shards: does the smoke see them?
 
     python3 chip_faults.py
 
@@ -27,7 +28,14 @@ non-causal, for a launcher that aligns such a call as causal, the first
 decode case for the merge's, the first bf16 ssd_chunk case for the bf16
 SSD kernels', the first (f32) rmsnorm case for the one-pass rmsnorm's, and path (v)'s
 first case for a shard fold that drops the last shard's partial and for a
-trainer's stack passed through to the merge whatever rows it asked for.
+trainer's stack passed through to the merge whatever rows it asked for;
+and path (w)'s checks (``check_dryrun``, in a fake world of 256 of its
+own) for the production mesh: its first case (the rules' projection
+conventions) for a row-parallel rule with its axes swapped, its residual
+layout case for a ``constrain_residual`` that drops the data-parallel
+axis, its first local-shard flash case for a ``local_map`` that takes
+flash's heads replicated, and its first factorized-linear case for a
+chunked rank_apply that leaves the last basis chunk out.
 Prints one line per fault (the case it failed at and its worst margin)
 and exits 1 unless every fault did.
 """
@@ -132,6 +140,24 @@ FAULTS = {
         r"rows == list\(range\(stack\.n_real\)\)",
         "rows == list(range(len(rows)))", 1,
         "(v0) merge over 8 logical shards", "check_mesh"),
+    "rules: a row-parallel rule with its axes swapped": (
+        "sharding/rules.py", r'wo\\\.w\$", \("model", "data"\)\)',
+        r'wo\\.w$", ("data", "model"))', 1,
+        "(w0) rules", "check_dryrun"),
+    "context: constrain_residual drops the data-parallel axis": (
+        "sharding/context.py", r'"d_sharded": \(dp, None, "model"\),',
+        '"d_sharded": (None, None, "model"),', 1,
+        "(w0) residual", "check_dryrun"),
+    "ops: flash's local_map takes the heads replicated": (
+        "kernels/ops.py",
+        r'return \(\(dp, None, "model", None, None\), '
+        r'\(dp, None, "model", None\)\)',
+        'return ((dp, None, None, None, None), (dp, None, None, None))', 1,
+        "(w6) flash heads", "check_dryrun"),
+    "ops: the factorized linear's last basis chunk left out": (
+        "kernels/ops.py", r"for i0 in range\(0, I, ci\):",
+        "for i0 in range(0, I - ci, ci):", 1,
+        "(w6) factorized linear float32", "check_dryrun"),
     "rmsnorm: the row's last vector left out of the sum": (
         "rmsnorm.cu", r"for \(int v = 0; v < VPT; \+\+v\) ss \+= "
         r"sum_sq<T>\(xv\[v\]\);",

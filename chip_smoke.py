@@ -5279,6 +5279,316 @@ def audio_path(torch, cfg=None):
     return counts, stats
 
 
+# --------------------------------------------------------------------------
+# path (w): the production meshes, as rank 0 of a fake world of 256 / 512
+# --------------------------------------------------------------------------
+
+# label: (arch, shape, multi-pod, the dry run's flags), each at full width
+# and depth, one step
+W_PAIRS = {
+    "w1": ("gemma-2b", "train_4k", False, {}),
+    "w2": ("zamba2-2.7b", "prefill_32k", False, {}),
+    "w3": ("kimi-k2-1t-a32b", "decode_32k", True, {"moe_shardmap": True}),
+    "w4": ("gemma-2b", "prefill_32k", False, {"composition": True}),
+    "w5": ("xlstm-125m", "long_500k", False, {}),
+}
+# the kernels each pair must launch on its local shards
+W_KERNELS = {"w1": ("flash_attention", "rmsnorm"),
+             "w2": ("ssd_chunk", "flash_attention", "rmsnorm"),
+             "w3": ("decode_attention", "rmsnorm"),
+             "w4": ("rank_apply", "flash_attention", "rmsnorm"),
+             "w5": ()}
+W_EXPECT = ("flash_attention", "decode_attention", "ssd_chunk",
+            "rank_apply", "rmsnorm")
+# (w0): the projections' conventions (sharding/rules.py's docstring) on
+# gemma-2b's stacked params at 16x16, and kimi-k2's experts on 2x16x16
+W_RULES = {
+    "gemma-2b": {"embed.table": ("model", "data"),
+                 "stack.layers.attn.wq.w": (None, "data", "model"),
+                 "stack.layers.attn.wo.w": (None, "model", "data"),
+                 "stack.layers.mlp.up.w": (None, "data", "model"),
+                 "stack.layers.mlp.down.w": (None, "model", "data"),
+                 "stack.layers.ln1.scale": (None, None)},
+    "kimi-k2-1t-a32b": {
+        "stack.moe_layers.moe.gate": (None, ("pod", "model"), "data", None),
+        "stack.moe_layers.moe.down": (None, ("pod", "model"), None, "data")},
+}
+# (w6): the shapes of the local-shard checks (16 x 16 mesh): flash with
+# its KV heads over "model", flash under attn_qseq (gemma's heads), and
+# rmsnorm's rows over "data"
+W6_FLASH = (32, 1024, 16, 1, 128)   # B, S, KV, G, D
+W6_QSEQ = (32, 2048, 1, 8, 256)
+W6_RMS = (32, 4096, 2048)
+# and the factorized linear of (w4): gemma-2b's query projection (B, S,
+# d_in, d_out) at the dry run's width 2 and rank d_model / 4, which takes
+# rank_apply over 128 basis chunks of 64 x 64; in f32 the chunk sums are
+# held at rank_apply's sums' tolerance, in bf16 at two bf16 roundings of
+# an O(1) output (the one-device einsum rounds x.v, the kernel does not);
+# a chunk left out moves y by ~1e-1
+W6_COMP = (16, 256, 2048, 2048, 2, 512)
+W6_COMP_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+W_TIMEOUT = 900
+
+
+def w_case(what: str, err: float, ok: bool) -> float:
+    """One (w0)/(w6) case's line, in phase 2's form."""
+    print(f"  {what}: max_abs_err {err:.3e}")
+    check(ok, f"{what} disagrees")
+    return err
+
+
+def w_close(torch, got, want, tol, what: str) -> float:
+    """``close`` that fails, rather than raises, on a shape mismatch (a
+    shard laid out otherwise than the op's placements say)."""
+    if tuple(got.shape) != tuple(want.shape):
+        return w_case(f"{what} (shape {tuple(got.shape)} != "
+                      f"{tuple(want.shape)})", math.inf, False)
+    return close(torch, got, want, tol, what)
+
+
+def w_plain_flash(torch, q, k, v, causal=True):
+    """The model-layout plain attention (``_flash_math`` in the kernel's
+    layout, as ``kernels.ops.flash_attention`` lays it out)."""
+    from repro_torch.kernels.flash_attention import _flash_math
+
+    B, Sq, KV, G, D = q.shape
+    Sk = k.shape[1]
+    qf = q.permute(0, 2, 3, 1, 4).reshape(B * KV * G, Sq, D)
+    kf = k.permute(0, 2, 1, 3).reshape(B * KV, Sk, D)
+    vf = v.permute(0, 2, 1, 3).reshape(B * KV, Sk, D)
+    out = _flash_math(qf, kf, vf, causal, 0, G)
+    return out.reshape(B, KV, G, Sq, D).permute(0, 3, 1, 2, 4)
+
+
+def check_dryrun(torch) -> dict:
+    """Path (w)'s checks, in a fake world of 256 of its own: (w0) the
+    rules' projection conventions and the residual layout, (w6) a
+    ``local_map``ped flash (KV heads over "model", then the query sequence
+    under ``attn_qseq``), rmsnorm and the factorized linear (rank_apply in
+    basis chunks, f32 and bf16) on rank 0's shard against the plain
+    version on that shard and the slice of the one-device call."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rmsnorm import _rmsnorm_math
+    from repro_torch.launch import specs
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import module
+    from repro_torch.sharding import context, rules
+
+    def lay(t, spec, mesh):
+        return distribute_tensor(t, mesh, rules.to_placements(
+            rules._fit_to_shape(spec, t.shape, rules.mesh_axes(mesh)),
+            mesh), src_data_rank=None)
+
+    rec = {}
+    bad = 0
+    for arch, want in W_RULES.items():
+        pod = arch == "kimi-k2-1t-a32b"
+        axes = rules.MeshAxes({"pod": 2, "data": 16, "model": 16} if pod
+                              else {"data": 16, "model": 16})
+        flat = {}
+
+        def walk(tree, prefix=""):
+            for k, v in tree.items():
+                name = f"{prefix}.{k}" if prefix else k
+                if isinstance(v, dict):
+                    walk(v, name)
+                else:
+                    flat[name] = v
+
+        walk(rules.param_specs(specs.params_shape(configs.get_config(arch)),
+                               mesh=axes, zero_pod=pod))
+        bad += sum(tuple(flat[p]) != s for p, s in want.items())
+    rec["rules"] = w_case("(w0) rules: the projections' specs (mismatches)",
+                          bad, bad == 0)
+    gen = torch.Generator(DEVICE).manual_seed(0)
+
+    def rand(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=DEVICE,
+                           dtype=torch.float32).to(dtype)
+
+    with fake_world(256):
+        mesh = make_production_mesh(device_type=torch.device(DEVICE).type)
+        with context.activation_sharding(mesh, "data"):
+            x = lay(torch.empty(W6_RMS, device=DEVICE), (None,), mesh)
+            got = context.constrain_residual(x).placements
+            want = rules.to_placements(rules.Spec("data", None, "model"),
+                                       mesh)
+            rec["residual"] = w_case(
+                f"(w0) residual d_sharded placements {got}", float(
+                    got != want), got == want)
+        # flash, KV heads over "model": rank 0 holds batch rows 0-1, head 0
+        q, k, v = (rand(W6_FLASH), rand(W6_FLASH[:3] + W6_FLASH[4:]),
+                   rand(W6_FLASH[:3] + W6_FLASH[4:]))
+        dp, b = "data", W6_FLASH[0] // 16
+        got = ops.flash_attention(lay(q, (dp, None, "model"), mesh),
+                                  lay(k, (dp, None, "model"), mesh),
+                                  lay(v, (dp, None, "model"), mesh))
+        loc = [t[:b, :, :1] for t in (q, k, v)]
+        tol = ATTN_TOL["bfloat16"]
+        whole = ops.flash_attention(q, k, v)
+        rec["flash_heads"] = max(
+            w_close(torch, got.to_local(), w_plain_flash(torch, *loc), tol,
+                    "(w6) flash heads over model vs plain on the shard"),
+            w_close(torch, got.to_local(), whole[:b, :, :1], tol,
+                    "(w6) flash heads over model vs the one-device call"))
+        del got, whole
+        # flash under attn_qseq: rank 0 holds the first S/16 queries
+        q, k, v = (rand(W6_QSEQ), rand(W6_QSEQ[:3] + W6_QSEQ[4:]),
+                   rand(W6_QSEQ[:3] + W6_QSEQ[4:]))
+        c = W6_QSEQ[1] // 16
+        with context.activation_sharding(mesh, "data", attn_qseq=True):
+            got = ops.flash_attention(lay(q, (dp, "model"), mesh),
+                                      lay(k, (dp,), mesh),
+                                      lay(v, (dp,), mesh))
+        whole = ops.flash_attention(q, k, v)
+        rec["flash_qseq"] = max(
+            w_close(torch, got.to_local(), w_plain_flash(
+                torch, q[:b, :c], k[:b, :c], v[:b, :c]), tol,
+                "(w6) flash q-seq over model vs plain on the shard"),
+            w_close(torch, got.to_local(), whole[:b, :c], tol,
+                    "(w6) flash q-seq over model vs the one-device call"))
+        del got, whole, q, k, v
+        # rmsnorm, rows over "data"
+        x, scale = rand(W6_RMS), rand(W6_RMS[-1:], torch.float32)
+        got = ops.rmsnorm(lay(x, (dp,), mesh), lay(scale, (None,), mesh))
+        tol = RMS_TOL["bfloat16"]
+        rec["rmsnorm"] = max(
+            w_close(torch, got.to_local(), _rmsnorm_math(x[:b], scale, 1e-6),
+                    tol, "(w6) rmsnorm rows over data vs plain on the shard"),
+            w_close(torch, got.to_local(), ops.rmsnorm(x, scale)[:b], tol,
+                    "(w6) rmsnorm rows over data vs the one-device call"))
+        del got, x
+        # the factorized linear: rank 0 holds batch row 0 and each of the
+        # p blocks' first O/16 output columns
+        B, S, d_in, d_out, p, R = W6_COMP
+        I, O = d_in // p, d_out // p
+        b, o = B // 16, O // 16
+        for dtype, name in ((torch.float32, "float32"),
+                            (torch.bfloat16, "bfloat16")):
+            x = rand((B, S, d_in), dtype)
+            basis = (rand((I, R), torch.float32) / I ** 0.5).to(dtype)
+            coeff = (rand((p * p, R, O), torch.float32) / R ** 0.5).to(dtype)
+            got = ops.factorized_shards(
+                lay(x, (dp,), mesh), lay(basis, (None,), mesh),
+                lay(coeff, (None, None, "model"), mesh), p).to_local()
+            plain = module.linear({"basis": basis, "coeff": coeff[..., :o]},
+                                  x[:b]).reshape(b, S, p, o)
+            whole = module.linear({"basis": basis, "coeff": coeff},
+                                  x).reshape(B, S, p, O)[:b, ..., :o]
+            tol = W6_COMP_TOL[name]
+            rec[f"factorized_{name}"] = max(
+                w_close(torch, got, plain, tol, f"(w6) factorized linear "
+                        f"{name}, O over model, vs the einsum on the shard"),
+                w_close(torch, got, whole, tol, f"(w6) factorized linear "
+                        f"{name}, O over model, vs the one-device call"))
+            del x, basis, coeff, got, plain, whole
+    return rec
+
+
+def dryrun_worker(argv) -> int:
+    """``chip_smoke.py dryrun OUT_JSON``, path (w)'s process: the checks
+    of :func:`check_dryrun`, then each pair of ``W_PAIRS`` as rank 0 of
+    its fake world (``launch.dryrun.lower_pair``), launch counts set to 0
+    before the pairs and read after each; writes the records to
+    ``OUT_JSON``.  It imports nothing but torch and ``repro_torch``."""
+    import torch
+
+    (out_json,) = argv
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels as rt
+    from repro_torch.launch import dryrun
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rt.build()  # built by the parent: loads them
+    out = {"checks": check_dryrun(torch), "pairs": {}}
+    torch.cuda.empty_cache()
+    total = {k: 0 for k in rt.KERNELS}
+    for label, (arch, shape, multi_pod, flags) in W_PAIRS.items():
+        rt.reset_launches()
+        t0 = time.perf_counter()
+        rec = dryrun.lower_pair(arch, shape, multi_pod, **flags)
+        rec["seconds"] = time.perf_counter() - t0
+        rec["launches"] = {k: n for k, n in rt.LAUNCHES.items() if n}
+        for k, n in rt.LAUNCHES.items():
+            total[k] += n
+        out["pairs"][label] = rec
+        print(f"  ({label}) {json.dumps(w_summary(rec))}", flush=True)
+        torch.cuda.empty_cache()
+    out["launches"] = total
+    Path(out_json).write_text(json.dumps(out))
+    return 0
+
+
+def w_summary(rec: dict) -> dict:
+    """A pair's record in the reference's field names, and its seconds."""
+    loop = rec["loop_scaled"]
+    return {"arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
+            "devices": rec["devices"], "kind": rec["kind"],
+            "params": rec["params"],
+            "argument_bytes": rec["memory"]["argument_bytes"],
+            "peak_bytes": rec["memory"]["peak_bytes"],
+            "dot_flops": loop["dot_flops"], "flops": rec["cost"]["flops"],
+            "traffic_bytes": loop["traffic_bytes"],
+            "collective_bytes": loop["collective_bytes"],
+            "collective_counts": loop["collective_counts"],
+            "kernel_flops": loop["kernel_flops"],
+            "launches": rec["launches"], "step_s": rec["step_s"],
+            "setup_s": rec["setup_s"], "seconds": rec["seconds"]}
+
+
+def dryrun_path(torch) -> tuple:
+    """Path (w): the production meshes in a new process
+    (:func:`dryrun_worker`), so that its fake world never meets the
+    earlier paths; each pair's argument bytes must be the specs'
+    reckoning, its peak below the card's memory, its dot FLOPs above 0,
+    and its kernels launched.  Returns (launch counts, records)."""
+    import gc
+    import tempfile
+
+    card = card_line()
+    # the child needs most of the card (kimi-k2's 61 GiB of shards): hand
+    # back what this process's allocator holds
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (w) this process holds {torch.cuda.memory_allocated()} B "
+          f"({torch.cuda.memory_reserved()} B reserved) as it starts")
+    with tempfile.TemporaryDirectory() as tmp:
+        out_json = Path(tmp) / "w.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "dryrun",
+             str(out_json)], capture_output=True, text=True,
+            timeout=W_TIMEOUT)
+        wall = time.perf_counter() - t0
+        print(proc.stdout, end="")
+        check(proc.returncode == 0,
+              f"(w) the dry-run process failed:\n{proc.stderr[-6000:]}")
+        res = json.loads(out_json.read_text())
+    memory = torch.cuda.get_device_properties(0).total_memory
+    recs = {"checks": res["checks"], "process_s": wall, "card": card}
+    for label, rec in res["pairs"].items():
+        m = rec["memory"]
+        check(m["argument_bytes"] == m["reckoned_argument_bytes"],
+              f"({label}) argument bytes {m['argument_bytes']} are not the "
+              f"specs' {m['reckoned_argument_bytes']}")
+        check(0 < m["peak_bytes"] < memory,
+              f"({label}) peak {m['peak_bytes']} not below {memory}")
+        check(rec["loop_scaled"]["dot_flops"] > 0, f"({label}) no dot FLOPs")
+        for k in W_KERNELS[label]:
+            check(rec["launches"].get(k, 0) > 0,
+                  f"({label}) never launched {k}")
+        recs[label] = w_summary(rec)
+    print(f"  (w) {wall:.1f} s in its process [{card}]")
+    for k in W_EXPECT:
+        check(res["launches"][k] > 0, f"(w) never launched {k}")
+    return res["launches"], recs
+
+
 def main_path(torch, rt):
     from repro_torch.kernels import KERNELS, LAUNCHES, reset_launches
 
@@ -5386,6 +5696,12 @@ def main_path(torch, rt):
           f"logical shards of the card, and {V_MOE_ARCH}'s expert-parallel "
           "MoE layer")
     by_path["v"], scheme_recs["v"] = mesh_path(torch)
+    # (w) the production meshes, rank 0 of a fake world, in a new process
+    print("  (w) the production meshes as rank 0 of 256 and 512: "
+          + ", ".join(f"({k}) {a} {s} {'2x16x16' if mp else '16x16'}"
+                      + "".join(f" {f}" for f in fl)
+                      for k, (a, s, mp, fl) in W_PAIRS.items()))
+    by_path["w"], scheme_recs["w"] = dryrun_path(torch)
 
     for counts in by_path.values():
         for k, n in counts.items():
@@ -5441,6 +5757,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["resume"]:  # path (m)'s new process
         return resume_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["dryrun"]:  # path (w)'s new process
+        return dryrun_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1

@@ -31,7 +31,13 @@ layer, whatever its client count.
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel for a tensor on a CUDA device; any other device
-raises.  :data:`LAUNCHES` counts kernel launches per kernel name.
+raises.  :data:`LAUNCHES` counts kernel launches per kernel name, and
+each function in :data:`LAUNCH_HOOKS` is called with every launch's
+name, tensors and scalars (:mod:`repro_torch.launch.op_analysis` counts
+the kernels' FLOPs and bytes so: a ctypes launch never reaches
+PyTorch's dispatcher).  A DTensor never reaches a kernel: on a device
+mesh :mod:`repro_torch.kernels.ops` hands each kernel its local shard
+(``local_map``), and :func:`launch` raises on a DTensor.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
 import torch
 
@@ -72,6 +78,9 @@ KERNELS = tuple(_SIGNATURES)
 
 # kernel launches per kernel name: each wrapper adds one where it launches
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+# hook(name, tensors, scalars) called at every launch
+LAUNCH_HOOKS: List[Callable] = []
 
 _fns: Dict[str, ctypes._CFuncPtr] = {}  # each kernel's C launcher, bound once
 _lock = threading.Lock()
@@ -172,6 +181,10 @@ def launch(name: str, tensors, *scalars) -> None:
     ``tensors`` may hold None for a pointer the launcher takes as
     optional; ``scalars`` are the sizes (ints) and, where the launcher
     takes one, a float, in the launcher's order."""
+    if any(t is not None and is_dtensor(t) for t in tensors):
+        raise TypeError(f"{name}: a DTensor reached the kernel launch; a "
+                        "kernel takes the local shard (kernels.ops wraps "
+                        "each call in local_map on a device mesh)")
     fn = _fns.get(name) or _launcher(name)
     dev = tensors[0].device
     with torch.cuda.device(dev):
@@ -182,6 +195,17 @@ def launch(name: str, tensors, *scalars) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    for hook in LAUNCH_HOOKS:
+        hook(name, tensors, scalars)
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (a tensor laid out on a device mesh).  A
+    plain tensor answers from its type alone: this runs at every launch."""
+    if type(t) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
 
 
 # shared memory a block may use: without the opt-in of ``allow_dynamic_smem``

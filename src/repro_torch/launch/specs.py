@@ -8,10 +8,10 @@ vlm family, stub frame embeddings and their mask for the audio family);
 decode shapes give a one-token batch, the cache populated to
 ``seq_len`` (``model.init_cache`` on ``meta``) and a ``cache_len``.
 
-The reference's ``params_shape`` and ``opt_state_shape`` feed only its
-XLA dry run (``launch/dryrun.py``, ``launch/hlo_analysis.py``) and its
-sharding rules, which lower and compile HLO for 256- and 512-device
-meshes; they are out of scope here (ROADMAP A3).
+``params_shape(cfg)`` is ``model.init`` on ``meta`` and
+``opt_state_shape(cfg, optimizer)`` the optimizer's state for it, also on
+``meta``: the trees :mod:`repro_torch.sharding.rules` lays out and the
+dry run (:mod:`repro_torch.launch.dryrun`) materialises one shard of.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
+from repro_torch.core.estimator import tree_map
 from repro_torch.models import model
 
 META = torch.device("meta")
@@ -63,3 +64,19 @@ def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
     return {"batch": batch,
             "cache": model.init_cache(cfg, B, S, META),
             "cache_len": _spec((), torch.int32)}
+
+
+def params_shape(cfg: ModelConfig):
+    """``model.init``'s tree on ``meta``: every leaf's shape and type, never
+    allocated (kimi-k2's 1T parameters included).  ``init`` runs under a
+    fake-tensor mode, which draws nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        fake = model.init(0, cfg, "cpu")
+    return tree_map(lambda t: _spec(t.shape, t.dtype), fake)
+
+
+def opt_state_shape(cfg: ModelConfig, optimizer):
+    """``optimizer.init`` of :func:`params_shape`, on ``meta``."""
+    return optimizer.init(params_shape(cfg))

@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.kernels import ops, use_kernel
 from repro_torch.models import module
+from repro_torch.sharding.context import constrain_attention_q, write_slot
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -230,7 +231,8 @@ def self_attention(params: Params, cfg, x: Tensor, cos: Tensor,
     B, S, _ = x.shape
     q, k, v = qkv(params, cfg, x)
     q, k = _rotate(cfg, q, k, cos, sin)
-    if use_kernel(x):
+    q, k, v = constrain_attention_q(q, k, v)
+    if use_kernel(x) or ops.is_dtensor(x):  # a mesh: kernels on shards
         out = ops.flash_attention(q, k, v, causal=causal,
                                   window=cfg.sliding_window)
     else:
@@ -285,15 +287,16 @@ def decode_self_attention(params: Params, cfg, x: Tensor, cache_k: Tensor,
         k_scale, v_scale = cache_scales
         kq, ks = _quantize_kv(k)
         vq, vs = _quantize_kv(v)
-        cache_k[:, slot], k_scale[:, slot] = kq[:, 0], ks[:, 0]
-        cache_v[:, slot], v_scale[:, slot] = vq[:, 0], vs[:, 0]
+        for cache, val in ((cache_k, kq), (k_scale, ks), (cache_v, vq),
+                           (v_scale, vs)):
+            write_slot(cache, slot, val[:, 0])
         k_full = cache_k.to(cfg.cdtype) * k_scale[..., None].to(cfg.cdtype)
         v_full = cache_v.to(cfg.cdtype) * v_scale[..., None].to(cfg.cdtype)
     else:
-        cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-        cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+        write_slot(cache_k, slot, k[:, 0].to(cache_k.dtype))
+        write_slot(cache_v, slot, v[:, 0].to(cache_v.dtype))
         k_full, v_full = cache_k, cache_v
-    if use_kernel(x):
+    if use_kernel(x) or ops.is_dtensor(x):
         lengths = torch.full((B,), n, dtype=torch.int32, device=x.device)
         out = ops.decode_attention(q, k_full, v_full, lengths)
     else:
@@ -355,7 +358,7 @@ def cross_attention(params: Params, cfg, x: Tensor, mem_k: Tensor,
         counts = torch.full((B,), Sm, dtype=torch.int32, device=x.device)
     else:
         counts = mem_mask.to(x.device).sum(-1, dtype=torch.int32)
-    if use_kernel(x):
+    if use_kernel(x) or ops.is_dtensor(x):
         if Sq == 1:
             out = ops.decode_attention(q, mem_k, mem_v, counts)
         else:

@@ -81,7 +81,22 @@ def mlp_flops(d: int, d_ff: int, activation: str, tokens: int) -> int:
 
 
 def embed(params: Params, tokens: Tensor, compute_dtype) -> Tensor:
+    if ops.is_dtensor(params["table"]):
+        return _embed_on_shards(params["table"], tokens, compute_dtype)
     return params["table"][tokens.long()].to(compute_dtype)
+
+
+def _embed_on_shards(table, tokens, compute_dtype):
+    """:func:`embed` on a device mesh: each rank looks its token rows up
+    in the whole table (gathered), so that no index op of DTensor's (whose
+    backward some torch versions cannot place) is recorded."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = table.device_mesh
+    tp = ops._placements(mesh, (ops._dp(mesh),), tokens.shape)
+    return ops._on_shards(
+        lambda t, ids: t[ids.long()].to(compute_dtype), mesh, tp,
+        ((Replicate(),) * mesh.ndim, tp), table, tokens)
 
 
 def unembed(params: Params, x: Tensor, softcap: float = 0.0) -> Tensor:
@@ -93,7 +108,14 @@ def unembed(params: Params, x: Tensor, softcap: float = 0.0) -> Tensor:
 
 def cross_entropy(logits: Tensor, labels: Tensor,
                   mask: Optional[Tensor] = None) -> Tensor:
-    """Mean token-level cross-entropy; logits (..., V), labels (...) int."""
+    """Mean token-level cross-entropy; logits (..., V), labels (...) int.
+    On a device mesh the vocab may stay sharded (:func:`_nll_on_shards`)."""
+    if ops.is_dtensor(logits):
+        nll = _nll_on_shards(logits, labels)
+        if mask is not None:
+            mask = mask.float()
+            return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+        return nll.mean()
     logits = logits.float()
     logz = torch.logsumexp(logits, -1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
@@ -102,3 +124,36 @@ def cross_entropy(logits: Tensor, labels: Tensor,
         mask = mask.float()
         return (nll * mask).sum() / mask.sum().clamp(min=1.0)
     return nll.mean()
+
+
+def _nll_on_shards(logits, labels):
+    """Token NLL of DTensor logits (B, S, V) without gathering the vocab:
+    each rank takes the log-sum-exp of its vocab slice and the gold logit
+    where the label falls in it; the slices' log-sum-exps are combined
+    and the gold logits summed over ``"model"``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = logits.device_mesh
+    names = mesh.mesh_dim_names
+    dp = ops._dp(mesh)
+    lp = ops._placements(mesh, (dp, None, "model"), logits.shape)
+    split = any(isinstance(p, Shard) and p.dim == 2 for p in lp)
+    bp = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+               for p in lp)
+    lse_p = tuple(Shard(2) if split and a == "model" else p
+                  for a, p in zip(names, bp))
+    gold_p = tuple(Partial() if split and a == "model" else p
+                   for a, p in zip(names, bp))
+
+    def local(lg, lb):
+        lg = lg.float()
+        v0 = mesh.get_local_rank("model") * lg.shape[-1] if split else 0
+        idx = lb.long() - v0
+        inside = (idx >= 0) & (idx < lg.shape[-1])
+        gold = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])
+        return (torch.logsumexp(lg, -1)[..., None],
+                torch.where(inside, gold[..., 0], 0.0))
+
+    lse, gold = ops._on_shards(local, mesh, (lse_p, gold_p), (lp, bp),
+                               logits, labels)
+    return torch.logsumexp(lse, -1) - gold

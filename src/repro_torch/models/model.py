@@ -41,6 +41,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import (attention, encdec, layers, module,
                                 transformer)
+from repro_torch.sharding.context import constrain_logits, constrain_residual
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -113,7 +114,7 @@ def _positions(cfg, batch, seq: int, batchsize: int, device):
 
 def _unembed(params, cfg, x: Tensor) -> Tensor:
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return layers.unembed(table, x, cfg.logit_softcap)
+    return constrain_logits(layers.unembed(table, x, cfg.logit_softcap))
 
 
 def _encode(params, cfg, batch) -> Tuple[Tensor, Optional[Tensor]]:
@@ -131,7 +132,7 @@ def _encode(params, cfg, batch) -> Tuple[Tensor, Optional[Tensor]]:
 def _decode_train(params, cfg, batch, memory, mem_mask) -> Tensor:
     """The enc-dec decoder over the batch's tokens, then the final norm
     and the unembedding."""
-    x = _input_embeddings(params, cfg, batch)
+    x = constrain_residual(_input_embeddings(params, cfg, batch))
     B, S, _ = x.shape
     cos, sin = attention.angles_for(cfg, _positions(cfg, batch, S, B,
                                                     x.device))
@@ -157,7 +158,7 @@ def forward(params: Params, cfg, batch: Dict[str, Tensor],
         memory, mem_mask = _encode(params, cfg, batch)
         return (_decode_train(params, cfg, batch, memory, mem_mask),
                 torch.zeros((), dtype=torch.float32, device=memory.device))
-    x = _input_embeddings(params, cfg, batch)
+    x = constrain_residual(_input_embeddings(params, cfg, batch))
     B, S, _ = x.shape
     if cfg.family == "ssm":  # xLSTM: no attention, no positions
         x, aux = transformer.apply_xlstm(params["stack"], cfg, x)
@@ -228,7 +229,7 @@ def serve_step(params: Params, cfg, batch: Dict[str, Tensor],
     """One new token given a populated cache.  batch["tokens"]: (B, 1);
     ``cache_len`` (an int) tokens are already in the cache, which is
     updated in place and returned."""
-    x = _input_embeddings(params, cfg, batch)
+    x = constrain_residual(_input_embeddings(params, cfg, batch))
     if cfg.family == "ssm":
         x, cache = transformer.decode_xlstm(params["stack"], cfg, x, cache)
     else:

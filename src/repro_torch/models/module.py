@@ -16,7 +16,9 @@ weight::
     y[(b,o)] = sum_a (x_a @ v) @ u_{ab}
 
 It is the reference's einsum (no Pallas kernel there), so it stays plain
-PyTorch here.  The paper's own forward, composing the weight first and
+PyTorch here; on a device mesh (DTensor params) it runs the rank_apply
+kernel on the local shards instead (:func:`repro_torch.kernels.ops.
+factorized_linear`), as no einsum reaches a kernel there.  The paper's own forward, composing the weight first and
 multiplying by it, is a switch (:func:`set_compose_then_matmul`); on a
 CUDA tensor it composes through the port's compose kernel.
 """
@@ -117,7 +119,15 @@ def composed_weight(basis: Tensor, coeff: Tensor, p: int) -> Tensor:
     factors are taken in f32 whatever their type."""
     I, R = basis.shape
     O = coeff.shape[2]
-    w = ops.compose(basis.float()[None], coeff.float())  # (1, I, p*p*O)
+    if ops.is_dtensor(basis):  # a mesh: compose the whole weight locally
+        from torch.distributed.tensor import Replicate
+        whole = (Replicate(),) * basis.device_mesh.ndim
+        w = ops._on_shards(lambda b, c: ops.compose(b.float()[None],
+                                                    c.float()),
+                           basis.device_mesh, whole, (whole, whole), basis,
+                           coeff)
+    else:
+        w = ops.compose(basis.float()[None], coeff.float())  # (1, I, p*p*O)
     return (w.reshape(I, p, p, O).permute(1, 0, 2, 3)
             .reshape(p * I, p * O))
 
@@ -140,6 +150,8 @@ def linear(params: Params, x: Tensor, width: int = 0) -> Tensor:
         raise ValueError(f"x dim {d_in} != p*I = {p}*{I}")
     if _COMPOSE_THEN_MATMUL:
         return x @ composed_weight(basis, coeff, p).to(x.dtype)
+    if ops.is_dtensor(x):
+        return ops.factorized_linear(x, basis, coeff, p)
     u = coeff.to(x.dtype).reshape(p, p, R, O)
     xa = x.reshape(*lead, p, I)
     z = torch.einsum("...ai,ir->...ar", xa, basis.to(x.dtype))

@@ -14,10 +14,11 @@ The aux load-balance loss follows Switch: E * sum_e f_e * p_e.
 
 The top-k is a stable descending sort, so tied probabilities rank the
 lower expert id first, as ``jax.lax.top_k`` does: the combine tensor
-fills slots in that order.  The reference's ``moe_shardmap`` branch
-(weight-stationary expert parallelism over a device mesh) is the port's
-:func:`repro_torch.models.moe_shardmap.apply_moe_shardmap`, called as a
-function: :func:`apply_moe` does not route there.
+fills slots in that order.  As in the reference, :func:`apply_moe`
+routes to the weight-stationary expert-parallel schedule
+(:func:`repro_torch.models.moe_shardmap.apply_moe_shardmap`) when the
+sharding context (:mod:`repro_torch.sharding.context`) holds a mesh and
+sets ``moe_shardmap``; its aux loss is then 0, as the reference's.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers, module
 
 Tensor = torch.Tensor
@@ -115,12 +117,18 @@ def expert_ffn(params: Params, cfg, xec: Tensor) -> Tensor:
                         params["down"].to(xec.dtype))
 
 
-def _moe_group(params, cfg, xg: Tensor) -> Tuple[Tensor, Tensor]:
+def _moe_group(params, cfg, xg: Tensor,
+               experts: slice = None) -> Tuple[Tensor, Tensor]:
     """Dispatch groups (GShard 'group').  xg: (..., T, d), one group per
-    leading index (the reference vmaps this over its groups)."""
+    leading index (the reference vmaps this over its groups).  With
+    ``experts``, ``params`` holds only those experts' tensors and the
+    output is their part of the sum over experts (the aux loss is the
+    whole one)."""
     cap = capacity(xg.shape[-2], cfg)
     probs, gates, ids = router_topk(params["router"], xg, cfg)
     combine, aux = make_combine(probs, gates, ids, cfg, cap)
+    if experts is not None:
+        combine = combine[..., experts, :]
     dispatch = (combine > 0).to(xg.dtype)  # (..., T, E, C)
     xec = torch.einsum("...tec,...td->...ecd", dispatch, xg)
     yec = expert_ffn(params, cfg, xec)
@@ -140,7 +148,15 @@ def _grouped(x: Tensor) -> bool:
 def apply_moe(params: Params, cfg, x: Tensor) -> Tuple[Tensor, Tensor]:
     """x: (B, S, d) -> (y, aux_loss * router_aux_weight)."""
     B, S, d = x.shape
-    if _grouped(x):
+    from repro_torch.sharding.context import get_context
+    ctx = get_context()
+    if ctx["moe_shardmap"] and ctx["mesh"] is not None:
+        from repro_torch.models.moe_shardmap import apply_moe_shardmap
+        y = apply_moe_shardmap(params, cfg, x, ctx["mesh"])
+        return y, torch.zeros((), dtype=torch.float32, device=x.device)
+    if ops.is_dtensor(x):
+        y, aux = _moe_on_mesh(params, cfg, x)
+    elif _grouped(x):
         y, aux = _moe_group(params, cfg, x)
         aux = aux.mean()
     else:
@@ -149,6 +165,55 @@ def apply_moe(params: Params, cfg, x: Tensor) -> Tuple[Tensor, Tensor]:
     if "shared" in params:
         y = y + layers.apply_mlp(params["shared"], x, cfg.activation)
     return y, aux * cfg.moe.router_aux_weight
+
+
+def _moe_on_mesh(params: Params, cfg, x: Tensor) -> Tuple[Tensor, Tensor]:
+    """The GShard dispatch on a device mesh, each rank on its local
+    shards: every rank routes the tokens of its groups (the batch rows
+    over the data-parallel axes when grouped, else all B*S tokens: the
+    capacity and the token priority are the group's) and runs its
+    resident experts (E over ``"model"`` where it divides); the partial
+    outputs are summed over ``"model"``.  Returns (y, aux) as
+    :func:`apply_moe` takes them (the aux loss not yet weighted)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    B, S, d = x.shape
+    E = cfg.moe.num_experts
+    n_model = mesh.mesh.shape[names.index("model")]
+    split = E % n_model == 0
+    E_loc = E // n_model if split else E
+    grouped = _grouped(x)
+    xp = (ops._placements(mesh, (ops._dp(mesh), None, None), x.shape)
+          if grouped else (Replicate(),) * len(names))
+    whole = (Replicate(),) * len(names)
+    ep = tuple(Shard(0) if split and a == "model" else Replicate()
+               for a in names)
+    yp = tuple(Partial() if split and a == "model" else p
+               for a, p in zip(names, xp))
+    # every model rank computes the whole aux loss: rank 0 of "model"
+    # gives it and the others zeros, summed over "model", so that its
+    # gradient is counted once
+    ap = yp if grouped else tuple(Partial() if split and a == "model"
+                                  else Replicate() for a in names)
+
+    def body(router_w, gate, up, down, xl):
+        j = mesh.get_local_rank("model") if split else 0
+        p = {"router": {"w": router_w}, "gate": gate, "up": up,
+             "down": down}
+        experts = slice(j * E_loc, (j + 1) * E_loc)
+        if grouped:
+            y, aux = _moe_group(p, cfg, xl, experts)
+        else:
+            y, aux = _moe_group(p, cfg, xl.reshape(B * S, d), experts)
+            y = y.reshape(B, S, d)
+        return y, aux * (j == 0)
+
+    y, aux = ops._on_shards(body, mesh, (yp, ap),
+                            (whole, ep, ep, ep, xp), params["router"]["w"],
+                            params["gate"], params["up"], params["down"], x)
+    return y, (aux.mean() if grouped else aux)
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,12 @@ explicit collective schedule (its ``shard_map`` formulation):
 The grid is a 2-D sequence of devices, ``grid[i][j]`` for data shard
 ``i`` and model shard ``j``; a device may repeat (logical shards of one
 device, as :func:`repro_torch.sharding.fl.logical_devices` makes them).
-The JAX package reaches this formulation through its sharding context;
-the port exposes it as a function (ROADMAP C), and
-:func:`repro_torch.models.moe.apply_moe` does not route here.
+Or it is a ``torch.distributed`` DeviceMesh with ``"data"`` and
+``"model"`` axes (and maybe ``"pod"``), on which each rank runs its part
+on its local shards (``local_map``) and the fold over ``"model"`` is a
+reduction of the partial outputs; :func:`repro_torch.models.moe.apply_moe`
+routes here when the sharding context sets ``moe_shardmap``, as the
+JAX package's does.
 """
 
 from __future__ import annotations
@@ -88,6 +91,8 @@ def apply_moe_shardmap(params: Params, cfg, x: Tensor,
     """x: (B, S, d), B divisible by the grid's rows; the expert count
     divisible by its columns.  Returns y (B, S, d) on ``x``'s device
     (the MoE output without an aux loss, as in the JAX package)."""
+    if hasattr(grid, "mesh_dim_names"):
+        return _on_mesh(params, cfg, x, grid)
     m = cfg.moe
     E = m.num_experts
     n_data, n_model = len(grid), len(grid[0])
@@ -117,6 +122,61 @@ def apply_moe_shardmap(params: Params, cfg, x: Tensor,
                 cfg.activation))
         rows.append(fold_shards(partials).reshape(B_loc, S, d).to(x.device))
     y = torch.cat(rows)
+    if "shared" in params:
+        y = y + layers.apply_mlp(params["shared"], x, cfg.activation)
+    return y
+
+
+def _on_mesh(params: Params, cfg, x: Tensor, mesh) -> Tensor:
+    """:func:`apply_moe_shardmap` on a DeviceMesh: tokens over ``"data"``
+    (whole over the other axes), the router whole, each expert tensor's E
+    over ``"model"`` and whatever other axes hold it split already (the
+    "pod" axis of ``zero_pod``: its shards are never gathered); each rank
+    routes its tokens and runs its resident experts, and the partial
+    outputs are summed over the expert axes (the reference's ``psum``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.kernels.ops import _on_shards, is_dtensor
+    m = cfg.moe
+    E = m.num_experts
+    names = mesh.mesh_dim_names
+    held = (params["gate"].placements if is_dtensor(params["gate"])
+            else ())
+    axes = [i for i, p in enumerate(held)
+            if isinstance(p, Shard) and p.dim == 0]
+    if names.index("model") not in axes:
+        axes = sorted(axes + [names.index("model")])
+    n_exp = math.prod(mesh.mesh.shape[i] for i in axes)
+    if E % n_exp:
+        raise ValueError(f"{E} experts do not divide over {n_exp} shards "
+                         f"of {[names[i] for i in axes]}")
+    E_loc = E // n_exp
+    whole = tuple(Replicate() for _ in names)
+    experts = tuple(Shard(0) if i in axes else Replicate()
+                    for i in range(len(names)))
+    tokens = tuple(Shard(0) if a == "data" and i not in axes
+                   else Replicate() for i, a in enumerate(names))
+    out = tuple(Partial() if i in axes else p for i, p in enumerate(tokens))
+
+    def body(router_w, gate_w, up_w, down_w, xs):
+        B_loc, S, d = xs.shape
+        x2 = xs.reshape(B_loc * S, d)
+        T = x2.shape[0]
+        cap = max(4, -(-math.ceil(T * m.top_k * m.capacity_factor / E)
+                       // 4) * 4)
+        _, gates, ids = router_topk({"w": router_w}, x2, cfg)
+        j = 0  # this rank's block of experts, the axes in mesh order
+        for i in axes:
+            j = j * mesh.mesh.shape[i] + mesh.get_local_rank(names[i])
+        y = _local_expert_pass(x2, gates, ids, gate_w, up_w, down_w,
+                               j * E_loc, E_loc, cap, cfg.activation)
+        return y.reshape(B_loc, S, d)
+
+    y = _on_shards(body, mesh, out, (whole, experts, experts, experts,
+                                     tokens),
+                   params["router"]["w"], params["gate"], params["up"],
+                   params["down"], x)
+    y = y.redistribute(mesh, tokens)
     if "shared" in params:
         y = y + layers.apply_mlp(params["shared"], x, cfg.activation)
     return y

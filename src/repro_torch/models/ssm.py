@@ -68,7 +68,16 @@ def _split_proj(zxbcdt: Tensor, cfg):
 
 
 def _causal_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
-    """Depthwise causal conv over (B, T, C) with kernel (W, C)."""
+    """Depthwise causal conv over (B, T, C) with kernel (W, C).  On a
+    device mesh each rank convolves its own rows and channels (the batch
+    over the data-parallel axes, the channels over ``"model"``)."""
+    if ops.is_dtensor(x):
+        mesh = x.device_mesh
+        dp = ops._dp(mesh)
+        xp = ops._placements(mesh, (dp, None, "model"), x.shape)
+        return ops._on_shards(_causal_conv, mesh, xp, (
+            xp, ops._placements(mesh, (None, "model"), w.shape),
+            ops._placements(mesh, ("model",), b.shape)), x, w, b)
     W = w.shape[0]
     T = x.shape[1]
     xp = F.pad(x, (0, 0, W - 1, 0))
@@ -123,13 +132,7 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
     h_in = torch.stack(h_in, dim=1)  # (B,nc,H,N,P)
 
     # ---- intra-chunk block + carry-in: one kernel call ----------------
-    # rows (b, c, h); B and C once per (b, c), shared by its H heads
-    y = ops.ssd_chunk(
-        cc.reshape(Bsz * nc, Q, N), bc.reshape(Bsz * nc, Q, N),
-        xc.permute(0, 1, 3, 2, 4).reshape(Bsz * nc * H, Q, P),
-        cum.permute(0, 1, 3, 2).reshape(Bsz * nc * H, Q),
-        h_in.reshape(Bsz * nc * H, N, P), heads=H)
-    y = y.reshape(Bsz, nc, H, Q, P).permute(0, 1, 3, 2, 4)
+    y = ops.ssd_chunk_blocks(cc, bc, xc, cum, h_in)
     return y.reshape(Bsz, Tp, H, P)[:, :T], h
 
 

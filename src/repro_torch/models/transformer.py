@@ -23,9 +23,10 @@ are recomputed in the backward, and the numbers do not change.  Mamba2
 params are stacked ``(nsuper, attn_every, ...)`` and mLSTM params
 ``(nsuper, slstm_every - 1, ...)`` as in the reference.  The decode
 caches have real storage and are written in place (the reference
-broadcasts its initial caches and returns updated copies).  The
-reference's ``constrain_residual`` (a sharding constraint on the
-residual stream) is a no-op without a device mesh and is left out.
+broadcasts its initial caches and returns updated copies).  Each layer
+and each superblock ends with ``constrain_residual`` where the
+reference's does (:mod:`repro_torch.sharding.context`: the residual
+stream's layout on a device mesh, a no-op without one).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.estimator import tree_leaves, tree_map
 from repro_torch.models import attention, layers, module, ssm, xlstm
 from repro_torch.models import moe as moe_lib
+from repro_torch.sharding.context import constrain_residual, in_mesh_context
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -155,7 +157,9 @@ def _recording(params) -> bool:
 
 def _run(remat: bool, fn, *args):
     if remat:
-        return checkpoint(fn, *args, use_reentrant=False)
+        # the backward replays fn, on the card in autograd's own thread:
+        # a device mesh's context goes with it
+        return checkpoint(in_mesh_context(fn), *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -169,6 +173,7 @@ def apply_stack(params: Params, cfg, x: Tensor, cos, sin,
         for lp in _unstack(part):
             x, a = _run(remat, decoder_layer, lp, cfg, x, cos, sin,
                         skip_blocks)
+            x = constrain_residual(x)
             if a is not None:
                 aux = aux + a
     return x, aux
@@ -265,11 +270,11 @@ def apply_hybrid(params: Params, cfg, x: Tensor, cos, sin,
         for i in range(per):
             norm_p = _layer(params["mamba_norms"], s, i)
             mp = _layer(params["mamba"], s, i)
-            x = x + ssm.apply_mamba2(mp, cfg,
-                                     layers.apply_norm(norm_p, x, cfg.norm))
-        x = _shared_block(shared, cfg, x, lambda p, hs: attention.
-                          self_attention(p, cfg, hs, cos, sin,
-                                         skip_masked_blocks=skip_blocks))
+            x = constrain_residual(x + ssm.apply_mamba2(
+                mp, cfg, layers.apply_norm(norm_p, x, cfg.norm)))
+        x = constrain_residual(_shared_block(
+            shared, cfg, x, lambda p, hs: attention.self_attention(
+                p, cfg, hs, cos, sin, skip_masked_blocks=skip_blocks)))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -341,8 +346,9 @@ def apply_xlstm(params: Params, cfg, x: Tensor) -> Tuple[Tensor, Tensor]:
     mlstm = _unstack(tree_map(lambda a: a.flatten(0, 1), params["mlstm"]))
     for s, sp in enumerate(_unstack(params["slstm"])):
         for mp in mlstm[s * per:(s + 1) * per]:
-            x = _run(remat, xlstm.apply_mlstm, mp, cfg, x)
-        x = xlstm.apply_slstm(sp, cfg, x)
+            x = constrain_residual(_run(remat, xlstm.apply_mlstm, mp, cfg,
+                                        x))
+        x = constrain_residual(xlstm.apply_slstm(sp, cfg, x))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

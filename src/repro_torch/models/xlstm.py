@@ -29,6 +29,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers, module
 
 Tensor = torch.Tensor
@@ -78,12 +79,21 @@ def _causal_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
     return out + b
 
 
+def _logsigmoid(x: Tensor) -> Tensor:
+    """``F.logsigmoid``; on a DTensor under autograd (a device mesh, where
+    its backward has no sharding rule) as min(x, 0) - log1p(exp(-|x|)),
+    the same function in operations that have one."""
+    if ops.is_dtensor(x) and x.requires_grad:
+        return torch.clamp(x, max=0) - torch.log1p(torch.exp(-torch.abs(x)))
+    return F.logsigmoid(x)
+
+
 def mlstm_parallel(q: Tensor, k: Tensor, v: Tensor, i_pre: Tensor,
                    f_pre: Tensor) -> Tensor:
     """Stabilized parallel mLSTM.  q/k (B,T,H,dqk), v (B,T,H,dv),
     i_pre/f_pre (B,T,H) pre-activations.  Returns (B,T,H,dv)."""
     T, dqk = q.shape[1], q.shape[3]
-    logf = F.logsigmoid(f_pre.float())  # (B,T,H)
+    logf = _logsigmoid(f_pre.float())  # (B,T,H)
     cf = torch.cumsum(logf, dim=1)
     # D[t,s] = F_t - F_s + i_s  for s<=t
     D = cf[:, :, None, :] - cf[:, None, :, :] + i_pre.float()[:, None, :, :]
@@ -148,7 +158,7 @@ def apply_mlstm_decode(params: Params, cfg, x: Tensor,
     v = module.linear(params["wv"], a).reshape(B, H, dv)
     if_pre = (a @ params["wif"]["w"].to(x.dtype))[:, 0]
     i_pre, f_pre = if_pre[..., :H].float(), if_pre[..., H:].float()
-    logf = F.logsigmoid(f_pre)
+    logf = _logsigmoid(f_pre)
     m_new = torch.maximum(logf + cache["m"], i_pre)
     fg = torch.exp(logf + cache["m"] - m_new)[..., None]  # (B,H,1)
     ig = torch.exp(i_pre - m_new)[..., None]
@@ -204,7 +214,7 @@ def _slstm_cell(params, cfg, xg: Tensor, state):
            + params["bias"].reshape(H, 4 * dh).float().to(xg.dtype))
     i_pre, f_pre, z_pre, o_pre = pre.split(dh, dim=-1)
     i_pre, f_pre = i_pre.float(), f_pre.float()
-    logf = F.logsigmoid(f_pre)
+    logf = _logsigmoid(f_pre)
     m_new = torch.maximum(logf + state["m"], i_pre)
     ig = torch.exp(i_pre - m_new)
     fg = torch.exp(logf + state["m"] - m_new)

@@ -12,7 +12,8 @@ JAX package's.
   3 steps;
 * ``launch.train``: checkpoints written every ``--ckpt-every`` steps, a
   run resumed from its step-4 checkpoint equal bit for bit to the
-  uninterrupted run, ``--composition``, and ``--mesh pod`` refused;
+  uninterrupted run, ``--composition``, and ``--mesh pod`` refused
+  without a world of 256 ranks;
 * ``launch.serve`` with no ``--arch`` serves gemma-2b.
 """
 
@@ -237,7 +238,9 @@ def test_train_launcher_composition_and_mesh(capsys):
                  "--device", "cpu"])
     out = capsys.readouterr().out
     assert "composition=on" in out and out.rstrip().endswith("done.")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    # the production mesh needs a world of 256 ranks (torchrun, or the
+    # dry run's fake world: tests/test_torch_dryrun.py runs it there)
+    with pytest.raises(RuntimeError, match="process group of 256 ranks"):
         ttrain.main(["--smoke", "--mesh", "pod", "--device", "cpu"])
 
 
