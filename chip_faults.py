@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Planted faults in the composition, attention, SSD-chunk and RMSNorm
-kernels, in the merge over a cohort's shards and in the production mesh's
-rules, context and local shards: does the smoke see them?
+kernels, in the merge over a cohort's shards, in the production mesh's
+rules, context and local shards, and in the checkpoint codec: does the
+smoke see them?
 
     python3 chip_faults.py
 
@@ -35,7 +36,9 @@ conventions) for a row-parallel rule with its axes swapped, its residual
 layout case for a ``constrain_residual`` that drops the data-parallel
 axis, its first local-shard flash case for a ``local_map`` that takes
 flash's heads replicated, and its first factorized-linear case for a
-chunked rank_apply that leaves the last basis chunk out.
+chunked rank_apply that leaves the last basis chunk out; and the codec's
+check (``check_codec``) at its first case, a payload of 16 leaves, for a
+writer that gives 16 keys a fixmap header instead of map16.
 Prints one line per fault (the case it failed at and its worst margin)
 and exits 1 unless every fault did.
 """
@@ -164,6 +167,11 @@ FAULTS = {
         "for (int v = 0; v < VPT; ++v) ss += (v == VPT - 1 && t == tpr - 1) "
         "? 0.f : sum_sq<T>(xv[v]);", 1,
         "rmsnorm float32", "check_ssd_rmsnorm"),
+    "codec: a map of 16 keys headed as a fixmap, not map16": (
+        "checkpoint/msgpack_ckpt.py",
+        r"return _sized\(n, 15, 0x80, \(0xDE",
+        "return _sized(n, 16, 0x80, (0xDE", 1,
+        "codec map16", "check_codec"),
 }
 # TF32 off for matmuls and convolutions, as chip_smoke.main sets it: the
 # plain conv_rank runs F.conv2d, which cuDNN would take in TF32

@@ -66,7 +66,11 @@ Run from the root of a checkout.  It
    decode shapes; flash, decode and rmsnorm also at path (p)'s own
    prefill and decode calls on gemma-2b; flash at path (u)'s encoder
    and cross prefill, decode at its cross decode, compose at its
-   attention projection);
+   attention projection; rank_apply at path (w)'s factorized linear on
+   rank 0's shard, one 64 x 64 basis chunk and the whole 128-chunk
+   linear); and the checkpoint codec on the card's tensors
+   (``check_codec``: each payload's file equal to ``plain_msgpack``'s
+   bytes, read back bit for bit);
 3. drives the port's main paths, with the launch counts set to 0 just
    before each and read just after, each checked against the same run on
    the CPU (the plain versions, which the CPU tests hold to the JAX
@@ -120,14 +124,17 @@ Run from the root of a checkout.  It
    ``cudnn.deterministic``); (m) heroes over a virtual population of a
    million clients (``build_setup(population=1_000_000)``, availability
    participation, two edge groups, the cohort trainer, path (c)'s pins,
-   a checkpoint every round) under ``cudnn.deterministic``: 4 rounds
-   uninterrupted, the same stopped after round 2 and continued by a new
-   process (``chip_smoke.py resume ...``) from the checkpoint, semi-async
-   events at the million (uniform, rejection-sampled) resumed the same way
-   with results in flight, and ``run_until_budget`` at round 2's wall;
-   the resumed runs must equal the uninterrupted ones bit for bit, the
-   schedule and participation the CPU run's, the edge partials recombine
-   to the merged state; (n) the dataset smoke
+   a msgpack checkpoint every round, the JAX package's format) under
+   ``cudnn.deterministic``: 4 rounds uninterrupted, the same stopped
+   after round 2 and continued by a new process (``chip_smoke.py resume
+   ...``) from the checkpoint, semi-async events at the million (uniform,
+   rejection-sampled) resumed the same way with results in flight, and
+   ``run_until_budget`` at round 2's wall; the resumed runs must equal
+   the uninterrupted ones bit for bit, the schedule and participation the
+   CPU run's, the edge partials recombine to the merged state; (m5) the
+   CPU run's round-2 checkpoint continued on the card and (m6) the card's
+   continued on the CPU, each by a new process and held to the other
+   device's uninterrupted run; (n) the dataset smoke
    (``repro_torch.data.smoke.main([])``, one cohort heroes round per
    loader), each loader's accuracy within 2 test samples of the CPU's;
    (o) telemetry (``telemetry="jsonl"``) under ``cudnn.deterministic`` on
@@ -195,6 +202,9 @@ Run from the root of a checkout.  It
    fastest-K semi-async against the host rules; (v5) olmoe-1b-7b's MoE
    layer through ``apply_moe_shardmap`` on a 2 x 4 grid against
    ``moe.apply_moe``;
+3b. runs the six ``examples/*_torch.py`` on the card at their own sizes,
+   all at once, each in a process of its own: each must exit 0 and print
+   no NaN or inf (``examples_path``);
 4. traces one round of (c) with ``torch.profiler`` (device busy share,
    top kernels), with the sequential trainer and 4 clients and with the
    cohort trainer and 10, and prints the calibration
@@ -1096,10 +1106,63 @@ def rank_kernel_times(torch, rn) -> dict:
                                                    u3),
             f32 * (xg.numel() + v.numel() + u2.numel() + M * D),
             2 * (M * g * I * 8 + M * g * 8 * D), PEAK_F32_FLOPS, False))
+    recs["rank_apply"] += w6_rank_apply_times(torch, rn)
     out = {}
     for name, rows in recs.items():
         out[name] = dict(rows[0], more_shapes=rows[1:])
     return out
+
+
+def w6_rank_apply_times(torch, rn) -> list:
+    """rank_apply at path (w)'s factorized linear, rank 0's shard of
+    gemma-2b's query projection (``W6_COMP``: S rows, p = 2, basis (I, R),
+    coefficient (p*p, R, O/16)), which ``kernels.ops`` takes over 64 x 64
+    basis chunks: one chunk's kernel call, and the whole 128-chunk linear
+    (``ops._rank_apply_chunked``), each beside its plain version, the
+    three-operand ``torch.einsum`` and its bound.  The whole linear's
+    bound counts the function's work, not the chunks' (each chunk repeats
+    its R-chunk's second product for every I-chunk)."""
+    from repro_torch.kernels.compose import (_fwd_math, _u2_layout,
+                                             rank_apply_kernel)
+    from repro_torch.kernels.ops import _rank_apply_chunked, _rank_chunks
+    from repro_torch.models.module import linear
+
+    _, S, d_in, d_out, p, R = W6_COMP
+    I, O = d_in // p, d_out // p // 16
+    ci, cr = _rank_chunks(I, R, p)
+    x, basis = rn(S, p * I, scale=1.0), rn(I, R, scale=I ** -0.5)
+    coeff = rn(p * p, R, O, scale=R ** -0.5)
+    f32, rows = 4, []
+    # one chunk, as _rank_apply_chunked hands it to the kernel
+    xg = x.reshape(S, p, I)[..., :ci].contiguous()
+    v, u = basis[:ci, :cr].contiguous(), coeff[:, :cr].contiguous()
+    u2 = _u2_layout(u, p, "square").contiguous()
+    u4 = u.reshape(p, p, cr, O)
+    rows.append(time_kernel(
+        torch, "rank_apply", "(w6) one basis chunk", (
+            f"(w6) gemma-2b q projection, rank 0's shard, one {ci} x {cr} "
+            f"basis chunk: xg {tuple(xg.shape)} v {tuple(v.shape)} u2 "
+            f"{tuple(u2.shape)} -> ({S},{p * O})"),
+        lambda: rank_apply_kernel(xg, v, u2), lambda: _fwd_math(xg, v, u2),
+        lambda: torch.einsum("mai,ir,abro->mbo", xg, v, u4),
+        f32 * (xg.numel() + v.numel() + u2.numel() + S * p * O),
+        2 * (S * p * ci * cr + S * p * cr * p * O), PEAK_F32_FLOPS, False))
+    # the whole linear: (I / ci) * (R / cr) chunks, summed
+    n = (I // ci) * (R // cr)
+    u4 = coeff.reshape(p, p, R, O)
+    xa = x.reshape(S, p, I)
+    rows.append(time_kernel(
+        torch, "rank_apply", f"(w6) the whole {n}-chunk linear", (
+            f"(w6) gemma-2b q projection, rank 0's shard: x ({S},{p * I}) "
+            f"basis ({I},{R}) coeff ({p * p},{R},{O}) -> ({S},{p * O}) in "
+            f"{n} chunks of {ci} x {cr}"),
+        lambda: _rank_apply_chunked(x, basis, coeff, p),
+        lambda: linear({"basis": basis, "coeff": coeff}, x),
+        lambda: torch.einsum("mai,ir,abro->mbo", xa, basis, u4),
+        f32 * (x.numel() + basis.numel() + coeff.numel() + S * p * O),
+        2 * (S * p * I * R + S * p * R * p * O), PEAK_F32_FLOPS, False))
+    rows[-1]["chunks"] = n
+    return rows
 
 
 # compose's phase-2 edges: (C, ksq, I, R, m, O), C = 1 as a 3-d call
@@ -2773,6 +2836,136 @@ def spread_k(torch) -> dict:
 # path (m): a virtual population of a million clients on the CNN at full
 # width, the calibration pinned as on path (c) so a new process picks the
 # same impls; every round checkpointed, keeping two
+# --------------------------------------------------------------------------
+# the checkpoint codec on the card's tensors
+# --------------------------------------------------------------------------
+
+
+def plain_msgpack(leaves: dict) -> bytes:
+    """The plain version of the checkpoint codec's writer: the msgpack
+    spec's smallest forms, written out here on their own, for a map of
+    leaf paths to host arrays (bf16 given as a (uint16 bits, "bfloat16")
+    pair)."""
+    import struct
+
+    def sized(n, fix, fix_base, forms):
+        if fix is not None and n <= fix:
+            return bytes([fix_base + n])
+        for code, fmt, width in forms:
+            if n < 1 << width:
+                return bytes([code]) + struct.pack(fmt, n)
+        raise ValueError(n)
+
+    def text(s):
+        b = s.encode()
+        return sized(len(b), 31, 0xA0, ((0xD9, ">B", 8), (0xDA, ">H", 16),
+                                        (0xDB, ">I", 32))) + b
+
+    def uint(n):
+        return sized(n, 127, 0, ((0xCC, ">B", 8), (0xCD, ">H", 16),
+                                 (0xCE, ">I", 32), (0xCF, ">Q", 64)))
+
+    out = [sized(len(leaves), 15, 0x80, ((0xDE, ">H", 16),
+                                         (0xDF, ">I", 32)))]
+    for k, leaf in leaves.items():
+        a, dtype = leaf if isinstance(leaf, tuple) else (leaf,
+                                                         str(leaf.dtype))
+        raw = a.tobytes()
+        out += [text(k), bytes([0x83]), text("dtype"), text(dtype),
+                text("shape"), sized(a.ndim, 15, 0x90, ((0xDC, ">H", 16),)),
+                *[uint(d) for d in a.shape], text("data"),
+                sized(len(raw), None, 0, ((0xC4, ">B", 8), (0xC5, ">H", 16),
+                                          (0xC6, ">I", 32))), raw]
+    return b"".join(out)
+
+
+# (label, leaves: path -> (dtype, shape)); the first case has more than 15
+# leaves (a map16 header), the second every stored dtype
+CODEC_CASES = (
+    ("codec map16: 16 f32 leaves from the card",
+     {f"layer{i:02d}/w": ("float32", (64, 33)) for i in range(16)}),
+    ("codec fixmap: every stored dtype from the card",
+     {"f32": ("float32", (3, 5)), "f64": ("float64", (7,)),
+      "i32": ("int32", (2, 2)), "i64": ("int64", (4,)),
+      "u8": ("uint8", (300,)), "bool": ("bool", (9,)),
+      "bf16": ("bfloat16", (6, 11))}),
+    ("codec edges: 0-d and empty leaves, long keys, data past 65535 B",
+     {"k" * 40: ("float32", ()), "e" * 300: ("int64", (3, 0)),
+      "big": ("float32", (70000,)), "bf16/0d": ("bfloat16", ())}),
+)
+
+
+def check_codec(torch) -> dict:
+    """The msgpack checkpoint codec on tensors from the card: each
+    ``CODEC_CASES`` payload, saved by ``msgpack_ckpt.save_checkpoint``,
+    must be the file ``plain_msgpack`` writes for the same host arrays
+    (the bytes the JAX package writes), and must load back to the same
+    values bit for bit (bf16 as its bits).  Returns the save and load ms
+    of each case."""
+    import tempfile
+
+    import repro_torch.checkpoint.msgpack_ckpt as msgpack_ckpt
+
+    import numpy as np
+
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    rec = {}
+    print("phase 2: the checkpoint codec on the card's tensors")
+    for label, spec in CODEC_CASES:
+        state, host = {}, {}
+        for path, (dtype, shape) in spec.items():
+            t = 100 * torch.randn(shape, generator=gen, device=DEVICE)
+            if dtype == "bool":
+                t = t > 0
+            elif dtype != "float32":
+                t = t.to(getattr(torch, dtype))
+            node = state
+            *parents, leaf = path.split("/")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = t
+            if dtype == "bfloat16":
+                host[path] = (t.cpu().view(torch.int16).numpy().view(
+                    np.uint16), "bfloat16")
+            else:
+                host[path] = t.cpu().numpy()
+        host = dict(sorted(host.items()))  # the flattener's order
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            step = msgpack_ckpt.save_checkpoint(tmp, 1, state)
+            save_ms = 1e3 * (time.perf_counter() - t0)
+            blob = (step / "state.msgpack").read_bytes()
+            want = plain_msgpack(host)
+            off = sum(a != b for a, b in zip(blob, want)) + abs(
+                len(blob) - len(want))
+            e = math.inf
+            try:
+                t0 = time.perf_counter()
+                got = msgpack_ckpt.load_checkpoint(step)
+                load_ms = 1e3 * (time.perf_counter() - t0)
+                e = 0.0
+                for path, leaf in host.items():
+                    node = got
+                    for part in path.split("/"):
+                        node = node[part]
+                    a = leaf[0] if isinstance(leaf, tuple) else leaf
+                    b = node.view(torch.int16).numpy().view(np.uint16) \
+                        if isinstance(node, torch.Tensor) else node
+                    same = a.dtype == b.dtype and a.shape == b.shape
+                    e = max(e, float(np.abs(a.astype(np.float64)
+                                            - b.astype(np.float64)).max())
+                            if same and a.size else (0.0 if same
+                                                     else math.inf))
+            except (ValueError, KeyError, TypeError) as exc:
+                print(f"  {label}: load raised {exc!r}")
+        print(f"  {label}: max_abs_err {e:.3e} bytes off the plain "
+              f"encoding {off} of {len(want)}")
+        check(off == 0 and e == 0.0, f"{label}: the codec disagrees")
+        rec[label] = {"bytes": len(blob), "save_ms": save_ms,
+                      "load_ms": load_ms}
+    return rec
+
+
 M_POPULATION = 1_000_000
 M_SETUP = dict(partition_kw={"samples_per_client": 32})
 M_KNOBS = dict(clients_per_round=10, participation="availability",
@@ -2827,16 +3020,18 @@ def history_dicts(runner) -> list:
 
 def resume_worker(argv) -> int:
     """``chip_smoke.py resume MODE DEVICE CKPT_DIR OUT_DIR``, the new
-    process of (m2) and (m3): restore the newest checkpoint of a path-(m)
-    run (``MODE`` m2 or m3) on ``DEVICE``, run it to ``M_ROUNDS``, and
-    write its history, restore time and final params under ``OUT_DIR``.
-    It imports nothing but torch and ``repro_torch``."""
+    process of (m2), (m3), (m5) and (m6): restore the newest checkpoint of
+    a path-(m) run (``MODE`` m3 for the semi-async one, m2, m5 or m6 for
+    a synchronous one; m5's was written on the CPU, m6's on the card) on
+    ``DEVICE``, run it to ``M_ROUNDS``, and write its history, restore
+    time and final params under ``OUT_DIR``.  It imports nothing but
+    torch and ``repro_torch``."""
     import torch
 
     mode, device, ckpt_dir, out_dir = argv
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import kernels as rt
-    from repro_torch.checkpoint import npz_ckpt
+    import repro_torch.checkpoint.msgpack_ckpt as msgpack_ckpt
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2858,42 +3053,54 @@ def resume_worker(argv) -> int:
     rec["history"] = history_dicts(runner)
     rec["participation"] = {str(k): v for k, v in
                             runner.state.participation.items()}
-    npz_ckpt.save_checkpoint(out_dir, M_ROUNDS, runner.params)
+    msgpack_ckpt.save_checkpoint(out_dir, M_ROUNDS, runner.params)
     (Path(out_dir) / "run.json").write_text(json.dumps(rec))
     return 0
 
 
-def resume_in_new_process(torch, label, mode, ckpt_dir, ref) -> dict:
-    """Run ``resume_worker`` in a new Python process and hold what it
-    continued against the uninterrupted run ``ref``: history, final
-    params and participation bit for bit."""
+def run_resume_worker(label, mode, device, ckpt_dir) -> tuple:
+    """``resume_worker`` in a new Python process on ``device``: (its
+    record, its final params as host arrays, the process's seconds).
+    Path (m) runs these on threads, beside its own runs."""
     import tempfile
 
-    from repro_torch.checkpoint import npz_ckpt
-    from repro_torch.convert import to_numpy
-    from repro_torch.core.estimator import tree_leaves
-
-    import numpy as np
+    import repro_torch.checkpoint.msgpack_ckpt as msgpack_ckpt
 
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, str(ROOT / "chip_smoke.py"), "resume", mode,
-             DEVICE, str(ckpt_dir), out], capture_output=True, text=True,
+             device, str(ckpt_dir), out], capture_output=True, text=True,
             timeout=300)
         wall = time.perf_counter() - t0
         check(proc.returncode == 0,
               f"({label}) the resuming process failed:\n{proc.stdout}\n"
               f"{proc.stderr[-4000:]}")
         rec = json.loads((Path(out) / "run.json").read_text())
-        _, params = npz_ckpt.restore_latest(out)
+        _, params = msgpack_ckpt.restore_latest(out)
+        # the arrays view the file's map: copies outlive the directory
+        params = {name: {k: v.copy() for k, v in layer.items()}
+                  for name, layer in params.items()}
+    check(rec["restored_round"] == M_STOP,
+          f"({label}) resumed at round {rec['restored_round']}")
+    return rec, params, wall
+
+
+def resume_in_new_process(torch, label, worker, ref) -> dict:
+    """Hold what a ``run_resume_worker`` on the card (its result
+    ``worker``) continued against the uninterrupted run ``ref``: history,
+    final params and participation bit for bit."""
+    from repro_torch.convert import to_numpy
+    from repro_torch.core.estimator import tree_leaves
+
+    import numpy as np
+
+    rec, params, wall = worker
     want = to_numpy(ref.params)
     got = [np.asarray(params[name][key]) for name in want
            for key in sorted(want[name])]
     same = all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in
                zip(tree_leaves(want), got))
-    check(rec["restored_round"] == M_STOP,
-          f"({label}) resumed at round {rec['restored_round']}")
     check(rec["history"] == history_dicts(ref),
           f"({label}) the resumed history differs from the uninterrupted "
           "run's")
@@ -2911,6 +3118,49 @@ def resume_in_new_process(torch, label, mode, ckpt_dir, ref) -> dict:
           f"params and participation equal the uninterrupted run's bit for "
           f"bit")
     return out
+
+
+def resume_across_devices(torch, label, device, worker, ref) -> dict:
+    """(m5), (m6): a ``run_resume_worker`` on ``device`` (its result
+    ``worker``) from a checkpoint the other device wrote, held against
+    that device's uninterrupted run ``ref`` as ``vs_cpu`` holds a card run
+    against the CPU's: schedule (traffic, makespan, mean τ, staleness,
+    virtual wall) and participation equal, accuracy within 2 test
+    samples, params within 1e-3."""
+    from repro_torch.convert import to_numpy
+
+    import numpy as np
+
+    rec, params, wall = worker
+    n_test = int(ref.test_batch["labels"].shape[0])
+    want = history_dicts(ref)
+    check(len(rec["history"]) == len(want),
+          f"({label}) {len(rec['history'])} rounds, not {len(want)}")
+    keys = ("round", "traffic_bytes", "makespan", "mean_tau", "stale",
+            "wall_time")
+    for a, b in zip(rec["history"], want):
+        check([a[k] for k in keys] == [b[k] for k in keys],
+              f"({label}) round {a['round']}'s schedule differs from the "
+              "uninterrupted run's")
+        check(abs(a["accuracy"] - b["accuracy"]) <= 2.0 / n_test,
+              f"({label}) round {a['round']}'s accuracy differs")
+    check({int(k): v for k, v in rec["participation"].items()}
+          == ref.state.participation,
+          f"({label}) participation differs from the uninterrupted run's")
+    ref_params = to_numpy(ref.params)
+    diff = max(float(np.abs(params[name][k] - v).max())
+               for name, layer in ref_params.items()
+               for k, v in layer.items())
+    check(diff <= 1e-3, f"({label}) params {diff:.3e} from the "
+          "uninterrupted run's")
+    print(f"      ({label}) a new process on {device} restored round "
+          f"{M_STOP} of a checkpoint written on the "
+          f"{'CPU' if device != 'cpu' else 'card'} ({rec['restore_ms']:.2f} "
+          f"ms) and ran to round {M_ROUNDS} in {wall:.1f} s: schedule and "
+          f"participation equal, max param diff {diff:.3e}")
+    return {"restore_ms": rec["restore_ms"], "new_process_s": wall,
+            "max_param_diff": diff,
+            "accuracy": [h["accuracy"] for h in rec["history"]]}
 
 
 def partials_close(runner, k: int) -> float:
@@ -2939,17 +3189,25 @@ def population_path(torch) -> tuple:
     continued by a new process from the checkpoint; (m3) semi-async events
     at the million (uniform, rejection-sampled) stopped after event 2 with
     results in flight, continued the same way; (m4) ``run_until_budget``
-    at (m1)'s wall after round 2.  (m2) and (m3) must equal their
+    at (m1)'s wall after round 2; (m5) the CPU run's round-2 checkpoint
+    continued on the card by a new process, (m6) (m2)'s round-2
+    checkpoint continued on the CPU.  The checkpoints are msgpack files
+    in the JAX package's format.  (m2) and (m3) must equal their
     uninterrupted runs bit for bit, (m1)'s schedule and participation the
-    CPU run's (weights as ``vs_cpu`` holds them), and the edge partials
+    CPU run's (weights as ``vs_cpu`` holds them), (m5)'s the CPU run's
+    and (m6)'s (m1)'s (``resume_across_devices``), and the edge partials
     must recombine to the merged state.  Returns (launch counts, record).
     """
+    import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import LAUNCHES, reset_launches
 
     rec = {}
-    with tempfile.TemporaryDirectory() as tmp, cudnn_deterministic(torch):
+    # the four new processes run beside this one's runs
+    with tempfile.TemporaryDirectory() as tmp, cudnn_deterministic(torch), \
+            ThreadPoolExecutor(4) as pool:
         tmp = Path(tmp)
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2988,7 +3246,12 @@ def population_path(torch) -> tuple:
         check(history_dicts(m2) == history_dicts(m1)[:M_STOP],
               "(m2) its first rounds differ from (m1)'s")
         m2.close()
-        rec["m2"] = resume_in_new_process(torch, "m2", "m2", tmp / "m2", m1)
+        shutil.copytree(tmp / "m2", tmp / "m6")  # (m6) resumes it on the CPU
+        workers = {
+            "m2": pool.submit(run_resume_worker, "m2", "m2", DEVICE,
+                              tmp / "m2"),
+            "m6": pool.submit(run_resume_worker, "m6", "m6", "cpu",
+                              tmp / "m6")}
 
         # (m3) semi-async at the million, uninterrupted and resumed
         m3, _ = m_runner(torch, DEVICE, tmp / "m3ref", **M_ASYNC)
@@ -3000,10 +3263,8 @@ def population_path(torch) -> tuple:
         in_flight = len(stopped.state.in_flight)
         check(in_flight >= 1, "(m3) nothing in flight at the checkpoint")
         stopped.close()
-        rec["m3"] = resume_in_new_process(torch, "m3", "m3", tmp / "m3", m3)
-        check(rec["m3"]["restored_in_flight"] == in_flight,
-              "(m3) the restored run lost its in-flight results")
-        rec["m3"]["stale"] = [h.stale for h in m3.history]
+        workers["m3"] = pool.submit(run_resume_worker, "m3", "m3", DEVICE,
+                                    tmp / "m3")
 
         # (m4) Alg. 1's outer loop at (m1)'s wall after round 2
         m4, _ = m_runner(torch, DEVICE, tmp / "m4")
@@ -3017,7 +3278,11 @@ def population_path(torch) -> tuple:
         # the same (m1) run on the CPU: schedule, participation, weights
         cpu, _ = m_runner(torch, "cpu", tmp / "cpu")
         cpu_rec = record_training(cpu)
-        cpu.run(M_ROUNDS)
+        cpu.run(M_STOP)
+        shutil.copytree(tmp / "cpu", tmp / "m5")  # (m5) resumes it on the card
+        workers["m5"] = pool.submit(run_resume_worker, "m5", "m5", DEVICE,
+                                    tmp / "m5")
+        cpu.run(M_ROUNDS - M_STOP)
         for rnd, (a, b) in enumerate(zip(hooked["assigns"],
                                          cpu_rec["assigns"])):
             check(_plain_assigns(a) == _plain_assigns(b),
@@ -3026,6 +3291,18 @@ def population_path(torch) -> tuple:
               "(m1) participation differs from the CPU run's")
         rec["m1"]["max_param_diff_cpu"] = vs_cpu(torch, "m1", m1, cpu)
         cpu.close()
+        rec["m2"] = resume_in_new_process(torch, "m2",
+                                          workers["m2"].result(), m1)
+        rec["m3"] = resume_in_new_process(torch, "m3",
+                                          workers["m3"].result(), m3)
+        check(rec["m3"]["restored_in_flight"] == in_flight,
+              "(m3) the restored run lost its in-flight results")
+        rec["m3"]["stale"] = [h.stale for h in m3.history]
+        # (m5) the CPU's checkpoint on the card, (m6) the card's on the CPU
+        rec["m5"] = resume_across_devices(torch, "m5", DEVICE,
+                                          workers["m5"].result(), cpu)
+        rec["m6"] = resume_across_devices(torch, "m6", "cpu",
+                                          workers["m6"].result(), m1)
 
         # setup and one round's peak memory at 10^4 clients, beside (m1)'s
         torch.cuda.reset_peak_memory_stats()
@@ -3244,13 +3521,15 @@ def virtual_match(label, got, want) -> None:
 @contextlib.contextmanager
 def save_parts(parts: dict):
     """Time the two halves of each checkpoint save inside the block: the
-    state's copy to host arrays (``state_to_payload``, which waits for the
-    card) and the npz write (``npz_ckpt.save_checkpoint``), in seconds
-    appended to ``parts["payload"]`` and ``parts["write"]``."""
-    from repro_torch.checkpoint import npz_ckpt
+    state's payload (``state_to_payload``: the in-flight results copied to
+    the host, which waits for the card) and the msgpack write
+    (``msgpack_ckpt.save_checkpoint``, which copies each leaf to the host
+    as it writes it), in seconds appended to ``parts["payload"]`` and
+    ``parts["write"]``."""
+    import repro_torch.checkpoint.msgpack_ckpt as msgpack_ckpt
     from repro_torch.fl.engine import state as state_lib
 
-    saved = state_lib.state_to_payload, npz_ckpt.save_checkpoint
+    saved = state_lib.state_to_payload, msgpack_ckpt.save_checkpoint
 
     def timed(key, fn):
         def call(*args, **kw):
@@ -3261,11 +3540,11 @@ def save_parts(parts: dict):
         return call
 
     state_lib.state_to_payload = timed("payload", saved[0])
-    npz_ckpt.save_checkpoint = timed("write", saved[1])
+    msgpack_ckpt.save_checkpoint = timed("write", saved[1])
     try:
         yield parts
     finally:
-        state_lib.state_to_payload, npz_ckpt.save_checkpoint = saved
+        state_lib.state_to_payload, msgpack_ckpt.save_checkpoint = saved
 
 
 def telemetry_path(torch) -> tuple:
@@ -3359,8 +3638,8 @@ def telemetry_path(torch) -> tuple:
             if parts["write"]:
                 ms = {k: [1e3 * t for t in v] for k, v in parts.items()}
                 rec[label]["save_ms"] = ms
-                print(f"      saves: state to host {ms['payload']} ms, npz "
-                      f"write {ms['write']} ms")
+                print(f"      saves: payload {ms['payload']} ms, msgpack "
+                      f"write (leaves to the host) {ms['write']} ms")
             print(f"  (o) {label}: events {counts}; launches "
                   f"{rec[label]['launches']} (equal on and off); history "
                   "and weights equal on and off bit for bit; virtual spans "
@@ -5596,9 +5875,19 @@ def main_path(torch, rt):
           "host merge on (a)-(e), FLConfig's default on (h), (i)")
     launches = {k: 0 for k in KERNELS}
     by_path = {}
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(label):
+        """A path's seconds, printed as it ends."""
+        now = time.perf_counter()
+        laps[label] = now - last[0]
+        last[0] = now
+        print(f"  [{label}: {laps[label]:.1f} s]")
+
     for label, (scheme, knobs, expect) in PATHS.items():
         _, by_path[label] = train_path(torch, label, "image", scheme, knobs,
                                        expect)
+    lap('(a)-(d)')
 
     # (e) the composed transformer: heroes and fedavg train, then the
     # heroes weights serve
@@ -5619,6 +5908,7 @@ def main_path(torch, rt):
     for k in TEXT_EXPECT:
         check(e_counts[k] > 0, f"(e) never launched {k}")
     by_path["e"] = e_counts
+    lap('(e)')
 
     # (f) the kernels.ops entry point
     reset_launches()
@@ -5627,11 +5917,13 @@ def main_path(torch, rt):
     print(f"  (f) kernels.ops attention: launches {by_path['f']}")
     check(by_path["f"]["flash_attention"] > 0,
           "(f) never launched flash_attention")
+    lap('(f)')
 
     # (g) the zoo's hybrid serving path: zamba2-2.7b prefill + serve
     print("  (g) zamba2-2.7b: prefill and launch/serve.py's loop")
     by_path["g"], zoo_stats = zoo_path(torch)
     zoo_stats["grad"] = zoo_grad(torch)
+    lap('(g)')
 
     # (p) gemma-2b, the serving launcher's default, at full size: serving,
     # the sliding window, the int8 cache and training; (q) the other dense
@@ -5639,10 +5931,12 @@ def main_path(torch, rt):
     print(f"  (p) {DENSE_DEFAULT}: prefill, window, int8 cache, training, "
           "launch/serve.py with no arguments")
     by_path["p"], p_stats = dense_default_path(torch)
+    lap('(p)')
     print("  (q) " + ", ".join(f"{a}" + (f" ({d} layers)" if d else "")
                                for a, d in DENSE_Q)
           + ": prefill and launch/serve.py's loop")
     by_path["q"], q_stats = dense_q_path(torch)
+    lap('(q)')
     zoo_stats["dense"] = {"p": p_stats, "q": q_stats}
 
     # (r) the MoE family, (s) xLSTM, (t) the VLM's M-RoPE
@@ -5650,15 +5944,19 @@ def main_path(torch, rt):
           f"launch/serve.py's loop; {MOE_DEFAULT}'s training at "
           f"{R_TRAIN_DEPTH} layers")
     by_path["r"], r_stats = moe_path(torch)
+    lap('(r)')
     print(f"  (s) {XLSTM_ARCH}: prefill, launch/serve.py's loop, training")
     by_path["s"], s_stats = xlstm_path(torch)
+    lap('(s)')
     print(f"  (t) {VLM_ARCH}: prefill with M-RoPE positions, "
           "launch/serve.py's loop")
     by_path["t"], t_stats = vlm_path(torch)
+    lap('(t)')
     print(f"  (u) {AUDIO_ARCH}: prefill over {AUDIO_FRAMES} frames a row, "
           "the step check, launch/serve.py's loop, training, compose-then-"
           "matmul")
     by_path["u"], u_stats = audio_path(torch)
+    lap('(u)')
     zoo_stats["families"] = {"r": r_stats, "s": s_stats, "t": t_stats,
                              "u": u_stats}
 
@@ -5666,17 +5964,20 @@ def main_path(torch, rt):
     # and sample weights
     counts, scheme_recs = schemes_path(torch)
     by_path.update(counts)
+    lap('(h), (i)')
 
     # (j) the cohort trainer
     print(f"  (j) the cohort trainer, {ROUNDS} rounds each, beside the "
           "sequential trainer")
     by_path["j"], cohort_recs = cohort_path(torch)
+    lap('(j)')
     scheme_recs["j"] = cohort_recs
 
     # (k) the residual net on cifar10, (l) the RNN on shakespeare
     print(f"  (k) resnet on cifar10, (l) rnn on shakespeare, {ROUNDS} rounds "
           "each, sequential, then cohort beside it")
     counts, slice_recs = slice_path(torch)
+    lap('(k), (l)')
     by_path.update(counts)
     scheme_recs.update(slice_recs)
 
@@ -5685,30 +5986,79 @@ def main_path(torch, rt):
     print(f"  (m) heroes over {M_POPULATION} virtual clients, "
           f"{M_ROUNDS} rounds, checkpointed and resumed in a new process")
     by_path["m"], scheme_recs["m"] = population_path(torch)
+    lap('(m)')
     print("  (n) the dataset smoke, one cohort round per loader")
     by_path["n"], scheme_recs["n"] = smoke_path(torch)
+    lap('(n)')
     # (o) telemetry on the card
     print(f"  (o) telemetry, {ROUNDS} rounds each, jsonl, beside the runs "
           "with it off")
     by_path["o"], scheme_recs["o"] = telemetry_path(torch)
+    lap('(o)')
     # (v) step 9's multi-device part on logical shards of the card
     print(f"  (v) the merge, the cohort trainer and the server state over "
           f"logical shards of the card, and {V_MOE_ARCH}'s expert-parallel "
           "MoE layer")
     by_path["v"], scheme_recs["v"] = mesh_path(torch)
+    lap('(v)')
     # (w) the production meshes, rank 0 of a fake world, in a new process
     print("  (w) the production meshes as rank 0 of 256 and 512: "
           + ", ".join(f"({k}) {a} {s} {'2x16x16' if mp else '16x16'}"
                       + "".join(f" {f}" for f in fl)
                       for k, (a, s, mp, fl) in W_PAIRS.items()))
     by_path["w"], scheme_recs["w"] = dryrun_path(torch)
+    lap('(w)')
 
     for counts in by_path.values():
         for k, n in counts.items():
             launches[k] += n
     for k in KERNELS:
         check(launches[k] > 0, f"kernel {k} never launched on the main path")
+    print(f"path seconds {json.dumps(laps)}")
     return launches, by_path, zoo_stats, scheme_recs
+
+
+# the port's examples (examples/<name>_torch.py), run as a user runs them
+EXAMPLES = ("quickstart", "federated_training", "async_federated",
+            "federated_datasets", "composed_llm_training", "serve_decode")
+EXAMPLES_TIMEOUT = 600
+
+
+def examples_path() -> dict:
+    """The six ``examples/*_torch.py`` on the card at their own sizes,
+    each in a process of its own, all started together: each must exit 0
+    and print no NaN or inf.  Returns each one's seconds (wall, while the
+    others run beside it) and the last line it printed."""
+    import os
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def run(name):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / f"{name}_torch.py")],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=EXAMPLES_TIMEOUT)
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(EXAMPLES)) as pool:
+        done = dict(zip(EXAMPLES, pool.map(run, EXAMPLES)))
+    rec = {}
+    for name, (proc, secs) in done.items():
+        out = proc.stdout
+        check(proc.returncode == 0,
+              f"example {name}_torch.py exited {proc.returncode}:\n"
+              f"{out[-2000:]}\n{proc.stderr[-4000:]}")
+        check(re.search(r"\b(nan|inf)\b", out, re.IGNORECASE) is None,
+              f"example {name}_torch.py printed a non-finite number:\n"
+              f"{out[-2000:]}")
+        last = out.strip().splitlines()[-1] if out.strip() else ""
+        rec[name] = {"s": secs, "last_line": last}
+        print(f"  examples/{name}_torch.py: exit 0 in {secs:.1f} s; "
+              f"{last[:100]}")
+    return rec
 
 
 def trace_round(torch, label: str = "c", trainer: str = "sequential",
@@ -5782,6 +6132,7 @@ def main() -> int:
           f"(per source {json.dumps({k: round(v, 2) for k, v in secs.items()})})")
     sass_counts(rt)
 
+    t_phase = time.perf_counter()
     records = check_kernels(torch)
     attention = check_attention(torch)
     zoo = records["compose"]["zoo"] = attention.pop("compose_zoo")
@@ -5789,9 +6140,17 @@ def main() -> int:
         records["compose"]["max_abs_err"], zoo["max_abs_err"])
     records.update(attention)
     records.update(check_ssd_rmsnorm(torch))
+    codec = check_codec(torch)
+    print(f"codec {json.dumps(codec)}")
+    print(f"[phase 2: {time.perf_counter() - t_phase:.1f} s]")
     launches, by_path, zoo_stats, scheme_recs = main_path(torch, rt)
     print(f"paths (g), (p)-(u) {json.dumps(zoo_stats)}")
     print(f"paths (h)-(o) {json.dumps(scheme_recs)}")
+    print(f"phase 3b: the {len(EXAMPLES)} examples/*_torch.py on the card, "
+          "each in its own process, all at once")
+    t_phase = time.perf_counter()
+    print(f"examples {json.dumps(examples_path())}")
+    print(f"[phase 3b: {time.perf_counter() - t_phase:.1f} s]")
     trace_round(torch)
     trace_round(torch, "j", trainer="cohort", per_round=10)
     print(f"calibration {json.dumps(calibration_record(torch))}")

@@ -3,6 +3,7 @@
 from repro_torch.core.aggregation import (  # noqa: F401
     aggregate_basis,
     aggregate_coefficient,
+    aggregate_factorized,
     blend,
     fold_shards,
     masked_block_mean,

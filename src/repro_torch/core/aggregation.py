@@ -120,6 +120,19 @@ def aggregate_coefficient(global_coeff: Tensor,
     return torch.where(trained[:, None, None], mean, global_coeff)
 
 
+def aggregate_factorized(global_params: dict, client_params: Sequence[dict],
+                         client_block_ids: Sequence[np.ndarray]) -> dict:
+    """Aggregate a whole CompositionPlan param tree (``{layer: {"basis",
+    "coeff"}}``): each layer's basis averaged, its coefficient merged
+    block-wise with the same block ids for every layer."""
+    return {name: {
+        "basis": aggregate_basis([cp[name]["basis"] for cp in client_params]),
+        "coeff": aggregate_coefficient(
+            gp["coeff"], [cp[name]["coeff"] for cp in client_params],
+            client_block_ids),
+    } for name, gp in global_params.items()}
+
+
 # ---------------------------------------------------------------------------
 # the stacked (collective) form
 # ---------------------------------------------------------------------------

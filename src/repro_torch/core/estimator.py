@@ -83,6 +83,21 @@ def estimates_from_grads(stoch_grads: Sequence[Tree], grad_after: Tree,
     }
 
 
+def aggregate_estimates(per_client: Sequence[dict]) -> dict:
+    """PS aggregation (Alg. 1 line 25): average each scalar over clients.
+
+    In f32, as the reference's compiled mean computes it: the values
+    summed left to right, times the f32 reciprocal of the count."""
+    inv = torch.ones((), dtype=torch.float32) / len(per_client)
+    out = {}
+    for k in per_client[0].keys():
+        total = torch.zeros((), dtype=torch.float32)
+        for c in per_client:
+            total = total + torch.as_tensor(float(c[k]), dtype=torch.float32)
+        out[k] = float(total * inv)
+    return out
+
+
 def client_estimates(grad_fn: Callable[[Tree, Any], Tree],
                      params_before: Tree, params_after: Tree,
                      batches: Sequence[Any]) -> dict:

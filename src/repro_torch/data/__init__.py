@@ -28,6 +28,7 @@ from repro_torch.data.streaming import (  # noqa: F401
     VirtualShardList,
     make_shards,
     round_batch_indices,
+    stack_client_shards,
     to_batch,
 )
 from repro_torch.data.synthetic import (  # noqa: F401

@@ -236,12 +236,26 @@ class ClientDataLoader:
         self._workers: list = []
         self._workers_lock = threading.Lock()
 
+    @classmethod
+    def from_dataset(cls, dataset, parts: Sequence[np.ndarray],
+                     streaming: bool = True, **kw) -> "ClientDataLoader":
+        """A loader over ``dataset``'s train split cut by ``parts``
+        (:func:`make_shards`); ``kw`` are the constructor's (``device``,
+        ``input_key``)."""
+        px, py = make_shards(dataset.x, dataset.y, parts, streaming)
+        return cls(px, py, **kw)
+
     @property
     def num_clients(self) -> int:
         return len(self.parts_x)
 
     def num_samples(self, n: int) -> int:
         return len(self.parts_y[n])
+
+    def shard(self, n: int):
+        """Client ``n``'s (x, y) shard, as the loader holds it (a view
+        or a copy on the host)."""
+        return self.parts_x[n], self.parts_y[n]
 
     def gather(self, n: int, idx: np.ndarray) -> dict:
         """Client ``n``'s samples at ``idx`` as a batch dict on the device."""

@@ -17,6 +17,10 @@ import dataclasses
 import numpy as np
 
 from repro_torch.data.base import FederatedDataset, register_dataset
+from repro_torch.data.partition import (  # noqa: F401  (back-compat re-export)
+    class_skew_partition,
+    dirichlet_partition,
+)
 
 
 @dataclasses.dataclass

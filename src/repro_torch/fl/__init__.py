@@ -11,6 +11,7 @@ from repro_torch.fl.models import (MODELS, ComposedLayer, FLModelDef,
                                    make_resnet, make_rnn, register_model)
 from repro_torch.fl.population import (SCHEDULERS, PopulationRegistry,
                                        VirtualPartition)
+from repro_torch.fl.server import RUNNERS  # deprecated shims onto the engine
 from repro_torch.fl.simulation import (build_image_setup, build_runner,
                                        build_setup, build_text_setup,
                                        run_scheme, summarize,
@@ -24,7 +25,7 @@ __all__ = [
     "register_scheme", "HeterogeneityModel",
     "MODELS", "ComposedLayer", "FLModelDef", "LayerHint", "get_model",
     "make_cnn", "make_resnet", "make_rnn", "register_model", "SCHEDULERS",
-    "PopulationRegistry", "VirtualPartition",
+    "PopulationRegistry", "VirtualPartition", "RUNNERS",
     "build_image_setup", "build_runner", "build_setup", "build_text_setup",
     "run_scheme", "summarize", "time_to_accuracy", "traffic_to_accuracy",
     "make_transformer", "serving_weights", "greedy_decode",

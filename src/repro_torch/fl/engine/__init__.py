@@ -13,6 +13,8 @@ from repro_torch.fl.engine.aggregators import (DenseMeanAggregator,
 from repro_torch.fl.engine.base import (Aggregator, AssignmentPolicy,
                                         LocalTrainer, ParticipationScheduler,
                                         PayloadModel, RoundLoop)
+from repro_torch.fl.engine.collective import (CohortSlice, CohortStack,
+                                              CollectiveMerger, build_merger)
 from repro_torch.fl.engine.loops import SemiAsyncRoundLoop, SyncRoundLoop
 from repro_torch.fl.engine.payload import DensePayload, FactorizedPayload
 from repro_torch.fl.engine.policies import (FullWidthAssignment,
@@ -21,6 +23,7 @@ from repro_torch.fl.engine.policies import (FullWidthAssignment,
 from repro_torch.fl.engine.registry import (SCHEMES, SchemeBundle,
                                             build_engine, register_scheme)
 from repro_torch.fl.engine.runner import EngineRunner
+from repro_torch.fl.engine.state import payload_to_state, state_to_payload
 from repro_torch.fl.engine.trainers import (CohortTrainer, ProximalTrainer,
                                             SequentialTrainer)
 from repro_torch.fl.types import InFlight, SchedState, ServerState
@@ -30,12 +33,14 @@ __all__ = [
     "ParticipationScheduler", "PayloadModel", "RoundLoop",
     "DenseMeanAggregator", "FlancAggregator", "HeroesAggregator",
     "MaskedDenseAggregator",
+    "CohortSlice", "CohortStack", "CollectiveMerger", "build_merger",
     "SemiAsyncRoundLoop", "SyncRoundLoop",
     "DensePayload", "FactorizedPayload",
     "FullWidthAssignment", "HeroesAssignment", "TierWidthAssignment",
     "tier_width",
     "SCHEMES", "SchemeBundle", "build_engine", "register_scheme",
     "EngineRunner",
+    "payload_to_state", "state_to_payload",
     "InFlight", "SchedState", "ServerState",
     "CohortTrainer", "ProximalTrainer", "SequentialTrainer",
 ]

@@ -68,13 +68,31 @@ class CohortStack:
     after is a zeroed masked-clone row.
     """
 
-    __slots__ = ("shards", "n_real", "mesh")
+    __slots__ = ("shards", "n_real", "mesh", "_host")
 
     def __init__(self, shards: List[Any], n_real: int,
                  mesh: flsh.CohortMesh):
         self.shards = list(shards)
         self.n_real = n_real
         self.mesh = mesh
+        self._host = None
+
+    @property
+    def tree(self) -> Any:
+        """The whole padded stack as one tree on the first shard's device
+        (the shards' rows in order; one shard's stack as it is)."""
+        if len(self.shards) == 1:
+            return self.shards[0]
+        dev0 = self.mesh.devices[0]
+        return tree_map(lambda *vs: torch.cat([v.to(dev0) for v in vs]),
+                        *self.shards)
+
+    def host(self) -> Any:
+        """:attr:`tree` as host numpy arrays, copied once."""
+        if self._host is None:
+            self._host = tree_map(lambda v: v.detach().cpu().numpy(),
+                                  self.tree)
+        return self._host
 
     @property
     def per(self) -> int:

@@ -6,11 +6,16 @@ device — and exactly ONE mutable slot: ``self.state``, the current
 :class:`~repro_torch.fl.types.ServerState`.  Each ``run_round`` installs
 the state returned by the loop and (when ``FLConfig.checkpoint_every`` is
 set) saves it at the round boundary through
-:mod:`repro_torch.checkpoint.npz_ckpt`; ``restore_latest`` rebuilds the
+:mod:`repro_torch.checkpoint.msgpack_ckpt`; ``restore_latest`` rebuilds the
 state from the newest checkpoint, so the continued run is bit-identical
-to an uninterrupted one.  ``state.params`` is public: a caller may
-replace it (for example with another engine's initial weights, through
-:func:`repro_torch.convert.from_jax_params`) before the first round.
+to an uninterrupted one.  The format is the JAX package's: a checkpoint
+its runner wrote restores here, on any device, and the other way round.
+The public surface is the reference's (``run``, ``run_round``,
+``run_until_budget``, ``history``, ``eval_accuracy``, ``rng``; round
+counters as read-only properties over the state).  ``state.params`` is
+public: a caller may replace it (for example with another engine's
+initial weights, through :func:`repro_torch.convert.from_jax_params`)
+before the first round.
 
 The runner runs on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device and no explicit request it raises.
@@ -26,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.checkpoint import npz_ckpt
+import repro_torch.checkpoint.msgpack_ckpt as msgpack_ckpt
 from repro_torch.core import convergence
 from repro_torch.data.streaming import ClientDataLoader
 from repro_torch.fl.engine import collective
@@ -141,6 +146,10 @@ class EngineRunner:
         return self.state.bound_state
 
     @property
+    def rng(self) -> np.random.Generator:
+        return self.state.rng
+
+    @property
     def history(self) -> List[RoundLog]:
         return list(self.state.history)
 
@@ -226,6 +235,11 @@ class EngineRunner:
                 total += int(np.prod(batch["labels"].shape))
             return correct / total
 
+    def eval_accuracy(self) -> float:
+        """Test accuracy of the current global params at the evaluation
+        width (the aggregator's rule)."""
+        return self.aggregator.evaluate(self.state)
+
     # --- checkpoint / resume ----------------------------------------------
     def save_checkpoint(self) -> Path:
         """Write the current ServerState under ``cfg.checkpoint_dir``."""
@@ -233,12 +247,12 @@ class EngineRunner:
             raise ValueError("FLConfig.checkpoint_dir is not set")
         with self.obs.wall_span("checkpoint.save", round=self.state.round):
             payload = state_lib.state_to_payload(self.state)
-            path = npz_ckpt.save_checkpoint(
+            path = msgpack_ckpt.save_checkpoint(
                 self.cfg.checkpoint_dir, self.state.round, payload,
                 keep=self.cfg.checkpoint_keep)
         if self.obs.enabled:
             self.obs.counter_add("checkpoint.saves")
-            # the step directory's files: state.npz and manifest.json
+            # the step directory's files: state.msgpack and manifest.json
             self.obs.counter_add("checkpoint.bytes", float(sum(
                 f.stat().st_size for f in Path(path).iterdir())))
         return path
@@ -255,7 +269,7 @@ class EngineRunner:
         """
         if not self.cfg.checkpoint_dir:
             raise ValueError("FLConfig.checkpoint_dir is not set")
-        got = npz_ckpt.restore_latest(self.cfg.checkpoint_dir)
+        got = msgpack_ckpt.restore_latest(self.cfg.checkpoint_dir)
         if got is None:
             return False
         _, payload = got

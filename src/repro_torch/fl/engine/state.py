@@ -1,8 +1,9 @@
 """ServerState <-> checkpoint payload codec.
 
 A checkpoint is one nested dict (written atomically by
-:mod:`repro_torch.checkpoint.npz_ckpt`) with two branches, as the JAX
-package's ``fl/engine/state.py`` lays it out:
+:mod:`repro_torch.checkpoint.msgpack_ckpt`, in the JAX package's format)
+with two branches, as the JAX package's ``fl/engine/state.py`` lays it
+out, so either package restores the other's checkpoints:
 
 ``arrays``
     Every tensor in the state — the scheme-shaped global params, the

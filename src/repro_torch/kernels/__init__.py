@@ -331,3 +331,8 @@ def no_grad_guard(name: str, *tensors: torch.Tensor) -> None:
         raise RuntimeError(f"{name} has no backward; call it under "
                            "torch.no_grad() or on tensors that do not "
                            "require grad")
+
+
+# the public wrappers and the plain oracles, as the reference's package
+# exports them (imported last: both import names defined above)
+from repro_torch.kernels import ops, ref  # noqa: E402, F401

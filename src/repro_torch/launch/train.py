@@ -41,7 +41,8 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch.checkpoint.npz_ckpt import restore_latest, save_checkpoint
+from repro_torch.checkpoint.msgpack_ckpt import (restore_latest,
+                                                save_checkpoint)
 from repro_torch.configs.base import CompositionConfig
 from repro_torch.core.estimator import tree_map
 from repro_torch.data import SyntheticTextTask, lm_batches

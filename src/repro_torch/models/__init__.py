@@ -10,3 +10,5 @@
   :mod:`~repro_torch.models.model`, served by
   :mod:`repro_torch.launch.serve`.
 """
+
+from repro_torch.models import model  # noqa: F401

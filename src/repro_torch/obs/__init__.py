@@ -21,7 +21,7 @@ The metric catalog is the JAX package's (``docs/OBSERVABILITY.md``);
 ROADMAP C.11 lists where the port's stream differs: wall spans around
 device work end with a synchronize of the CUDA device, there is no
 ``trainer.jit_recompiles`` counter, ``trainer.cohort_shape`` counts the
-unpadded group, and ``checkpoint.bytes`` counts the npz checkpoint.
+unpadded group, and ``checkpoint.bytes`` counts the step directory's files.
 """
 
 from repro_torch.obs.coverage import coverage_table, format_coverage

@@ -21,10 +21,13 @@ from repro_torch.sharding.fl import (  # noqa: F401
     SplitBlocks,
     assemble,
     assemble_from_host_shards,
+    block_spec,
     can_shard_blocks,
     cohort_mesh,
+    contribution_spec,
     local_devices,
     logical_devices,
     pad_cohort,
+    replicated_spec,
     split_rows,
 )

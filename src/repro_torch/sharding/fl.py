@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.sharding.rules import Spec
 
 COHORT_AXIS = "cohort"
 
@@ -102,6 +103,26 @@ def cohort_mesh(max_devices: int = 0, device=None) -> Optional[CohortMesh]:
     if len(devs) < 2:
         return None
     return CohortMesh(tuple(devs))
+
+
+def contribution_spec() -> Spec:
+    """Layout of stacked client contributions: client axis on the
+    shards."""
+    return Spec(COHORT_AXIS)
+
+
+def replicated_spec() -> Spec:
+    return Spec()
+
+
+def block_spec() -> Spec:
+    """Block-axis-split layout of the merged coefficient."""
+    return Spec(COHORT_AXIS)
+
+
+def client_axis_spec(axis: int) -> Spec:
+    """Spec for a tensor whose client axis sits at position ``axis``."""
+    return Spec(*((None,) * axis + (COHORT_AXIS,)))
 
 
 def mesh_size(mesh: Optional[CohortMesh]) -> int:

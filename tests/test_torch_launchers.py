@@ -34,7 +34,7 @@ from repro.launch.steps import make_train_step as jmake_train_step
 from repro.models import model as jmodel
 from repro_torch import configs as tconfigs
 from repro_torch import optim as toptim
-from repro_torch.checkpoint.npz_ckpt import load_checkpoint
+from repro_torch.checkpoint.msgpack_ckpt import load_checkpoint
 from repro_torch.convert import from_jax_params
 from repro_torch.core.estimator import tree_leaves
 from repro_torch.launch import serve as tserve
