@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Planted faults in the composition, attention, SSD-chunk and RMSNorm
 kernels, in the merge over a cohort's shards, in the production mesh's
-rules, context and local shards, and in the checkpoint codec: does the
-smoke see them?
+rules, context and local shards, and in the checkpoint codec and its
+mesh save and restore: does the smoke see them?
 
     python3 chip_faults.py
 
@@ -36,9 +36,14 @@ conventions) for a row-parallel rule with its axes swapped, its residual
 layout case for a ``constrain_residual`` that drops the data-parallel
 axis, its first local-shard flash case for a ``local_map`` that takes
 flash's heads replicated, and its first factorized-linear case for a
-chunked rank_apply that leaves the last basis chunk out; and the codec's
+chunked rank_apply that leaves the last basis chunk out; the codec's
 check (``check_codec``) at its first case, a payload of 16 leaves, for a
-writer that gives 16 keys a fixmap header instead of map16.
+writer that gives 16 keys a fixmap header instead of map16; and path
+(w7)'s first cases (``check_mesh_ckpt``, a state of every placement
+saved and restored as rank 0 of a fake world of 512 of its own): its
+first (rank 0's block of each leaf in the file) for a mesh save that
+leaves rank 0's own block uncopied, and its restore case for a restore
+that takes the neighbouring block of a dim sharded over two mesh axes.
 Prints one line per fault (the case it failed at and its worst margin)
 and exits 1 unless every fault did.
 """
@@ -167,6 +172,18 @@ FAULTS = {
         "for (int v = 0; v < VPT; ++v) ss += (v == VPT - 1 && t == tpr - 1) "
         "? 0.f : sum_sq<T>(xv[v]);", 1,
         "rmsnorm float32", "check_ssd_rmsnorm"),
+    "restore: a dim over two mesh axes takes the neighbouring block": (
+        "checkpoint/msgpack_ckpt.py",
+        r"local\.copy_\(src\[_region\(shape, offset\)\]\)",
+        "local.copy_(src[_region(shape, [o + n * (sum(getattr(p, 'dim', -1) "
+        "== d for p in placements) > 1) for d, (o, n) in "
+        "enumerate(zip(offset, shape))])])", 1,
+        "(w7s) restored shards", "check_mesh_ckpt"),
+    "save: rank 0's own block left uncopied": (
+        "checkpoint/msgpack_ckpt.py",
+        r"if r == 0:\n            part = local",
+        "if r == 0:\n            continue", 1,
+        "(w7s) fake world of 512: rank 0's block", "check_mesh_ckpt"),
     "codec: a map of 16 keys headed as a fixmap, not map16": (
         "checkpoint/msgpack_ckpt.py",
         r"return _sized\(n, 15, 0x80, \(0xDE",

@@ -5820,6 +5820,24 @@ def w_summary(rec: dict) -> dict:
             "setup_s": rec["setup_s"], "seconds": rec["seconds"]}
 
 
+def child_json(mode: str, timeout: int, what: str) -> tuple:
+    """``chip_smoke.py MODE OUT_JSON`` in a new process: its output
+    printed, a failure if it fails, and (the JSON it wrote, its wall
+    seconds)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_json = Path(tmp) / f"{mode}.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), mode,
+             str(out_json)], capture_output=True, text=True, timeout=timeout)
+        wall = time.perf_counter() - t0
+        print(proc.stdout, end="")
+        check(proc.returncode == 0, f"{what} failed:\n{proc.stderr[-6000:]}")
+        return json.loads(out_json.read_text()), wall
+
+
 def dryrun_path(torch) -> tuple:
     """Path (w): the production meshes in a new process
     (:func:`dryrun_worker`), so that its fake world never meets the
@@ -5827,7 +5845,6 @@ def dryrun_path(torch) -> tuple:
     reckoning, its peak below the card's memory, its dot FLOPs above 0,
     and its kernels launched.  Returns (launch counts, records)."""
     import gc
-    import tempfile
 
     card = card_line()
     # the child needs most of the card (kimi-k2's 61 GiB of shards): hand
@@ -5836,18 +5853,7 @@ def dryrun_path(torch) -> tuple:
     torch.cuda.empty_cache()
     print(f"  (w) this process holds {torch.cuda.memory_allocated()} B "
           f"({torch.cuda.memory_reserved()} B reserved) as it starts")
-    with tempfile.TemporaryDirectory() as tmp:
-        out_json = Path(tmp) / "w.json"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "dryrun",
-             str(out_json)], capture_output=True, text=True,
-            timeout=W_TIMEOUT)
-        wall = time.perf_counter() - t0
-        print(proc.stdout, end="")
-        check(proc.returncode == 0,
-              f"(w) the dry-run process failed:\n{proc.stderr[-6000:]}")
-        res = json.loads(out_json.read_text())
+    res, wall = child_json("dryrun", W_TIMEOUT, "(w) the dry-run process")
     memory = torch.cuda.get_device_properties(0).total_memory
     recs = {"checks": res["checks"], "process_s": wall, "card": card}
     for label, rec in res["pairs"].items():
@@ -5866,6 +5872,316 @@ def dryrun_path(torch) -> tuple:
     for k in W_EXPECT:
         check(res["launches"][k] > 0, f"(w) never launched {k}")
     return res["launches"], recs
+
+
+# --------------------------------------------------------------------------
+# path (w7): launch/train.py's checkpoints on the production meshes, as
+# rank 0 of a fake world of 256 / 512
+# --------------------------------------------------------------------------
+
+# label: (arch, --mesh, world, the kernels its steps must launch, whether
+# the resumed call saves again), each at full width and depth; (w7b), the
+# smaller, runs first.  gemma-2b's AdamW state is 30,074,068,992 B a
+# checkpoint and the H100 machine this runs on allows 45 GiB of disk
+# writes a run (deleted files included), so (w7a)'s resumed call saves
+# nothing (PERF.md)
+W7_RUNS = {"w7b": ("xlstm-125m", "multipod", 512, ("rmsnorm",), True),
+           "w7a": ("gemma-2b", "pod", 256, ("flash_attention", "rmsnorm"),
+                   False)}
+W7_ARGS = ["--batch", "16", "--seq", "64", "--ckpt-every", "1"]
+# (w7s): a state of every placement on 2x16x16 (shape, dtype, spec): a
+# dim over two mesh axes, one over one, an uneven split (empty shards), a
+# replicated leaf, the optimizer's 0-d int32 step and a bf16 leaf
+W7S_LEAVES = {
+    "two_axes": ((4096, 512), "float32", (("pod", "data"), "model")),
+    "shard": ((2048, 1024), "float32", ("model", "data")),
+    "uneven": ((1000, 333), "float32", ("data", "model")),
+    "replicate": ((64, 48), "float32", (None, None)),
+    "step": ((), "int32", ()),
+    "bf16": ((1024, 2048), "bfloat16", ("pod", "model")),
+}
+W7_TIMEOUT = 900
+
+
+def w7_same_bits(torch, a, b) -> bool:
+    """Whether two tensors hold the same dtype, shape and bytes."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.contiguous().reshape(-1).view(torch.uint8).cpu(),
+                       b.contiguous().reshape(-1).view(torch.uint8).cpu())
+
+
+def w7_block(torch, file_leaf, leaf):
+    """The block of a whole leaf of the file that the DTensor ``leaf``'s
+    placements give this rank (torch's own rule)."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    shape, offset = compute_local_shape_and_global_offset(
+        leaf.shape, leaf.device_mesh, leaf.placements)
+    return torch.as_tensor(file_leaf)[tuple(
+        slice(o, o + n) for o, n in zip(offset, shape))]
+
+
+def w7_meta(torch, leaf) -> tuple:
+    """(dtype name, shape) of a leaf as the file stores it."""
+    if torch.is_tensor(leaf) and leaf.dtype == torch.bfloat16:
+        return "bfloat16", list(leaf.shape)
+    if torch.is_tensor(leaf):
+        return str(torch.empty(0, dtype=leaf.dtype).numpy().dtype), list(
+            leaf.shape)
+    return str(leaf.dtype), list(leaf.shape)
+
+
+def check_mesh_ckpt(torch) -> dict:
+    """(w7)'s first cases, as rank 0 of a fake world of 512 on the card: a
+    state of ``W7S_LEAVES`` saved by the codec's collective save, then
+    rank 0's block of each leaf in the file against its shard, each leaf
+    restored into the layout against ``distribute_tensor(the file's leaf,
+    mesh, placements, src_data_rank=None).to_local()`` with the layout's
+    placements, and the file's header against the state's."""
+    import tempfile
+
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.checkpoint import msgpack_ckpt
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.sharding import rules
+
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    rec = {}
+    with fake_world(512), tempfile.TemporaryDirectory() as tmp:
+        mesh = make_production_mesh(multi_pod=True,
+                                    device_type=torch.device(DEVICE).type)
+        state = {}
+        for name, (shape, dtype, spec) in W7S_LEAVES.items():
+            whole = (torch.randn(shape, generator=gen, device=DEVICE)
+                     * 100).to(getattr(torch, dtype))
+            state[name] = distribute_tensor(
+                whole, mesh, rules.to_placements(rules.Spec(*spec), mesh),
+                src_data_rank=None)
+        saved = msgpack_ckpt.load_checkpoint(
+            msgpack_ckpt.save_checkpoint(tmp, 1, state))
+        off = [k for k, v in state.items() if not w7_same_bits(
+            torch, w7_block(torch, saved[k], v), v.to_local())]
+        rec["blocks_off"] = w_case(
+            f"(w7s) fake world of 512: rank 0's block of each of "
+            f"{len(state)} leaves in the file vs its shard (off: {off})",
+            len(off), not off)
+        off = []
+        for k, v in state.items():
+            got = msgpack_ckpt.local_shard(saved[k], v)
+            want = distribute_tensor(torch.as_tensor(saved[k]).to(DEVICE),
+                                     mesh, v.placements,
+                                     src_data_rank=None).to_local()
+            if not (w7_same_bits(torch, got.to_local(), want)
+                    and got.placements == v.placements):
+                off.append(k)
+        rec["restored_off"] = w_case(
+            f"(w7s) restored shards vs distribute_tensor of the file's leaf "
+            f"(off: {off})", len(off), not off)
+        off = [k for k, v in state.items()
+               if w7_meta(torch, saved[k]) != w7_meta(torch, v)]
+        rec["header_off"] = w_case(
+            f"(w7s) the file's header vs the state's (off: {off})", len(off),
+            not off)
+    return rec
+
+
+def w7_run(torch, rt, label, arch, mesh_kind, world, kernels,
+           save_again) -> dict:
+    """``launch.train.main`` at ``arch``'s full config on ``--mesh
+    mesh_kind`` as rank 0 of a fake world of ``world``: one step and a
+    checkpoint, then a new world and ``--steps 2``, which must resume
+    from step 1 (and save step 2 if ``save_again``).  Each save is timed (synchronised, its peak above what
+    the card held as it began), and its file's header held to
+    ``launch/specs.py``'s one-device state and rank 0's block of each
+    leaf to its shard at the save; each restore is timed and its shards
+    held to the file's blocks and the layout's placements; the steps must
+    launch ``kernels``."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import msgpack_ckpt
+    from repro_torch.launch import specs, train
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.optim import make_optimizer
+
+    cfg = configs.get_config(arch)
+    want = msgpack_ckpt._flatten({
+        "params": specs.params_shape(cfg),
+        "opt": specs.opt_state_shape(cfg, make_optimizer("adamw", 1e-3))})
+    want = {k: w7_meta(torch, v) for k, v in want.items()}
+    rec = {"arch": arch, "mesh": mesh_kind, "world": world, "saves": [],
+           "restores": []}
+    real = {n: getattr(train, n)
+            for n in ("save_checkpoint", "restore_latest", "_into_layout")}
+
+    def save(directory, step, state):
+        leaves = msgpack_ckpt._flatten(state)
+        shards = {k: v.to_local().detach().cpu() for k, v in leaves.items()}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        path = real["save_checkpoint"](directory, step, state)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        file = msgpack_ckpt._flatten(msgpack_ckpt.load_checkpoint(path))
+        rec["saves"].append({
+            "step": step, "s": secs, "peak_above_b": peak,
+            "bytes": (path / "state.msgpack").stat().st_size,
+            "state_local_b": sum(t.numel() * t.element_size()
+                                 for t in shards.values()),
+            "largest_leaf_b": max(v.numel() * v.element_size()
+                                  for v in leaves.values()),
+            "header_off": sorted(set(want) ^ set(file)) + [
+                k for k in want if k in file
+                and w7_meta(torch, file[k]) != want[k]],
+            "blocks_off": [k for k, v in leaves.items()
+                           if not w7_same_bits(torch, w7_block(
+                               torch, file[k], v), shards[k])]})
+        return path
+
+    def restore(directory):
+        t0 = time.perf_counter()
+        got = real["restore_latest"](directory)
+        if got is not None:
+            rec["restores"].append({"load_s": time.perf_counter() - t0,
+                                    "layout_s": 0.0, "off": []})
+        return got
+
+    def into(tree, like):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = real["_into_layout"](tree, like)
+        torch.cuda.synchronize()
+        r = rec["restores"][-1]
+        r["layout_s"] += time.perf_counter() - t0
+        files, likes = msgpack_ckpt._flatten(tree), msgpack_ckpt._flatten(like)
+        for k, g in msgpack_ckpt._flatten(got).items():
+            if not (w7_same_bits(torch, g.to_local(),
+                                 w7_block(torch, files[k], likes[k]))
+                    and g.placements == likes[k].placements):
+                r["off"].append(k)
+        return got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["disk_free_b"] = shutil.disk_usage(tmp).free
+        argv = ["--arch", arch, "--mesh", mesh_kind, *W7_ARGS, "--ckpt-dir",
+                tmp]
+        outs = []
+        try:
+            train.save_checkpoint, train.restore_latest = save, restore
+            train._into_layout = into
+            rt.reset_launches()
+            t0 = time.perf_counter()
+            for steps in ("1", "2"):
+                more = ["--ckpt-every", "0"] if steps == "2" and not \
+                    save_again else []
+                buf = io.StringIO()
+                with fake_world(world), contextlib.redirect_stdout(buf):
+                    train.main(argv + ["--steps", steps] + more)
+                outs.append(buf.getvalue())
+                print("".join(f"    {line}\n"
+                              for line in outs[-1].splitlines()), end="")
+            rec["seconds"] = time.perf_counter() - t0
+            rec["launches"] = {k: n for k, n in rt.LAUNCHES.items() if n}
+        finally:
+            for n, f in real.items():
+                setattr(train, n, f)
+    card = card_line()
+    check("resumed from step" not in outs[0], f"({label}) the first call "
+          "resumed from an empty directory")
+    check("resumed from step 1" in outs[1],
+          f"({label}) the second call did not resume from step 1")
+    check(len(rec["saves"]) == 1 + save_again and len(rec["restores"]) == 1,
+          f"({label}) {len(rec['saves'])} saves, {len(rec['restores'])} "
+          f"restores ({1 + save_again} and 1 expected)")
+    what = f"({label}) {arch} --mesh {mesh_kind} ({world})"
+    for s in rec["saves"]:
+        print(f"  {what}: step {s['step']} saved {s['bytes']} B in "
+              f"{s['s']:.3f} s, peak {s['peak_above_b']} B above the "
+              f"{s['state_local_b']} B of rank 0's shards (largest leaf "
+              f"{s['largest_leaf_b']} B) [{card}]")
+        w_case(f"{what} step {s['step']}: the file's header vs the "
+               f"one-device state's (off: {s['header_off'][:4]})",
+               len(s["header_off"]), not s["header_off"])
+        w_case(f"{what} step {s['step']}: rank 0's block of each leaf in the "
+               f"file vs its shard at the save (off: {s['blocks_off'][:4]})",
+               len(s["blocks_off"]), not s["blocks_off"])
+        check(s["peak_above_b"] <= s["largest_leaf_b"],
+              f"{what}: the save's peak {s['peak_above_b']} B above the state "
+              f"exceeds the largest leaf's {s['largest_leaf_b']} B")
+    r = rec["restores"][0]
+    print(f"  {what}: restored in {r['load_s'] + r['layout_s']:.3f} s (map "
+          f"and parse {r['load_s']:.3f} s, rank 0's blocks to the card "
+          f"{r['layout_s']:.3f} s) [{card}]")
+    w_case(f"{what}: restored shards vs the file's blocks and the layout's "
+           f"placements (off: {r['off'][:4]})", len(r["off"]), not r["off"])
+    for k in kernels:
+        check(rec["launches"].get(k, 0) > 0, f"{what} never launched {k}")
+    print(f"  {what}: launches {rec['launches']}, disk free "
+          f"{rec['disk_free_b']} B, {rec['seconds']:.1f} s [{card}]")
+    return rec
+
+
+def mesh_ckpt_worker(argv) -> int:
+    """``chip_smoke.py meshckpt OUT_JSON``, path (w7)'s process: the
+    cases of :func:`check_mesh_ckpt`, then each run of ``W7_RUNS``
+    (:func:`w7_run`), launch counts set to 0 before each run and read
+    after it; writes the records to ``OUT_JSON``.  It imports nothing but
+    torch and ``repro_torch``."""
+    import torch
+
+    (out_json,) = argv
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels as rt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rt.build()  # built by the parent: loads them
+    out = {"checks": check_mesh_ckpt(torch), "runs": {}}
+    for label, run in W7_RUNS.items():
+        out["runs"][label] = w7_run(torch, rt, label, *run)
+        torch.cuda.empty_cache()
+    Path(out_json).write_text(json.dumps(out))
+    return 0
+
+
+def mesh_ckpt_path(torch) -> tuple:
+    """Path (w7) in a new process (:func:`mesh_ckpt_worker`), as path (w)
+    runs; phase 3b runs it beside the examples, which need little of the
+    card.  Returns (launch counts, records)."""
+    import gc
+
+    from repro_torch.kernels import KERNELS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, wall = child_json("meshckpt", W7_TIMEOUT,
+                           "(w7) the checkpoint process")
+    launches = {k: 0 for k in KERNELS}
+    recs = {"checks": res["checks"], "process_s": wall, "card": card_line()}
+    for label, rec in res["runs"].items():
+        for k, n in rec["launches"].items():
+            launches[k] += n
+        recs[label] = {
+            "arch": rec["arch"], "mesh": rec["mesh"], "world": rec["world"],
+            "launches": rec["launches"], "seconds": rec["seconds"],
+            "disk_free_b": rec["disk_free_b"],
+            "saves": [{k: s[k] for k in ("step", "bytes", "s", "peak_above_b",
+                                         "state_local_b", "largest_leaf_b")}
+                      for s in rec["saves"]],
+            "restore_s": [r["load_s"] + r["layout_s"]
+                          for r in rec["restores"]]}
+    print(f"  (w7) {wall:.1f} s in its process [{recs['card']}]")
+    return launches, recs
 
 
 def main_path(torch, rt):
@@ -6100,6 +6416,8 @@ def trace_round(torch, label: str = "c", trainer: str = "sequential",
 
 
 def main() -> int:
+    from concurrent.futures import ThreadPoolExecutor
+
     try:
         import torch
     except ImportError:
@@ -6109,6 +6427,8 @@ def main() -> int:
         return resume_worker(sys.argv[2:])
     if sys.argv[1:2] == ["dryrun"]:  # path (w)'s new process
         return dryrun_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["meshckpt"]:  # path (w7)'s new process
+        return mesh_ckpt_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -6147,9 +6467,20 @@ def main() -> int:
     print(f"paths (g), (p)-(u) {json.dumps(zoo_stats)}")
     print(f"paths (h)-(o) {json.dumps(scheme_recs)}")
     print(f"phase 3b: the {len(EXAMPLES)} examples/*_torch.py on the card, "
-          "each in its own process, all at once")
+          "each in its own process, all at once, beside path (w7): "
+          "launch/train.py's checkpoints on the production meshes as rank 0 "
+          "of 512 and 256 in a process of its own (the codec's cases, then "
+          + ", ".join(f"({k}) {r[0]} --mesh {r[1]}"
+                      for k, r in W7_RUNS.items()) + ")")
     t_phase = time.perf_counter()
-    print(f"examples {json.dumps(examples_path())}")
+    with ThreadPoolExecutor(1) as pool:
+        w7 = pool.submit(mesh_ckpt_path, torch)
+        examples = examples_path()
+        by_path["w7"], w7_recs = w7.result()
+    for k, n in by_path["w7"].items():
+        launches[k] += n
+    print(f"examples {json.dumps(examples)}")
+    print(f"path (w7) {json.dumps(w7_recs)}")
     print(f"[phase 3b: {time.perf_counter() - t_phase:.1f} s]")
     trace_round(torch)
     trace_round(torch, "j", trainer="cohort", per_round=10)

@@ -24,6 +24,14 @@ are brought to the host here.  A bf16 leaf loads back as a CPU
 ``torch.bfloat16`` tensor, every other leaf as a numpy array (numpy has no
 bfloat16).
 
+A state laid out on a device mesh (DTensor leaves, as ``launch/train.py
+--mesh pod|multipod`` trains it) is saved by every rank together: rank 0
+gathers each leaf whole, one at a time, and writes the file a one-device
+save of the same values writes (the reference's ``jax.device_get`` then
+``packb``); only rank 0 touches the directory, which every rank must
+see.  Each rank restores its own block of each leaf from the map
+(:func:`local_shard`), with no collective.
+
 Writes are atomic at the step-directory level: the payload is staged in a
 ``step_XXXXXXXX.tmp.<pid>`` sibling and renamed into place with
 ``os.replace`` once fully written, so an interrupted save never leaves a
@@ -34,7 +42,9 @@ the next successful save).
 
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import mmap
 import os
 import re
@@ -200,7 +210,10 @@ def _leaf_meta(leaf: Any) -> Tuple[str, List[int], int]:
 
 def _host_bytes(leaf: Any) -> np.ndarray:
     """A leaf's C-order bytes on the host, as a flat uint8 array (a bf16
-    tensor's are its uint16 bits)."""
+    tensor's are its uint16 bits; a DTensor's, its whole value's, gathered
+    to rank 0 by :func:`_gather_leaf`)."""
+    if _is_dtensor(leaf):
+        leaf = _gather_leaf(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
@@ -251,12 +264,128 @@ def _list_steps(directory: Path) -> List[Tuple[int, Path]]:
     return sorted(steps)
 
 
+# ---------------------------------------------------------------------------
+# a state laid out on a device mesh
+# ---------------------------------------------------------------------------
+
+
+def _is_dtensor(leaf: Any) -> bool:
+    if type(leaf) is torch.Tensor or not isinstance(leaf, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
+def _region(shape, offset) -> tuple:
+    """The index of the block of ``shape`` at ``offset`` in a whole leaf."""
+    return tuple(slice(o, o + n) for o, n in zip(offset, shape))
+
+
+def _shards(leaf) -> List[Tuple[int, tuple, tuple]]:
+    """(rank, local shape, global offset) of every distinct shard of the
+    DTensor ``leaf``, in the mesh's order: one rank for each coordinate
+    that equals rank 0's on every mesh dim the leaf is replicated over.
+    Their blocks tile the whole leaf once."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        _compute_local_shape_and_global_offset)
+
+    placements = leaf.placements
+    for p in placements:
+        if not isinstance(p, (Shard, Replicate)):
+            raise ValueError(f"a {p} leaf has no whole value to save")
+    ranks = leaf.device_mesh.mesh
+    (home,) = (ranks == 0).nonzero().tolist() or [None]
+    if home is None:
+        raise ValueError("rank 0 writes the checkpoint: it must be on the "
+                         "leaf's mesh")
+    out = []
+    for coord in itertools.product(*map(range, ranks.shape)):
+        if any(isinstance(p, Replicate) and c != h
+               for p, c, h in zip(placements, coord, home)):
+            continue
+        shape, offset = _compute_local_shape_and_global_offset(
+            leaf.shape, tuple(ranks.shape), list(coord), placements)
+        out.append((int(ranks[coord]), tuple(shape), tuple(offset)))
+    return out
+
+
+def _gather_leaf(leaf: Any) -> Any:
+    """The whole value of ``leaf`` on rank 0, gathered one leaf at a time.
+
+    A plain leaf, or a DTensor replicated over its whole mesh, is rank 0's
+    own (no collective).  Otherwise rank 0 fills one whole CPU tensor:
+    its own block by a local copy, every other distinct shard's block from
+    a ``recv`` into a buffer of that shard's size on rank 0's device,
+    while each rank holding such a shard ``send``s it.  So rank 0 holds
+    at most one whole leaf on the host and one shard on its device beyond
+    the state.  Ranks other than 0 return None."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    if not _is_dtensor(leaf):
+        return leaf if rank == 0 else None
+    local = leaf.to_local()
+    shards = _shards(leaf)
+    if len(shards) == 1:
+        return local if rank == 0 else None
+    if rank != 0:
+        if local.numel() and any(r == rank for r, _, _ in shards):
+            dist.send(local.contiguous(), dst=0)
+        return None
+    whole = torch.empty(tuple(leaf.shape), dtype=leaf.dtype)
+    for r, shape, offset in shards:
+        if not math.prod(shape):
+            continue
+        if r == 0:
+            part = local
+        else:
+            part = torch.empty(shape, dtype=local.dtype, device=local.device)
+            dist.recv(part, src=r)
+        whole[_region(shape, offset)].copy_(part)
+        del part  # the next shard's buffer takes this one's place
+    return whole
+
+
+def local_shard(leaf: Any, like: torch.Tensor) -> torch.Tensor:
+    """A restored leaf (a numpy array or CPU tensor over the file's map,
+    as :func:`load_checkpoint` gives it) laid out as ``like``: a plain
+    ``like`` takes the whole leaf on its device in its dtype; a DTensor
+    ``like`` takes this rank's block of it by ``like``'s placements
+    (``compute_local_shape_and_global_offset``), copied to its device in
+    its dtype, as a DTensor of ``like``'s shape and placements.  No
+    collective, and only the pages of this rank's block are read."""
+    src = torch.as_tensor(leaf)
+    if tuple(src.shape) != tuple(like.shape):
+        raise ValueError(f"a leaf of shape {tuple(src.shape)} cannot take "
+                         f"the place of one of {tuple(like.shape)}")
+    if not _is_dtensor(like):
+        return src.to(like.device, like.dtype)
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    mesh, placements = like.device_mesh, like.placements
+    shape, offset = compute_local_shape_and_global_offset(like.shape, mesh,
+                                                          placements)
+    local = torch.empty(shape, dtype=like.dtype,
+                        device=like.to_local().device)
+    local.copy_(src[_region(shape, offset)])
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
 def save_checkpoint(directory: str | Path, step: int, state: Any,
                     keep: int = 3) -> Path:
     """Write ``state`` as ``directory/step_<step>/`` and keep the newest
-    ``keep`` checkpoints.  Returns the step directory."""
+    ``keep`` checkpoints.  Returns the step directory.
+
+    A state whose leaves include DTensors (a run laid out on a device
+    mesh) is saved collectively: every rank of the process group calls
+    this, rank 0 alone writes the whole state (the same file a one-device
+    save of the whole values writes) and every rank returns once the step
+    directory is in place (:func:`_gather_leaf`)."""
     directory = Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
     flat = _flatten(state)
     # every leaf's form, checked before touching disk
     metas = {k: _leaf_meta(v) for k, v in flat.items()}
@@ -265,6 +394,24 @@ def save_checkpoint(directory: str | Path, step: int, state: Any,
             raise ValueError(f"leaf {k!r} holds {nbytes} bytes: msgpack's "
                              "bin32 takes fewer than 2^32")
     path = directory / f"step_{step:08d}"
+    if not any(_is_dtensor(v) for v in flat.values()):
+        _write_step(directory, path, step, flat, metas, keep)
+        return path
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        _write_step(directory, path, step, flat, metas, keep)
+    else:
+        for leaf in flat.values():
+            _gather_leaf(leaf)
+    dist.barrier()
+    return path
+
+
+def _write_step(directory: Path, path: Path, step: int,
+                flat: Dict[str, Any], metas: Dict, keep: int) -> None:
+    """Stage the payload and the manifest in a ``.tmp`` sibling, rename it
+    to ``path`` and prune."""
+    directory.mkdir(parents=True, exist_ok=True)
     tmp = directory / f"{path.name}.tmp.{os.getpid()}"
     if tmp.exists():
         shutil.rmtree(tmp)
@@ -286,7 +433,6 @@ def save_checkpoint(directory: str | Path, step: int, state: Any,
     for stale in directory.glob("step_*.tmp.*"):
         if stale != tmp:
             shutil.rmtree(stale, ignore_errors=True)
-    return path
 
 
 def load_checkpoint(path: str | Path) -> Any:

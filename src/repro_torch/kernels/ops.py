@@ -205,6 +205,34 @@ def _rows_placements(x):
                  for p in x.placements)
 
 
+def causal_conv_on_shards(conv, x: Tensor, w: Tensor, b: Tensor) -> Tensor:
+    """``conv(x, w, b)``, a depthwise causal conv over (B, T, C) with
+    kernel (W, C), on DTensors: each rank convolves its own rows and
+    channels (the batch over the data-parallel axes, the channels over
+    ``"model"``; the card's torch has no plan for ``F.pad`` on a 2x16x16
+    mesh)."""
+    mesh = x.device_mesh
+    xp = _placements(mesh, (_dp(mesh), None, "model"), x.shape)
+    return _on_shards(conv, mesh, xp, (
+        xp, _placements(mesh, (None, "model"), w.shape),
+        _placements(mesh, ("model",), b.shape)), x, w, b)
+
+
+def cumsum(x: Tensor, dim: int) -> Tensor:
+    """``torch.cumsum(x, dim)``.  On a DTensor that no rank splits along
+    ``dim`` each rank sums its own shard (the card's torch has no sharding
+    rule for the ``flip`` of cumsum's backward)."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        d = dim % x.dim()
+        if all(isinstance(p, Replicate) or (isinstance(p, Shard)
+                                            and p.dim != d)
+               for p in x.placements):
+            return _on_shards(lambda t: torch.cumsum(t, d), x.device_mesh,
+                              x.placements, (x.placements,), x)
+    return torch.cumsum(x, dim)
+
+
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: int = 0,
                     kv_len: Optional[Tensor] = None) -> Tensor:

@@ -59,16 +59,17 @@ OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 
 
 @contextlib.contextmanager
-def fake_world(world_size: int):
-    """This process as rank 0 of a fake ``torch.distributed`` world of
-    ``world_size`` ranks: collectives return at once with their outputs
-    unfilled.  The group is destroyed on exit."""
+def fake_world(world_size: int, rank: int = 0):
+    """This process as rank ``rank`` (0 unless given) of a fake
+    ``torch.distributed`` world of ``world_size`` ranks: collectives
+    return at once with their outputs unfilled.  The group is destroyed
+    on exit."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
         raise RuntimeError("a process group is already running")
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world_size)
     try:
         yield

@@ -29,7 +29,11 @@ same seeds and keeps its own shard of each (``distribute_tensor`` with
 state are laid out by :func:`repro_torch.sharding.rules.param_specs`
 (``zero_pod`` for kimi-k2 on ``multipod``, as the dry run does), the
 batch by ``batch_specs``, and the activation context is installed.
-Checkpoints are one-device only.
+On a mesh ``--ckpt-dir`` saves the laid-out state collectively (rank 0
+writes the whole of it, the same file as a one-device run of the same
+values, so either package and either ``--mesh`` resumes it) and each
+rank restores its own shard of each leaf into the fresh layout; the
+ranks must share the directory.
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch.checkpoint.msgpack_ckpt import (restore_latest,
+from repro_torch.checkpoint.msgpack_ckpt import (local_shard,
+                                                restore_latest,
                                                 save_checkpoint)
 from repro_torch.configs.base import CompositionConfig
 from repro_torch.core.estimator import tree_map
@@ -56,12 +61,12 @@ from repro_torch.sharding import rules
 from repro_torch.sharding.context import clear_context, set_context
 
 
-def _to_device(tree, like, device):
+def _into_layout(tree, like):
     """A restored checkpoint's leaves (numpy arrays, or CPU bf16 tensors)
-    as tensors on ``device`` in the dtypes and key order of ``like``'s
-    (the optimizers zip trees leaf by leaf)."""
-    return tree_map(lambda ref, a: torch.as_tensor(a).to(device, ref.dtype),
-                    like, tree)
+    laid out as ``like``'s: on its device, in its dtypes and key order
+    (the optimizers zip trees leaf by leaf), and on a mesh each rank's
+    shard of each leaf by its placements."""
+    return tree_map(lambda ref, a: local_shard(a, ref), like, tree)
 
 
 def main(argv=None) -> None:
@@ -88,9 +93,6 @@ def main(argv=None) -> None:
     if args.mesh != "host":
         mesh = make_production_mesh(multi_pod=args.mesh == "multipod",
                                     device_type=dev.type)
-        if args.ckpt_dir:
-            raise ValueError("--ckpt-dir checkpoints a one-device run "
-                             "(--mesh host) only")
 
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
@@ -117,8 +119,8 @@ def main(argv=None) -> None:
         restored = restore_latest(args.ckpt_dir)
         if restored:
             start, state = restored
-            params = _to_device(state["params"], params, dev)
-            opt_state = _to_device(state["opt"], opt_state, dev)
+            params = _into_layout(state["params"], params)
+            opt_state = _into_layout(state["opt"], opt_state)
             print(f"resumed from step {start}")
 
     step_fn = make_train_step(cfg, opt)

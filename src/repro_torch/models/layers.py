@@ -35,6 +35,18 @@ def apply_norm(params: Params, x: Tensor, kind: str,
                eps: float = 1e-6) -> Tensor:
     if kind == "rmsnorm":
         return ops.rmsnorm(x, params["scale"], eps=eps)
+    if ops.is_dtensor(x):
+        # each rank normalises its own rows whole, as rmsnorm does (the
+        # card's torch plans var's backward on a 2x16x16 mesh with a
+        # redistribution it does not support)
+        from torch.distributed.tensor import Replicate
+        xp = ops._rows_placements(x)
+        whole = (Replicate(),) * len(xp)
+        return ops._on_shards(
+            lambda xl, sl, bl: apply_norm({"scale": sl, "bias": bl}, xl,
+                                          kind, eps),
+            x.device_mesh, xp, (xp, whole, whole), x, params["scale"],
+            params["bias"])
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, unbiased=False, keepdim=True)

@@ -68,16 +68,10 @@ def _split_proj(zxbcdt: Tensor, cfg):
 
 
 def _causal_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
-    """Depthwise causal conv over (B, T, C) with kernel (W, C).  On a
-    device mesh each rank convolves its own rows and channels (the batch
-    over the data-parallel axes, the channels over ``"model"``)."""
+    """Depthwise causal conv over (B, T, C) with kernel (W, C); on a
+    device mesh each rank convolves its own rows and channels."""
     if ops.is_dtensor(x):
-        mesh = x.device_mesh
-        dp = ops._dp(mesh)
-        xp = ops._placements(mesh, (dp, None, "model"), x.shape)
-        return ops._on_shards(_causal_conv, mesh, xp, (
-            xp, ops._placements(mesh, (None, "model"), w.shape),
-            ops._placements(mesh, ("model",), b.shape)), x, w, b)
+        return ops.causal_conv_on_shards(_causal_conv, x, w, b)
     W = w.shape[0]
     T = x.shape[1]
     xp = F.pad(x, (0, 0, W - 1, 0))
@@ -113,7 +107,7 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
     xc = xw.reshape(Bsz, nc, Q, H, P)
     bc = Bm.reshape(Bsz, nc, Q, N)
     cc = Cm.reshape(Bsz, nc, Q, N)
-    cum = torch.cumsum(la.reshape(Bsz, nc, Q, H), dim=2)  # (B,nc,Q,H)
+    cum = ops.cumsum(la.reshape(Bsz, nc, Q, H), 2)  # (B,nc,Q,H)
     total = cum[:, :, -1]  # (B,nc,H)
 
     # ---- chunk summary states ----------------------------------------

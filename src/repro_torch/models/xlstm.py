@@ -71,6 +71,10 @@ def init_mlstm(gen, cfg, dtype) -> Params:
 
 
 def _causal_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
+    """Depthwise causal conv over (B, T, C) with kernel (W, C); on a
+    device mesh each rank convolves its own rows and channels."""
+    if ops.is_dtensor(x):
+        return ops.causal_conv_on_shards(_causal_conv, x, w, b)
     W, T = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, W - 1, 0))
     out = xp[:, 0:T] * w[0][None, None]
@@ -94,7 +98,7 @@ def mlstm_parallel(q: Tensor, k: Tensor, v: Tensor, i_pre: Tensor,
     i_pre/f_pre (B,T,H) pre-activations.  Returns (B,T,H,dv)."""
     T, dqk = q.shape[1], q.shape[3]
     logf = _logsigmoid(f_pre.float())  # (B,T,H)
-    cf = torch.cumsum(logf, dim=1)
+    cf = ops.cumsum(logf, 1)
     # D[t,s] = F_t - F_s + i_s  for s<=t
     D = cf[:, :, None, :] - cf[:, None, :, :] + i_pre.float()[:, None, :, :]
     mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
