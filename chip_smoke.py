@@ -4276,13 +4276,39 @@ def zoo_path(torch, cfg=None):
     return counts, stats
 
 
+def union_length(intervals) -> float:
+    """Total length covered by ``intervals`` (each ``(start, end)``)."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def device_busy_us(torch, prof) -> float:
+    """Microseconds in which some kernel or copy of a finished
+    ``torch.profiler`` trace ran on the card: the union of their
+    intervals, as a sum of their times would count work on overlapping
+    streams twice."""
+    return union_length(
+        (ev.start_ns() * 1e-3, (ev.start_ns() + ev.duration_ns()) * 1e-3)
+        for ev in prof.profiler.kineto_results.events()
+        if ev.device_type() == torch.autograd.DeviceType.CUDA)
+
+
 def trace_zoo(torch, cfg, params, toks, steps: int = 4,
               extra=None) -> dict:
     """One warm prefill (with the batch keys ``extra`` beside the tokens)
     and ``steps`` serve steps (an enc-dec model's over the memory of
     ``extra``'s frames, prefilled before) of a zoo path under
     ``torch.profiler``: wall
-    time, device busy time (sum of kernel self times), their ratio, the
+    time, device busy time (the union of kernel intervals), their ratio, the
     kernels that took the most device time, and the device time of each
     of the port's kernels on the path.  The launch counts of these calls
     are not part of the path's."""
@@ -4313,7 +4339,7 @@ def trace_zoo(torch, cfg, params, toks, steps: int = 4,
             wall = time.perf_counter() - t0
         device = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_us = sum(e.self_device_time_total for e in device)
+        busy_us = device_busy_us(torch, prof)
         top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
         port = {}
         for name, symbols in PORT_SYMBOLS.items():
@@ -6382,7 +6408,7 @@ def trace_round(torch, label: str = "c", trainer: str = "sequential",
     """Phase 4: one round of path (c)'s run (a fresh runner, so round 1
     at τ=10, with libraries already warm) under ``torch.profiler``, with
     ``trainer`` and ``per_round`` clients a round: the round's wall time,
-    the device's busy time (sum of kernel self times), their ratio, and
+    the device's busy time (the union of kernel intervals), their ratio, and
     the kernels that took the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -6404,7 +6430,7 @@ def trace_round(torch, label: str = "c", trainer: str = "sequential",
     # device time again
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in device)
+    busy_us = device_busy_us(torch, prof)
     launches = sum(e.count for e in device)
     print(f"phase 4: traced round 1 of ({label}), {trainer} trainer, "
           f"{per_round} clients: wall {wall:.4f} s, device "

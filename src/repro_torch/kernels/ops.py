@@ -45,6 +45,7 @@ from repro_torch.kernels.rmsnorm import _rmsnorm_math
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.ssd_chunk import _ssd_math
 from repro_torch.kernels.ssd_chunk import ssd_chunk as ssd_chunk_kernel
+from repro_torch.obs.spans import span
 
 __all__ = [
     "compose", "rank_dense_apply", "conv_rank_apply", "compose_dense_apply",
@@ -67,25 +68,29 @@ class _PlainBackward(torch.autograd.Function):
     returns that version's gradient, as ``_ConvRank`` and ``_RankDense``
     pair a kernel forward with a plain backward.  The recomputation
     holds the plain version's intermediates (attention's whole score
-    matrix) for the backward's duration."""
+    matrix) for the backward's duration.  While a torch profiler records,
+    the backward runs in the span ``plain_backward.<kernel's name>``
+    (:mod:`repro_torch.obs.spans`)."""
 
     @staticmethod
     def forward(ctx, kernel, plain, kw, *tensors):
         ctx.plain, ctx.kw = plain, kw
+        ctx.span_name = "plain_backward." + kernel.__name__
         ctx.save_for_backward(*tensors)
         return kernel(*tensors, **kw)
 
     @staticmethod
     def backward(ctx, grad):
-        need = ctx.needs_input_grad[3:]
-        tensors = [t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad():
-            out = ctx.plain(*tensors, **ctx.kw)
-        grads = iter(torch.autograd.grad(
-            out, [t for t in tensors if t.requires_grad], grad))
-        return (None, None, None,
-                *(next(grads) if n else None for n in need))
+        with span(ctx.span_name, grad.device):
+            need = ctx.needs_input_grad[3:]
+            tensors = [t.detach().requires_grad_(n)
+                       for t, n in zip(ctx.saved_tensors, need)]
+            with torch.enable_grad():
+                out = ctx.plain(*tensors, **ctx.kw)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in tensors if t.requires_grad], grad))
+            return (None, None, None,
+                    *(next(grads) if n else None for n in need))
 
 
 # ---------------------------------------------------------------------------

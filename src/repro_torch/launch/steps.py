@@ -18,6 +18,10 @@ each step runs under :func:`repro_torch.sharding.context.on_mesh`, so a
 tensor the model makes itself (positions, masks, the step counter) is
 taken as replicated and a reshape DTensor cannot express gathers first;
 the optimizer state keeps its placements (it is updated in place).
+
+While a torch profiler records, ``train_step`` opens the spans
+``train.forward``, ``train.backward`` and ``train.optimizer``
+(:mod:`repro_torch.obs.spans`).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 from repro_torch.core.estimator import tree_leaves, tree_map
 from repro_torch.kernels import is_dtensor
 from repro_torch.models import model
+from repro_torch.obs.spans import span
 from repro_torch.optim import apply_updates
 
 
@@ -65,17 +70,21 @@ def make_train_step(cfg, optimizer, skip_blocks: bool = False) -> Callable:
 
     def _train_step(params, opt_state, batch):
         leaves = [t.requires_grad_() for t in tree_leaves(params)]
-        loss, metrics = model.loss_fn(params, cfg, batch, skip_blocks)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        # a parameter the loss does not read (ln2 under parallel_block)
-        # has a zero gradient, as jax.grad gives it
-        grads = [torch.zeros_like(t) if g is None else _like(g, t)
-                 for t, g in zip(leaves, grads)]
-        grad_norm = torch.sqrt(sum(_sq_norm(g) for g in grads))
-        it = iter(grads)
-        updates, opt_state = optimizer.update(
-            tree_map(lambda _: next(it), params), opt_state, params)
-        params = apply_updates(params, updates)
+        dev = leaves[0].device
+        with span("train.forward", dev):
+            loss, metrics = model.loss_fn(params, cfg, batch, skip_blocks)
+        with span("train.backward", dev):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # a parameter the loss does not read (ln2 under
+            # parallel_block) has a zero gradient, as jax.grad gives it
+            grads = [torch.zeros_like(t) if g is None else _like(g, t)
+                     for t, g in zip(leaves, grads)]
+        with span("train.optimizer", dev):
+            grad_norm = torch.sqrt(sum(_sq_norm(g) for g in grads))
+            it = iter(grads)
+            updates, opt_state = optimizer.update(
+                tree_map(lambda _: next(it), params), opt_state, params)
+            params = apply_updates(params, updates)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         metrics["grad_norm"] = grad_norm

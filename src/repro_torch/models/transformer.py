@@ -19,7 +19,10 @@ Python loops.
 With ``cfg.remat`` and a gradient being recorded, each decoder layer and
 each mLSTM layer runs under ``torch.utils.checkpoint`` (non-reentrant),
 the reference's ``jax.checkpoint`` around its scan body: activations
-are recomputed in the backward, and the numbers do not change.  Mamba2
+are recomputed in the backward, and the numbers do not change.  While a
+torch profiler records, each such layer runs in the span ``model.layer``,
+and its replay in the backward in ``model.layer.recompute``
+(:mod:`repro_torch.obs.spans`).  Mamba2
 params are stacked ``(nsuper, attn_every, ...)`` and mLSTM params
 ``(nsuper, slstm_every - 1, ...)`` as in the reference.  The decode
 caches have real storage and are written in place (the reference
@@ -31,14 +34,17 @@ stream's layout on a device mesh, a no-op without one).
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.autograd import _profiler_enabled
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.estimator import tree_leaves, tree_map
 from repro_torch.models import attention, layers, module, ssm, xlstm
 from repro_torch.models import moe as moe_lib
+from repro_torch.obs.spans import span
 from repro_torch.sharding.context import constrain_residual, in_mesh_context
 
 Tensor = torch.Tensor
@@ -155,12 +161,26 @@ def _recording(params) -> bool:
         t.requires_grad for t in tree_leaves(params))
 
 
+def _spanned(fn, *args):
+    """``fn(*args)`` inside the span ``model.layer``, or
+    ``model.layer.recompute`` where autograd's backward replays it
+    (remat), timed on the device of its first tensor argument."""
+    if not _profiler_enabled():
+        return fn(*args)
+    name = ("model.layer" if torch._C._current_graph_task_id() == -1
+            else "model.layer.recompute")
+    dev = next((a.device for a in args if isinstance(a, Tensor)), None)
+    with span(name, dev):
+        return fn(*args)
+
+
 def _run(remat: bool, fn, *args):
     if remat:
         # the backward replays fn, on the card in autograd's own thread:
         # a device mesh's context goes with it
-        return checkpoint(in_mesh_context(fn), *args, use_reentrant=False)
-    return fn(*args)
+        return checkpoint(functools.partial(_spanned, in_mesh_context(fn)),
+                          *args, use_reentrant=False)
+    return _spanned(fn, *args)
 
 
 def apply_stack(params: Params, cfg, x: Tensor, cos, sin,

@@ -1,4 +1,5 @@
-"""repro_torch.obs — structured telemetry for the FL engine.
+"""repro_torch.obs — structured telemetry for the FL engine, and spans
+on the profiler's clock.
 
 A metrics registry (counters / gauges / histograms / per-block tallies)
 plus a span tracer over the simulation's **virtual clock** and the host
@@ -22,6 +23,12 @@ ROADMAP C.11 lists where the port's stream differs: wall spans around
 device work end with a synchronize of the CUDA device, there is no
 ``trainer.jit_recompiles`` counter, ``trainer.cohort_shape`` counts the
 unpadded group, and ``checkpoint.bytes`` counts the step directory's files.
+
+:mod:`repro_torch.obs.spans` is the port's own: named ranges inside the
+train step, the model's layers and the kernels' plain backward (and
+around each wall span of the :class:`Recorder`), on while a torch
+profiler records, each with its calls and its device time
+(``spans.totals()``).
 """
 
 from repro_torch.obs.coverage import coverage_table, format_coverage
@@ -29,6 +36,7 @@ from repro_torch.obs.recorder import (NOOP, NoopRecorder, Recorder, build_record
                                 metric_key, runtime_provenance)
 from repro_torch.obs.schema import validate_event, validate_events, validate_file
 from repro_torch.obs.sinks import JsonlSink, MemorySink, Sink, load_events
+from repro_torch.obs import spans
 from repro_torch.obs.trace import export_trace, to_trace_events
 
 __all__ = [
@@ -38,4 +46,5 @@ __all__ = [
     "validate_event", "validate_events", "validate_file",
     "to_trace_events", "export_trace",
     "coverage_table", "format_coverage",
+    "spans",
 ]

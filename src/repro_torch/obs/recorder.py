@@ -38,6 +38,8 @@ from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 
+from repro_torch.obs.spans import span
+
 SCHEMA_VERSION = 1
 
 
@@ -65,9 +67,12 @@ _NULL_CTX = _NullCtx()
 
 
 class _WallSpan:
-    """Context manager recording one wall-clock span on exit."""
+    """Context manager recording one wall-clock span on exit; while a
+    torch profiler records, its body is also the span of the same name
+    on the profiler's clock (:mod:`repro_torch.obs.spans`), a host range
+    with no device time."""
 
-    __slots__ = ("rec", "name", "attrs", "t0")
+    __slots__ = ("rec", "name", "attrs", "t0", "traced")
 
     def __init__(self, rec: "Recorder", name: str, attrs: Dict[str, Any]):
         self.rec = rec
@@ -75,6 +80,8 @@ class _WallSpan:
         self.attrs = attrs
 
     def __enter__(self):
+        self.traced = span(self.name, None)
+        self.traced.__enter__()
         self.t0 = time.perf_counter()
         return self
 
@@ -82,6 +89,7 @@ class _WallSpan:
         t1 = time.perf_counter()
         self.rec.span(self.name, self.t0, t1, clock="wall", **self.attrs)
         self.rec.observe(f"{self.name}_s", t1 - self.t0)
+        self.traced.__exit__(*exc)
         return False
 
 
