@@ -5,9 +5,10 @@
 
 Run from the root of a checkout.  It
 
-1. builds the eight CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-   per source, in parallel), prints the build seconds, the attention and
-   SSD-chunk libraries' tensor-core instruction counts and the card's
+1. builds the nine CUDA kernel sources from ``src/repro_torch/csrc`` (one
+   nvcc per source, in parallel), prints the build seconds, the attention
+   (forward and backward) and SSD-chunk libraries' tensor-core
+   instruction counts and the card's
    name and power limit, and turns TF32 off for matmuls and convolutions;
 2. holds every kernel against its plain PyTorch version on the card: the
    four composition kernels at the CNN's shapes for widths p = 1, 2, 3
@@ -70,7 +71,12 @@ Run from the root of a checkout.  It
    rank 0's shard, one 64 x 64 basis chunk and the whole 128-chunk
    linear); and the checkpoint codec on the card's tensors
    (``check_codec``: each payload's file equal to ``plain_msgpack``'s
-   bytes, read back bit for bit);
+   bytes, read back bit for bit); attention's bf16 backward kernel pair
+   against the f32 gradient of the plain version at four shapes (D 80
+   and 256, GQA with a window, cross-attention with key counts down to
+   0) and at train_4k x stablelm_3b, bitwise equal over two calls, and
+   timed at train_4k x stablelm_3b beside the replay it replaced and
+   SDPA's backward;
 3. drives the port's main paths, with the launch counts set to 0 just
    before each and read just after, each checked against the same run on
    the CPU (the plain versions, which the CPU tests hold to the JAX
@@ -296,6 +302,9 @@ KERNEL_META = {
                          "src/repro/kernels/decode_attention.py:95"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:98"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "none: the reference's training path "
+                            "differentiates plain JAX"),
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:35"),
     "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
@@ -312,8 +321,8 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def sass_counts(rt, names=("flash_attention", "decode_attention",
-                            "ssd_chunk")) -> dict:
+def sass_counts(rt, names=("flash_attention", "flash_attention_bwd",
+                            "decode_attention", "ssd_chunk")) -> dict:
     """Tensor-core (HMMA, HGMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
     instructions in the built attention and SSD-chunk libraries
     (``cuobjdump -sass``); fails unless each library has tensor-core
@@ -1835,6 +1844,132 @@ def check_attention(torch):
         records[name]["max_abs_err"] = maxerr[name]
     records["compose_zoo"] = zoo_compose(torch, rn)
     return records
+
+
+# attention's backward kernel pair against the f32 gradient of the plain
+# version on the same bf16 values, as max |got - want| over max |want| and
+# the same over the norm: tests/test_torch_flash_backward.py's tolerances
+# (bf16 rounding of P and dS as operands and of dq, dk, dv; f32 sums)
+FLASH_BWD_TOL = (2e-2, 1e-2)
+# (label, BKV, G, Sq, Sk, D, causal, window, kv_len): the timed shape's
+# head size and D 256 over many tiles, GQA 4 with a window, and the
+# audio family's cross-attention (fewer queries than keys, key counts
+# down to 0)
+FLASH_BWD_CASES = (
+    ("stablelm_3b D 80", 2, 1, 1000, 1000, 80, True, 0, None),
+    ("gemma_2b D 256, G 8", 1, 8, 600, 600, 256, True, 0, None),
+    ("GQA 4, window 300", 2, 4, 777, 777, 128, True, 300, None),
+    ("cross, kv_len", 4, 1, 512, 1200, 64, False, 0, (1200, 0, 37, 640)),
+)
+
+
+def check_flash_backward(torch) -> dict:
+    """Phase 2 for attention's backward kernel pair (bf16): dq, dk and dv
+    from ``flash_attention_bwd`` against ``torch.autograd.grad`` of
+    ``_flash_math`` in f32 on the same values (``FLASH_BWD_CASES`` and
+    train_4k x stablelm_3b), bitwise equal over two calls at the
+    former, then timed at train_4k x stablelm_3b
+    beside its bound, the plain replay that trained before it (the
+    gradient of ``_flash_math`` under autograd, as ``_PlainBackward``
+    runs it) and ``F.scaled_dot_product_attention``'s backward as the
+    yardstick (the port never calls it).  Returns its timing record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (_flash_math,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+
+    gen = torch.Generator().manual_seed(7)
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen).to(dev, bf)
+
+    def plain_grads(q, k, v, dout, kw):
+        xs = [t.float().requires_grad_() for t in (q, k, v)]
+        out = _flash_math(*xs, kw["causal"], kw["window"], kw["q_per_kv"],
+                          kw["kv_len"])
+        return torch.autograd.grad(out, xs, dout.float())
+
+    print("phase 2: attention's backward kernel pair vs the f32 plain "
+          "gradient (bf16)")
+    maxerr = 0.0
+    for label, BKV, G, Sq, Sk, D, causal, window, lens in FLASH_BWD_CASES:
+        q, k, v = rn(BKV * G, Sq, D), rn(BKV, Sk, D), rn(BKV, Sk, D)
+        dout = rn(BKV * G, Sq, D)
+        kw = dict(causal=causal, window=window, q_per_kv=G,
+                  kv_len=None if lens is None else torch.tensor(
+                      lens, dtype=torch.int32, device=dev))
+        out, lse = flash_attention(q, k, v, with_lse=True, **kw)
+        got = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+        again = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash_attention_bwd {label}: two calls differ")
+        errs = []
+        for name, a, b in zip(("dq", "dk", "dv"), got,
+                              plain_grads(q, k, v, dout, kw)):
+            d = a.float() - b
+            rel = float(d.abs().max()) / max(1e-30, float(b.abs().max()))
+            rel_n = float(d.norm()) / max(1e-30, float(b.norm()))
+            maxerr = max(maxerr, float(d.abs().max()))
+            errs.append(f"{name} {rel:.2e}/{rel_n:.2e}")
+            check(rel <= FLASH_BWD_TOL[0] and rel_n <= FLASH_BWD_TOL[1],
+                  f"flash_attention_bwd {label}: {name} off by {rel:.3e} "
+                  f"of its largest entry, {rel_n:.3e} of its norm")
+        print(f"  flash_attention_bwd bf16 {label}: q({BKV * G},{Sq},{D}) "
+              f"kv({BKV},{Sk},{D}) {'causal' if causal else 'non-causal'}"
+              f" window {window} kv_len {lens}: error over max / norm "
+              + ", ".join(errs) + "; bitwise equal over two calls")
+        del q, k, v, dout, out, lse, got, again
+    torch.cuda.empty_cache()
+
+    B, H, S, D = (FLASH_AT_SCALE[x] for x in ("B", "H", "S", "D"))
+    q, k, v, dout = (rn(B * H, S, D) for _ in range(4))
+    out, lse = flash_attention(q, k, v, with_lse=True)
+    pairs = B * H * _causal_pairs(S, S)
+    # the timed shape itself (every query tile, the longest causal walks)
+    errs = []
+    got = flash_attention_bwd(q, k, v, out, dout, lse)
+    want = plain_grads(q, k, v, dout, dict(causal=True, window=0,
+                                           q_per_kv=1, kv_len=None))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        d = a.float() - b
+        rel = float(d.abs().max()) / max(1e-30, float(b.abs().max()))
+        rel_n = float(d.norm()) / max(1e-30, float(b.norm()))
+        maxerr = max(maxerr, float(d.abs().max()))
+        errs.append(f"{name} {rel:.2e}/{rel_n:.2e}")
+        check(rel <= FLASH_BWD_TOL[0] and rel_n <= FLASH_BWD_TOL[1],
+              f"flash_attention_bwd train_4k x stablelm_3b: {name} off by "
+              f"{rel:.3e} of its largest entry, {rel_n:.3e} of its norm")
+        del d
+    print(f"  flash_attention_bwd bf16 train_4k x stablelm_3b: q({B * H},"
+          f"{S},{D}) causal: error over max / norm " + ", ".join(errs))
+    del got, want
+    torch.cuda.empty_cache()
+
+    def replay():  # _PlainBackward's backward on these tensors
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            torch.autograd.grad(_flash_math(*xs), xs, dout)
+
+    qs, ks, vs = (t.view(B, H, S, D).detach().requires_grad_()
+                  for t in (q, k, v))
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    rec = time_kernel(
+        torch, "flash_attention_bwd", "train_4k x stablelm_3b",
+        f"q/k/v/out/dout ({B * H},{S},{D}) bf16 causal, lse f32",
+        lambda: flash_attention_bwd(q, k, v, out, dout, lse), replay,
+        lambda: torch.autograd.grad(lib_out, (qs, ks, vs),
+                                    dout.view(B, H, S, D),
+                                    retain_graph=True),
+        2 * 8 * q.numel() + 4 * B * H * S, 10 * D * pairs, PEAK_BF16_FLOPS,
+        big=True)
+    rec["max_abs_err"] = maxerr
+    del q, k, v, dout, out, lse, qs, ks, vs, lib_out
+    torch.cuda.empty_cache()
+    return {"flash_attention_bwd": rec}
 
 
 # the zoo's compose-then-matmul shapes: seamless-m4t-medium's factorized
@@ -4823,6 +4958,13 @@ def dense_train(torch, cfg, params, task, label="(p)") -> dict:
     for n in launched:
         check(all(n.get(k, 0) >= m for k, m in least.items()),
               f"{label} a training step's forward skipped a kernel: {n}")
+        # bf16 attention trains through the backward kernel pair, once a
+        # flash call of the forward
+        if cfg.compute_dtype == "bfloat16" and "flash_attention" in least:
+            check(n.get("flash_attention_bwd", 0) == least["flash_attention"],
+                  f"{label} a training step launched the backward pair "
+                  f"{n.get('flash_attention_bwd', 0)} times, not "
+                  f"{least['flash_attention']}")
     return {"losses": losses, "grad_norms": norms, "s_per_step": secs,
             "peak_bytes": peak, "launches_per_step": launched}
 
@@ -4874,7 +5016,7 @@ def dense_train_vs_cpu(torch, cfg, task) -> dict:
 
 
 def dense_report(torch, label, cfg, n_params, t_init, init_peak, serving,
-                 r, peak, counts) -> dict:
+                 r, peak, counts, trained=False) -> dict:
     stats = dict(serving, config=(
         f"{cfg.arch_id}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{n_params} params ({cfg.param_dtype}), compute "
@@ -4897,6 +5039,8 @@ def dense_report(torch, label, cfg, n_params, t_init, init_peak, serving,
     check(all(0 <= t < cfg.vocab for out in r["outputs"].values()
               for t in out), f"{what}: served a token outside the vocabulary")
     expect = family_kernels(cfg)
+    if trained and "flash_attention" in expect:  # its bf16 backward pair
+        expect = expect | {"flash_attention_bwd"}
     for k, n in counts.items():
         check((n > 0) == (k in expect),
               f"{what}: {k} launched {n} times (expected: {sorted(expect)})")
@@ -4968,7 +5112,7 @@ def dense_default_path(torch, cfg=None):
           f"(p) launch/serve.py served {r['arch']} by default")
     counts = dict(LAUNCHES)
     stats = dense_report(torch, "(p)", cfg, n_params, t_init, init_peak,
-                         serving, r, peak, counts)
+                         serving, r, peak, counts, trained=True)
     stats["train"] = train
     torch.cuda.empty_cache()
     stats.update(zoo_vs_cpu(torch, cfg, layers=1, batch=DENSE_CPU_BATCH,
@@ -6485,6 +6629,7 @@ def main() -> int:
     records["compose"]["max_abs_err"] = max(
         records["compose"]["max_abs_err"], zoo["max_abs_err"])
     records.update(attention)
+    records.update(check_flash_backward(torch))
     records.update(check_ssd_rmsnorm(torch))
     codec = check_codec(torch)
     print(f"codec {json.dumps(codec)}")

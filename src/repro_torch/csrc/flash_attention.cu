@@ -10,9 +10,14 @@
 //   rounded to v's type, and out[b, i] = (sum_j p_j v[b / G, j]) / l,
 //   q_offset = Sk - Sq
 //   q (BH, Sq, D), k/v (BKV, Sk, D), kv_len (BKV,) int32 or null
-//   -> out (BH, Sq, D), BH = BKV * G
+//   -> out (BH, Sq, D), BH = BKV * G, and, where lse is not null, the row
+//   log-sum-exp lse (BH, Sq) f32 = m + log l in natural log (the mma
+//   kernel's log2-domain m + log2 l times ln 2), what the backward
+//   (csrc/flash_attention_bwd.cu) rebuilds P from
 //   f32 or bf16 in, f32 accumulation, output in q's type; a row with no
-//   visible key at all (kv_len 0) writes zeros
+//   visible key at all (kv_len 0, a causal query before the first key
+//   when Sq > Sk, a window wholly past the count) writes zeros and an lse
+//   of about -1e30, from which the backward gives it zero gradients
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_pallas
 // (body _flash_kernel): grid (BH, nq, nk) with the KV axis sequential and
@@ -64,7 +69,10 @@
 // Masked scores use -1e30, not -inf: a row whose first tiles are fully
 // masked (a sliding window) keeps a finite running max, and the
 // correction exp(-1e30 - m) zeroes what it summed once a valid key
-// arrives, as in the TPU kernel.  Shared memory past 48 KB is opted into
+// arrives, as in the TPU kernel.  The lse output is written only when
+// asked for (training), one value a row after the last tile: prefill and
+// serving pass a null pointer and write nothing more.  Shared memory past
+// 48 KB is opted into
 // once, for every instantiation, at the first launch (which is eager), so
 // a launch inside a CUDA-graph capture makes no attribute call.
 #include "common.cuh"
@@ -76,6 +84,7 @@
 #define FA_MAX_D 256
 #define FA_NEG -1e30f
 #define FA_LOG2E 1.4426950408889634f
+#define FA_LN2 0.6931471805599453f
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -108,9 +117,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ out,
-                 const int* __restrict__ kv_len, int Sq, int Sk, int D,
-                 int q_per_kv, int causal, int window, float scale_log2,
-                 int vec) {
+                 const int* __restrict__ kv_len, float* __restrict__ lse,
+                 int Sq, int Sk, int D, int q_per_kv, int causal, int window,
+                 float scale_log2, int vec) {
   using Sh = FlashMmaShape<NDC>;
   constexpr int LD = Sh::LD, BN = Sh::BN, NT = BN / 8, MT = Sh::MT;
   constexpr int NTHR = Sh::WARPS * 32, QR = Sh::Q_IN_REGS ? 1 : 0;
@@ -322,7 +331,12 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
       const int row = q0 + row0 + 16 * mt + g + 8 * h;
       if (row >= Sq) continue;
-      const float inv = 1.f / fmaxf(lt, 1e-30f);
+      if (lse && tq == 0)
+        lse[static_cast<long long>(b) * Sq + row] =
+            (m[mt][h] + log2f(fmaxf(lt, 1e-30f))) * FA_LN2;
+      // a row that saw no key kept m at -1e30: zeros, as a count of 0
+      const float inv = m[mt][h] > 0.5f * FA_NEG ? 1.f / fmaxf(lt, 1e-30f)
+                                                 : 0.f;
       __nv_bfloat16* orow = out + (static_cast<long long>(b) * Sq + row) * D;
 #pragma unroll
       for (int i = 0; i < 2 * NDC; ++i) {
@@ -374,8 +388,9 @@ template <int NJ>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
-                  const int* __restrict__ kv_len, int Sq, int Sk, int D,
-                  int q_per_kv, int causal, int window, float scale) {
+                  const int* __restrict__ kv_len, float* __restrict__ lse,
+                  int Sq, int Sk, int D, int q_per_kv, int causal,
+                  int window, float scale) {
   extern __shared__ float smem[];
   constexpr int SC = FA_BK / FA_TPR;  // scores per thread per tile
   const int DP = D + 1;
@@ -478,7 +493,10 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (q0 + r < Sq) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
+    if (lse && cl == 0)
+      lse[static_cast<long long>(b) * Sq + q0 + r] =
+          m + logf(fmaxf(l, 1e-30f));
+    const float inv = m > 0.5f * FA_NEG ? 1.f / fmaxf(l, 1e-30f) : 0.f;
     float* orow = out + (static_cast<long long>(b) * Sq + q0 + r) * D;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -520,7 +538,8 @@ static cudaError_t ensure_smem_attrs() {
 }
 
 static cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                              void* out, const int* kv_len, int BH, int Sq,
+                              void* out, const int* kv_len, float* lse,
+                              int BH, int Sq,
                               int Sk, int D, int q_per_kv, int causal,
                               int window, cudaStream_t stream) {
   const float scale_log2 =
@@ -541,7 +560,7 @@ static cudaError_t launch_mma(const void* q, const void* k, const void* v,
         static_cast<const __nv_bfloat16*>(q),                               \
         static_cast<const __nv_bfloat16*>(k),                               \
         static_cast<const __nv_bfloat16*>(v),                               \
-        static_cast<__nv_bfloat16*>(out), kv_len, Sq, Sk, D, q_per_kv,      \
+        static_cast<__nv_bfloat16*>(out), kv_len, lse, Sq, Sk, D, q_per_kv, \
         causal, window, scale_log2, vec ? 1 : 0);                           \
     return cudaGetLastError();                                              \
   }
@@ -551,7 +570,8 @@ static cudaError_t launch_mma(const void* q, const void* k, const void* v,
 }
 
 static cudaError_t launch_ffma(const void* q, const void* k, const void* v,
-                               void* out, const int* kv_len, int BH, int Sq,
+                               void* out, const int* kv_len, float* lse,
+                               int BH, int Sq,
                                int Sk, int D, int q_per_kv, int causal,
                                int window, cudaStream_t stream) {
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
@@ -565,7 +585,7 @@ static cudaError_t launch_ffma(const void* q, const void* k, const void* v,
     flash_ffma_kernel<N><<<grid, FA_THREADS, smem, stream>>>(              \
         static_cast<const float*>(q), static_cast<const float*>(k),        \
         static_cast<const float*>(v), static_cast<float*>(out), kv_len,    \
-        Sq, Sk, D, q_per_kv, causal, window, scale);                       \
+        lse, Sq, Sk, D, q_per_kv, causal, window, scale);                  \
     return cudaGetLastError();                                             \
   }
   FA_FFMA_COLS(FA_LAUNCH_FFMA)
@@ -574,11 +594,13 @@ static cudaError_t launch_ffma(const void* q, const void* k, const void* v,
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it); kv_len
-// null or (BH / q_per_kv,) int32 on the device
+// null or (BH / q_per_kv,) int32 on the device; lse null (no gradient
+// needed) or (BH, Sq) f32 on the device
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, const void* kv_len, int BH, int Sq,
-                               int Sk, int D, int q_per_kv, int causal,
-                               int window, int dtype, void* stream) {
+                               void* out, const void* kv_len, void* lse,
+                               int BH, int Sq, int Sk, int D, int q_per_kv,
+                               int causal, int window, int dtype,
+                               void* stream) {
   if (D < 1 || D > FA_MAX_D || q_per_kv < 1 || BH % q_per_kv != 0 ||
       window < 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -587,9 +609,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_len);
+  float* lf = static_cast<float*>(lse);
   if (dtype == 0)
-    return static_cast<int>(launch_ffma(q, k, v, out, lens, BH, Sq, Sk, D,
-                                        q_per_kv, causal, window, st));
-  return static_cast<int>(launch_mma(q, k, v, out, lens, BH, Sq, Sk, D,
+    return static_cast<int>(launch_ffma(q, k, v, out, lens, lf, BH, Sq, Sk,
+                                        D, q_per_kv, causal, window, st));
+  return static_cast<int>(launch_mma(q, k, v, out, lens, lf, BH, Sq, Sk, D,
                                      q_per_kv, causal, window, st));
 }

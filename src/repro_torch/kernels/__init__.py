@@ -22,8 +22,12 @@ layer, whatever its client count.
                  the keys and shared by the query group, online softmax
                  (:mod:`repro_torch.kernels.decode_attention`)
   flash_attention   blockwise streaming-softmax attention with causal and
-                 window masks and per-row key counts
+                 window masks and per-row key counts, and the row
+                 log-sum-exp when training asks for it
                  (:mod:`repro_torch.kernels.flash_attention`)
+  flash_attention_bwd  its gradient for bf16 tensors: dq, then dk and dv,
+                 from the forward's output and log-sum-exp, deterministic
+                 (the same module)
   rmsnorm        per-row RMS normalisation, f32 statistics
                  (:mod:`repro_torch.kernels.rmsnorm`)
   ssd_chunk      the Mamba2 SSD intra-chunk block plus its carry-in
@@ -70,7 +74,9 @@ _SIGNATURES = {
     "compose_apply": ("compose_apply_f32", [_P] * 5 + [_I] * 9 + [_P]),
     "conv_rank": ("conv_rank_f32", [_P] * 4 + [_I] * 16 + [_P]),
     "decode_attention": ("decode_attention", [_P] * 7 + [_I] * 8 + [_P]),
-    "flash_attention": ("flash_attention", [_P] * 5 + [_I] * 8 + [_P]),
+    "flash_attention": ("flash_attention", [_P] * 6 + [_I] * 8 + [_P]),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            [_P] * 11 + [_I] * 8 + [_P]),
     "rmsnorm": ("rmsnorm", [_P] * 3 + [_I] * 3 + [_F, _P]),
     "ssd_chunk": ("ssd_chunk", [_P] * 7 + [_I] * 6 + [_P]),
 }
@@ -323,10 +329,11 @@ def unfold_clients(batch: int, t: torch.Tensor) -> torch.Tensor:
 
 
 def no_grad_guard(name: str, *tensors: torch.Tensor) -> None:
-    """For kernels with no backward (attention, rmsnorm, ssd_chunk, like
-    the reference's ``pallas_call``): refuse to build a graph through
-    them.  :mod:`repro_torch.kernels.ops` gives the three that the model
-    zoo trains through a backward of their plain versions."""
+    """For kernel wrappers with no backward (attention, rmsnorm,
+    ssd_chunk, like the reference's ``pallas_call``): refuse to build a
+    graph through them.  :mod:`repro_torch.kernels.ops` gives the three
+    that the model zoo trains through a backward: attention's kernel pair
+    for bf16 on the card, else their plain versions'."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name} has no backward; call it under "
                            "torch.no_grad() or on tensors that do not "

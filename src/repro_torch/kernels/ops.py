@@ -9,10 +9,14 @@ and ``rmsnorm``.  Oracles live in :mod:`repro_torch.kernels.ref`.
 
 ``flash_attention``, ``ssd_chunk`` and ``rmsnorm`` are differentiable,
 so the model zoo trains through them: the forward runs the kernel (or,
-on the CPU, its plain version) and the backward recomputes the plain
-version and takes its gradient (:class:`_PlainBackward`).  The kernel
-wrappers themselves stay forward-only, as the reference's
-``pallas_call`` is, and raise under autograd.
+on the CPU, its plain version).  Attention on bf16 tensors on the card
+takes its backward from the kernel pair ``flash_attention_bwd``
+(:class:`_FlashAttention`, the forward writing each row's log-sum-exp for
+it); every other backward, attention's in f32 or on the CPU included,
+recomputes the plain version and takes its gradient
+(:class:`_PlainBackward`).  The choice follows the tensors' device and
+type.  The kernel wrappers themselves stay forward-only, as the
+reference's ``pallas_call`` is, and raise under autograd.
 
 On a device mesh (DTensor operands) each op runs its kernel, or on the
 CPU its plain version, on the local shard: the call is wrapped in
@@ -31,14 +35,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import SMEM_DEFAULT, is_dtensor
+from repro_torch.kernels import SMEM_DEFAULT, is_dtensor, use_kernel
 from repro_torch.kernels.compose import (RA_COLS, RA_ROWS, _rank_apply_smem,
                                          compose, compose_dense_apply,
                                          rank_dense_apply)
 from repro_torch.kernels.conv_rank import conv_rank_apply
 from repro_torch.kernels.decode_attention import (
     decode_attention as decode_attention_kernel)
-from repro_torch.kernels.flash_attention import _flash_math
+from repro_torch.kernels.flash_attention import (_flash_math,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.flash_attention import (
     flash_attention as flash_attention_kernel)
 from repro_torch.kernels.rmsnorm import _rmsnorm_math
@@ -91,6 +96,31 @@ class _PlainBackward(torch.autograd.Function):
                 out, [t for t in tensors if t.requires_grad], grad))
             return (None, None, None,
                     *(next(grads) if n else None for n in need))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention on bf16 tensors on the card with a kernel backward: the
+    forward launches the flash kernel with its row log-sum-exp and saves
+    q, k, v, the output and the log-sum-exp; the backward launches
+    ``flash_attention_bwd`` (dq, dk, dv from two kernels, deterministic).
+    The backward runs in the span ``plain_backward.flash_attention``, the
+    name :class:`_PlainBackward` gives attention's replay, so a reader of
+    that span times attention's backward whichever computes it."""
+
+    @staticmethod
+    def forward(ctx, kw, q, k, v):
+        out, lse = flash_attention_kernel(q, k, v, with_lse=True, **kw)
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        with span("plain_backward.flash_attention", grad.device):
+            q, k, v, out, lse = ctx.saved_tensors
+            return (None, *flash_attention_bwd(q, k, v, out,
+                                               grad.contiguous(), lse,
+                                               **ctx.kw))
 
 
 # ---------------------------------------------------------------------------
@@ -257,8 +287,13 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     if kv_len is not None:
         kw["kv_len"] = torch.repeat_interleave(
             kv_len.to(device=q.device, dtype=torch.int32), KV)
-    out = _PlainBackward.apply(flash_attention_kernel, _flash_math, kw, qf,
-                               kf, vf)
+    if qf.dtype == torch.bfloat16 and use_kernel(qf) and \
+            torch.is_grad_enabled() and any(
+                t.requires_grad for t in (qf, kf, vf)):
+        out = _FlashAttention.apply(kw, qf, kf, vf)
+    else:  # a forward alone (no log-sum-exp written), f32, or the CPU
+        out = _PlainBackward.apply(flash_attention_kernel, _flash_math, kw,
+                                   qf, kf, vf)
     return out.reshape(B, KV, G, Sq, D).permute(0, 3, 1, 2, 4)
 
 

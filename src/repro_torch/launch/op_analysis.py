@@ -102,15 +102,20 @@ def kernel_cost(name: str, tensors, scalars) -> tuple:
     ``tensors`` and ``scalars``: each input read once and each output
     written once, and the products the launch's data needs."""
     live = [t for t in tensors if t is not None]
-    if name == "flash_attention":
-        q, k, v, out, kv_len = tensors
+    if name in ("flash_attention", "flash_attention_bwd"):
+        # forward: q, k, v, out, kv_len[, lse]; backward: q, k, v, out,
+        # dout, lse, delta (scratch), dq, dk, dv, kv_len.  Two products of
+        # the head size a visible pair forward, five backward (S and dP
+        # recomputed, dV, dK, dQ)
+        bwd = name == "flash_attention_bwd"
+        kv_len = tensors[10] if bwd else tensors[4]
         BH, Sq, Sk, D, G, causal, window = (int(s) for s in scalars[:7])
         lens = None if kv_len is None else kv_len.tolist()
         pairs = _attention_pairs(Sq, Sk, bool(causal), window, lens)
         per_row = pairs if lens is not None else pairs * (BH // G)
-        flops = 4 * D * G * per_row
-        return flops, sum(_bytes(t) for t in (q, k, v, out)) + (
-            0 if kv_len is None else _bytes(kv_len))
+        flops = (10 if bwd else 4) * D * G * per_row
+        return flops, sum(_bytes(t) for i, t in enumerate(tensors)
+                          if t is not None and not (bwd and i == 6))
     if name == "decode_attention":
         q, k, v, lens, out = tensors[:5]
         B, S, KV, G, D = (int(s) for s in scalars[:5])

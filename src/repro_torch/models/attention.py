@@ -8,13 +8,13 @@ Layouts (the JAX package's):
 :func:`flash_attention` is the training and prefill path: a loop over
 query chunks and, inside it, over KV chunks with a running max and sum,
 so the (S x S) score matrix never materialises.  It is plain PyTorch and
-differentiable by autograd, as the reference's scan is; the forward-only
-CUDA kernel with the same schedule is
+differentiable by autograd, as the reference's scan is; the CUDA kernel
+with the same schedule is
 :func:`repro_torch.kernels.flash_attention.flash_attention`.
 
 The attention block of the model zoo (:func:`self_attention`,
 :func:`decode_self_attention`) runs on a CUDA tensor through the two
-forward-only kernels (``kernels.ops.flash_attention`` and
+attention kernels (``kernels.ops.flash_attention``, differentiable, and
 ``kernels.ops.decode_attention``) and on the CPU through the plain
 :func:`flash_attention` and :func:`decode_attention` here, with
 sliding-window attention (a ring-buffer cache of ``window`` slots in

@@ -19,7 +19,8 @@ sliding-window attention and, for the decoder-only attention stacks, the
 int8 KV cache.  ``init`` and ``init_cache`` run on the CUDA card unless
 given ``device="cpu"``.  The RMSNorm, SSD-chunk and attention kernels are
 forward-only; ``kernels.ops`` gives them the backward of their plain
-versions, so ``loss_fn`` trains and serving launches them alike.  The
+versions (attention in bf16: its backward kernel pair), so ``loss_fn``
+trains and serving launches them alike.  The
 MoE layers' router aux loss reaches ``loss_fn`` through ``forward``.
 
 Batch keys: ``tokens`` (B, S) int, or ``embeddings`` (B, S, d) in their

@@ -35,8 +35,12 @@ The spans the port opens:
   the same layer replayed by remat inside the backward
   (``repro_torch.models.transformer._run``);
 - ``plain_backward.<kernel>`` (``flash_attention``, ``rmsnorm``,
-  ``ssd_chunk``): a kernel's plain replay and its gradient
-  (``repro_torch.kernels.ops._PlainBackward``);
+  ``ssd_chunk``): a kernel's backward (``repro_torch.kernels.ops``): its
+  plain replay and that replay's gradient (``_PlainBackward``), except
+  ``plain_backward.flash_attention`` on bf16 tensors on the card, which
+  times the backward kernel pair (``_FlashAttention``) under the same
+  name, so its reader measures attention's backward whatever computes
+  it;
 - every wall span of the FL engine's :class:`~repro_torch.obs.Recorder`
   (``trainer.device_step``, ``aggregate.merge``, ...).
 

@@ -167,6 +167,22 @@ def test_plain_backward_span(tmp_path):
     assert q.grad is not None and k.grad is not None and v.grad is not None
 
 
+def test_attention_backward_span_once_a_layer(monkeypatch):
+    """A step whose attention runs through ``kernels.ops`` (as on a card;
+    on the CPU its plain version) opens ``plain_backward.flash_attention``
+    once a layer, inside the backward, whichever backward computes it."""
+    from repro_torch.models import attention
+    monkeypatch.setattr(attention, "use_kernel", lambda t: True)
+    n = _cfg().num_layers
+    *_, prof = _step(traced=True)
+    got = _ranges(prof)
+    name = "plain_backward.flash_attention"
+    (bwd,) = got["train.backward"]
+    assert len(got[name]) == n
+    assert all(bwd[0] <= s and e <= bwd[1] for s, e in got[name])
+    assert spans.totals()[name]["calls"] == n
+
+
 def test_profiler_changes_no_number():
     p0, s0, m0, _ = _step(traced=False)
     p1, s1, m1, _ = _step(traced=True)
